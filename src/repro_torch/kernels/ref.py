@@ -1,0 +1,115 @@
+"""Plain PyTorch versions of every kernel in this package.
+
+These are the semantics contracts, one per kernel of the reference's
+``repro/kernels/ref.py`` ``ORACLES`` table: the CPU route of
+``kernels/ops.py`` runs them, and the tests and ``chip_smoke.py`` hold
+each CUDA kernel against them on the same inputs.  Scalars may be Python
+floats or 0-d tensors; arithmetic is float32 throughout.
+"""
+from __future__ import annotations
+
+import torch
+
+F32 = torch.float32
+
+
+def _scalar(x, like: torch.Tensor) -> torch.Tensor:
+    return torch.as_tensor(x, dtype=F32, device=like.device)
+
+
+def kernel_sumsq_ref(x: torch.Tensor) -> torch.Tensor:
+    """Row-wise sum of squares. x: (K, ksize) -> (K,) f32."""
+    return x.to(F32).square().sum(dim=-1)
+
+
+def kernel_l2_ref(x: torch.Tensor) -> torch.Tensor:
+    """Row-wise L2 norms. x: (K, ksize) -> (K,) f32."""
+    return torch.sqrt(kernel_sumsq_ref(x))
+
+
+def threshold_mask_ref(x: torch.Tensor, norms: torch.Tensor, thr
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Eq. 2 elementwise: zero rows whose norm < thr. x: (K, ksize)."""
+    keep = (norms >= _scalar(thr, norms)).to(x.dtype)
+    return x * keep[:, None], keep
+
+
+def quantize_ref(v: torch.Tensor, mask: torch.Tensor, u_min, u_max,
+                 n_levels, rand: torch.Tensor
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Eq. 3-4 with pre-drawn uniforms ``rand`` (same shape as v).
+
+    Returns (dequantized values, int32 level indices)."""
+    L = _scalar(n_levels, v)
+    u_min = _scalar(u_min, v)
+    u_max = _scalar(u_max, v)
+    vf = v.to(F32)
+    av = vf.abs()
+    span = torch.clamp(u_max - u_min, min=1e-20)
+    step = span / L
+    t = torch.minimum(torch.clamp((av - u_min) / step, min=0.0), L)
+    lo = torch.floor(t)
+    lvl = lo + (rand < (t - lo)).to(F32)
+    lvl = torch.minimum(torch.clamp(lvl, min=0.0), L)
+    q = (u_min + lvl * step) * torch.sign(vf)
+    nz = mask > 0
+    zero = torch.zeros((), dtype=F32, device=v.device)
+    q = torch.where(nz, q, zero).to(v.dtype)
+    lvl = torch.where(nz, lvl, zero).to(torch.int32)
+    return q, lvl
+
+
+def aio_aggregate_ref(u: torch.Tensor, m: torch.Tensor,
+                      w: torch.Tensor) -> torch.Tensor:
+    """Eq. 5. u, m: (I, N); w: (I,) -> (N,) f32.
+
+    Sums over devices in order, one at a time, as the CUDA kernel does."""
+    num = torch.zeros(u.shape[1], dtype=F32, device=u.device)
+    den = torch.zeros_like(num)
+    wf = w.to(F32)
+    for i in range(u.shape[0]):
+        wm = wf[i] * m[i].to(F32)
+        num = num + wm * u[i].to(F32)
+        den = den + wm
+    zero = torch.zeros((), dtype=F32, device=u.device)
+    return torch.where(den > 0, num / torch.clamp(den, min=1e-12), zero)
+
+
+def aio_absorb_ref(num: torch.Tensor, den: torch.Tensor, u: torch.Tensor,
+                   m: torch.Tensor, w) -> tuple[torch.Tensor, torch.Tensor]:
+    """Streaming AIO: fold one update into the (num, den) accumulator.
+    num, den, u, m: (N,); w: scalar.  Returns new tensors."""
+    wm = _scalar(w, num) * m.to(F32)
+    return num + wm * u.to(F32), den + wm
+
+
+def aio_merge_ref(num_a: torch.Tensor, den_a: torch.Tensor,
+                  num_b: torch.Tensor, den_b: torch.Tensor
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fuse two streaming-AIO accumulator pairs. All (N,)."""
+    return num_a + num_b, den_a + den_b
+
+
+def fused_sparsify_quantize_ref(x: torch.Tensor, norms: torch.Tensor, thr,
+                                u_min, u_max, n_levels, rand: torch.Tensor
+                                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Composition of Eq. 2 thresholding into Eq. 3-4 stochastic rounding
+    (threshold_mask_ref -> quantize_ref). x, rand: (K, ksize)."""
+    xm, keep = threshold_mask_ref(x, norms, thr)
+    mask = keep[:, None].expand(x.shape) * (xm.abs() > 0)
+    q, lvl = quantize_ref(xm.reshape(-1), mask.reshape(-1), u_min, u_max,
+                          n_levels, rand.reshape(-1))
+    return q.reshape(x.shape), lvl.reshape(x.shape)
+
+
+#: kernel name -> plain version; the keys are the reference's ORACLES keys
+ORACLES = {
+    "aio_aggregate": aio_aggregate_ref,
+    "aio_absorb": aio_absorb_ref,
+    "aio_merge": aio_merge_ref,
+    "kernel_sumsq": kernel_sumsq_ref,
+    "kernel_l2": kernel_l2_ref,
+    "threshold_apply": threshold_mask_ref,
+    "prob_quantize": quantize_ref,
+    "fused_sparsify_quantize": fused_sparsify_quantize_ref,
+}

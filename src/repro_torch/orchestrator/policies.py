@@ -1,0 +1,67 @@
+"""Arrival/aggregation policies: the paper's synchronous round.
+
+:class:`SyncPolicy` — the server barriers on every dispatched client and
+the round lasts ``max_i (T_cmp_i + T_com_i)``.  ``semisync`` and
+``fedbuff`` are named so that a config asking for them fails loudly; they
+arrive with ROADMAP queue 1's 'Semisync and fedbuff' item.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Sequence
+
+import torch
+
+from repro_torch.core import aggregation
+
+POLICIES = ("sync", "semisync", "fedbuff")
+
+
+@dataclasses.dataclass
+class OrchestratorConfig:
+    """Knobs of the discrete-event server."""
+    policy: str = "sync"
+
+    def __post_init__(self):
+        if self.policy not in POLICIES:
+            raise ValueError(f"unknown policy {self.policy!r}; "
+                             f"expected one of {POLICIES}")
+        if self.policy != "sync":
+            raise NotImplementedError(
+                f"policy {self.policy!r}: the port runs the sync policy "
+                f"only; ROADMAP queue 1 'Semisync and fedbuff' brings it")
+
+
+def base_weights(updates: Sequence) -> torch.Tensor:
+    """The synchronous loop's aggregation coefficients: AnycostFL's
+    Theorem-1 weights (the baselines' FedAvg weights arrive with ROADMAP
+    queue 1's 'Baselines' item)."""
+    return aggregation.optimal_coefficients(
+        [u.alpha for u in updates],
+        [max(u.beta_target, 1e-6) for u in updates])
+
+
+def apply_scales(weights: torch.Tensor,
+                 scales: Sequence[float]) -> torch.Tensor:
+    """Rescale + renormalize — identity (bitwise) when every scale is 1."""
+    if all(s == 1.0 for s in scales):
+        return weights
+    w = weights * torch.as_tensor(scales, dtype=torch.float32)
+    return w / w.sum()
+
+
+class SyncPolicy:
+    """Barrier on all dispatched clients (the paper's synchronous round)."""
+
+    name = "sync"
+
+    def __init__(self, cfg: OrchestratorConfig):
+        self.cfg = cfg
+
+    def accept(self, completions, round_start: float):
+        """All updates accepted; the round lasts until the last arrival.
+
+        Works on per-client *durations* (relative to the round start) so a
+        late round's latency is the same float as round 0's would be."""
+        lat = max((c.duration for c in completions), default=0.0)
+        return list(completions), [1.0] * len(completions), lat

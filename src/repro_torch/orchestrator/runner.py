@@ -1,0 +1,312 @@
+"""FL runner over the discrete-event engine: the synchronous round on a
+static flat fleet.
+
+``train/fl_loop.run_fl`` builds a :class:`Simulation` and runs
+:func:`_run_round_based` with the sync policy.  The numpy generator is
+consumed in the reference's order (``repro/orchestrator/runner.py``):
+setup (task data, partition, fleet), then per round the channel draws,
+the planner's probe permutation (first round only) and each device's
+minibatch draws, so one seed gives the reference's data, fleet, channels
+and strategies.
+
+Randomness the reference draws from its JAX key chain (the planner's
+probe quantization and each device's quantization uniforms) comes from
+an injectable *uniform source* instead, split at the same two places
+the reference splits its key.  By default it is a ``torch.Generator`` on
+the run's device; tests hand in a source that replays the reference's
+key chain.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Optional, Protocol
+
+import numpy as np
+import torch
+
+from repro_torch.configs import get_config
+from repro_torch.core import compression, schedule, shrinking
+from repro_torch.core.anycost import (AnycostClient, AnycostServer,
+                                      ClientUpdate, bucket_alpha)
+from repro_torch.data.partition import partition_dirichlet, partition_iid
+from repro_torch.data.synthetic import make_image_task
+from repro_torch.device import resolve_device
+from repro_torch.models import cnn as cnn_mod
+from repro_torch.models.registry import build_model
+from repro_torch.orchestrator import events as ev_mod
+from repro_torch.orchestrator.policies import (OrchestratorConfig,
+                                               SyncPolicy, apply_scales,
+                                               base_weights)
+from repro_torch.sysmodel.population import FleetConfig, make_fleet
+from repro_torch.train.fl_loop import (FLRunConfig, History,
+                                       _device_batches, _make_eval,
+                                       flops_per_sample)
+from repro_torch.utils.pytree import tree_size, tree_sub
+
+PyTree = Any
+#: n -> (n,) float32 uniforms in [0, 1) on the run's device
+Draw = Callable[[int], torch.Tensor]
+
+
+class UniformSource(Protocol):
+    """Where the run's quantization uniforms come from."""
+
+    def planner_stream(self) -> Draw:
+        """The planner's probe draw (the reference's one 2-way key split)."""
+
+    def device_stream(self) -> Draw:
+        """One prepared device's draw (the reference's 3-way key split)."""
+
+
+class TorchUniforms:
+    """The default uniform source: a seeded ``torch.Generator`` on the
+    run's device hands each split a child generator of its own."""
+
+    def __init__(self, seed: int, device):
+        self.device = torch.device(device)
+        self._gen = torch.Generator(device=self.device).manual_seed(seed)
+
+    def _child(self) -> Draw:
+        seed = int(torch.randint(0, 2 ** 62, (1,), generator=self._gen,
+                                 device=self.device))
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        return lambda n: torch.rand(n, generator=gen, device=self.device)
+
+    def planner_stream(self) -> Draw:
+        return self._child()
+
+    def device_stream(self) -> Draw:
+        return self._child()
+
+
+@dataclasses.dataclass
+class PendingUpdate:
+    """A dispatched client round travelling through the event queue."""
+    client_id: int
+    env: schedule.DeviceEnv
+    strat: schedule.Strategy
+    alpha: float                 # bucketed width actually trained
+    batches: dict
+    draw: Draw                   # the round's quantization uniforms
+    n_steps: int
+    dispatched_at: float = 0.0
+    completes_at: float = 0.0
+    # filled by Simulation.materialize
+    update: Optional[ClientUpdate] = None
+    t_cmp: float = 0.0
+    t_com: float = 0.0
+    energy: float = 0.0
+    e_cmp: float = 0.0           # compute (train) share of energy
+    e_com: float = 0.0           # radio (uplink) share of energy
+
+    @property
+    def duration(self) -> float:
+        return self.t_cmp + self.t_com
+
+
+class Simulation:
+    """Shared state + the per-device round body."""
+
+    def __init__(self, run_cfg: FLRunConfig,
+                 fleet_cfg: Optional[FleetConfig] = None, *,
+                 device="cuda", uniforms: Optional[UniformSource] = None):
+        if run_cfg.method != "anycostfl":
+            raise NotImplementedError(
+                f"method {run_cfg.method!r}: the baselines arrive with "
+                f"ROADMAP queue 1 'Baselines'")
+        self.device = resolve_device(device)
+        self.run_cfg = run_cfg
+        # setup order mirrors the reference: the numpy stream position
+        # after setup must match it
+        rng = self.rng = np.random.default_rng(run_cfg.seed)
+        arch_cfg = self.arch_cfg = get_config(run_cfg.arch)
+        self.model = build_model(arch_cfg)
+        self.spec = shrinking.cnn_shrink_spec(arch_cfg)
+        self.train, self.test = make_image_task(
+            rng, run_cfg.n_train, run_cfg.n_test,
+            shape=cnn_mod.image_shape(arch_cfg))
+        test_x = torch.from_numpy(self.test.x).to(self.device)
+        test_y = torch.from_numpy(self.test.y).to(self.device)
+        fleet_cfg = self.fleet_cfg = fleet_cfg or FleetConfig()
+        if run_cfg.iid:
+            self.parts = partition_iid(rng, run_cfg.n_train,
+                                       fleet_cfg.n_devices)
+        else:
+            self.parts = partition_dirichlet(rng, self.train.y,
+                                             fleet_cfg.n_devices,
+                                             run_cfg.dirichlet_alpha)
+        self.fleet = make_fleet(
+            rng, fleet_cfg, np.array([len(p) for p in self.parts]))
+        self.W = flops_per_sample(arch_cfg)
+        self.params = self.model.init(
+            torch.Generator().manual_seed(run_cfg.seed), self.device)
+        self._n_params = tree_size(self.params)
+        self.S_bits = 32.0 * self._n_params
+        self.client = AnycostClient(self.model, self.spec, lr=run_cfg.lr,
+                                    batch_size=run_cfg.batch_size,
+                                    alpha_buckets=run_cfg.alpha_buckets)
+        self.server = AnycostServer(self.model, self.spec)
+        self.planner = None
+        self.ev = _make_eval(self.model, test_x, test_y)
+        self.uniforms = uniforms if uniforms is not None \
+            else TorchUniforms(run_cfg.seed + 1, self.device)
+
+    # ------------------------------------------------------------ round body
+
+    def sort_params(self, params: PyTree) -> PyTree:
+        return self.server.sort(params)
+
+    def ensure_planner(self, sorted_params: PyTree) -> None:
+        """Fit the server-side beta planner on a probe update (§III-C.3)."""
+        rc = self.run_cfg
+        if self.planner is None and rc.use_planner:
+            draw = self.uniforms.planner_stream()
+            probe_idx = self.rng.permutation(rc.n_train)[:16]
+            probe_batches = {
+                "images": torch.from_numpy(
+                    self.train.x[probe_idx][None]).to(self.device),
+                "labels": torch.from_numpy(
+                    self.train.y[probe_idx][None]).to(self.device)}
+            trained = self.client._local_steps(sorted_params, probe_batches)
+            probe_update = tree_sub(sorted_params, trained)
+            self.planner = compression.BetaPlanner.fit(
+                probe_update, draw(self._n_params))
+
+    def prepare(self, i: int, env: schedule.DeviceEnv
+                ) -> Optional[PendingUpdate]:
+        """Strategy + minibatch draw for device i (consumes the streams in
+        the reference's order). Returns None when no (alpha, beta, f)
+        satisfies the budgets (the device sits this round out)."""
+        rc = self.run_cfg
+        strat = schedule.solve(env)
+        if not strat.feasible:
+            return None
+        alpha = bucket_alpha(strat.alpha, rc.alpha_buckets)
+        draw = self.uniforms.device_stream()
+        batches = _device_batches(self.rng, self.train.x, self.train.y,
+                                  self.parts[i], rc.batch_size, rc.tau,
+                                  self.device)
+        return PendingUpdate(client_id=i, env=env, strat=strat, alpha=alpha,
+                             batches=batches, draw=draw,
+                             n_steps=int(batches["images"].shape[0]))
+
+    def train_one(self, p: PendingUpdate, sorted_params: PyTree) -> PyTree:
+        sub = shrinking.shrink(sorted_params, p.alpha, self.spec)
+        return self.client._local_steps(sub, p.batches)
+
+    def materialize(self, p: PendingUpdate, trained: PyTree,
+                    sorted_params: PyTree) -> PendingUpdate:
+        """Decode the trained sub-model into a ClientUpdate + realized costs
+        (Eq. 6-9), with the reference's float-op order."""
+        env, strat = p.env, p.strat
+        upd = self.client.finish_round(
+            sorted_params, p.alpha, trained, strat, p.n_steps,
+            p.draw(self._n_params), planner=self.planner,
+            w_per_sample=self.W)
+        p.update = upd
+        # realized costs (Eq. 6-9) with the *realized* wire size
+        t_com = upd.bits / env.rate
+        e_com = t_com * env.P_com
+        t_cmp = upd.alpha * env.tau * env.D * env.W / strat.freq
+        e_cmp = env.eps_hw * strat.freq ** 2 * upd.alpha \
+            * env.tau * env.D * env.W
+        p.t_com, p.t_cmp = t_com, t_cmp
+        p.e_cmp, p.e_com = e_cmp, e_com
+        p.energy = e_cmp + e_com
+        return p
+
+    def aggregate(self, sorted_params: PyTree, accepted: list[PendingUpdate],
+                  weights: torch.Tensor) -> PyTree:
+        return self.server.aggregate(sorted_params,
+                                     [p.update for p in accepted],
+                                     weights=weights)
+
+    def evaluate(self, params: PyTree) -> tuple[float, float]:
+        acc, loss = self.ev(params)
+        return float(acc), float(loss)
+
+
+# ---------------------------------------------------------------- round mode
+
+def _run_round_based(sim: Simulation, policy: SyncPolicy,
+                     orch: OrchestratorConfig, verbose: bool) -> History:
+    rc = sim.run_cfg
+    queue = ev_mod.EventQueue()
+    hist = History(rc, [])
+    params = sim.params
+    t_wall = 0.0
+    T_max = sim.fleet_cfg.T_max
+
+    for t in range(rc.rounds):
+        envs = sim.fleet.round_envs(sim.rng, sim.W, sim.S_bits)
+        sorted_params = sim.sort_params(params)
+        sim.ensure_planner(sorted_params)
+        live = [p for p in (sim.prepare(i, env) for i, env in enumerate(envs))
+                if p is not None]
+        trained = [sim.train_one(p, sorted_params) for p in live]
+
+        en, fl, cb = 0.0, 0.0, 0.0
+        en_cmp = en_com = 0.0
+        for p, tr in zip(live, trained):
+            sim.materialize(p, tr, sorted_params)
+            p.dispatched_at = t_wall
+            p.completes_at = t_wall + p.duration
+            queue.push(p.completes_at, ev_mod.COMPLETE, p.client_id, p)
+            en += p.energy
+            en_cmp += p.e_cmp
+            en_com += p.e_com
+            fl += p.update.flops
+            cb += p.update.bits
+        for _ in range(len(live)):  # record arrival order
+            queue.pop()
+
+        if not live:               # no device found a feasible strategy
+            hist.log_round(t, latency_s=0.0, energy_j=en, flops=0.0,
+                           comm_bits=0.0, mean_alpha=0.0, mean_beta=0.0,
+                           mean_gain=0.0, t_wall=t_wall,
+                           t_max_effective=T_max)
+            continue
+
+        accepted, scales, lat = policy.accept(live, 0.0)
+        # critical-path split: compute until the slowest accepted
+        # client's T_cmp elapses, uplink/barrier wait for the rest
+        lt = min(lat, max((p.t_cmp for p in accepted), default=0.0))
+        t_wall += lat
+        if accepted:
+            w = apply_scales(base_weights([p.update for p in accepted]),
+                             scales)
+            params = sim.aggregate(sorted_params, accepted, w)
+
+        log = hist.log_round(
+            t, latency_s=lat, energy_j=en, flops=fl, comm_bits=cb,
+            mean_alpha=float(np.mean([p.update.alpha for p in live])),
+            mean_beta=float(np.mean([p.update.beta_realized
+                                     for p in live])),
+            mean_gain=float(np.mean([p.strat.gain for p in live])),
+            t_wall=t_wall, n_clients=len(accepted),
+            n_dropped=len(live) - len(accepted), t_max_effective=T_max,
+            energy_train_j=en_cmp, energy_uplink_j=en_com,
+            latency_train_s=lt, latency_uplink_s=lat - lt)
+        if t % rc.eval_every == 0 or t == rc.rounds - 1:
+            acc, loss = sim.evaluate(params)
+            hist.log_eval(log, acc, loss)
+            if verbose:
+                print(f"[{rc.method}/{policy.name}] round {t:3d} "
+                      f"acc={acc:.3f} loss={loss:.3f} lat={lat:.2f}s "
+                      f"E={en:.2f}J t={t_wall:.1f}s "
+                      f"alpha={log.mean_alpha:.2f} "
+                      f"beta={log.mean_beta:.4f}")
+    hist.trace = queue.trace_signature()
+    hist.final_params = params
+    return hist
+
+
+def run_orchestrated(run_cfg: FLRunConfig,
+                     fleet_cfg: Optional[FleetConfig] = None,
+                     orch: Optional[OrchestratorConfig] = None, *,
+                     device="cuda", verbose: bool = False) -> History:
+    """Run federated training under an arrival/aggregation policy (sync)."""
+    orch = orch or OrchestratorConfig()
+    sim = Simulation(run_cfg, fleet_cfg, device=device)
+    return _run_round_based(sim, SyncPolicy(orch), orch, verbose)
+

@@ -1,0 +1,108 @@
+"""Heterogeneous device fleet sampler (paper §V-A.2): the static flat fleet.
+
+I = 60 devices in a 550 m cell; energy coefficient eps_i ~ U[5e-27, 1e-26];
+positions re-dropped every round; per-round energy budget E_max ~ U[3, 9] J;
+shared latency budget T_max.  ``make_fleet`` and ``Fleet.round_envs``
+consume the numpy generator exactly as ``repro/sysmodel/population.py``
+does for this fleet, so one seed gives the same envs.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional
+
+import numpy as np
+
+from repro_torch.core.schedule import DeviceEnv
+from repro_torch.sysmodel.wireless import (WirelessConfig, achievable_rate,
+                                           drop_positions)
+
+
+@dataclasses.dataclass
+class FleetConfig:
+    n_devices: int = 60
+    T_max: float = 10.0
+    E_max_range: tuple = (3.0, 9.0)
+    eps_range: tuple = (5e-27, 1e-26)
+    f_min: float = 0.3e9
+    f_max: float = 2.0e9
+    tau: float = 1.0
+    alpha_min: float = 0.25
+    beta_min: float = 1e-3
+    beta_max: float = 1.0 / 15.0
+    wireless: WirelessConfig = dataclasses.field(default_factory=WirelessConfig)
+    # heterogeneity knobs for Fig. 5b-c: fix means, scale variances
+    eps_var_scale: float = 1.0
+    dist_mean_m: Optional[float] = None      # None -> uniform in cell
+    dist_var_scale: float = 1.0
+    # fleet dynamics, multi-cell topology and device motion are not
+    # ported yet: anything but None raises in make_fleet
+    dynamics: Optional[Any] = None
+    topology: Optional[Any] = None
+    mobility: Optional[Any] = None
+
+
+@dataclasses.dataclass
+class Fleet:
+    cfg: FleetConfig
+    eps_hw: np.ndarray        # (I,) fixed per device
+    E_max: np.ndarray         # (I,) fixed per device
+    data_sizes: np.ndarray    # (I,) samples per device
+
+    def _env(self, i: int, rate: float, W: float, S_bits: float) -> DeviceEnv:
+        c = self.cfg
+        return DeviceEnv(
+            T_max=c.T_max, E_max=float(self.E_max[i]),
+            P_com=c.wireless.tx_power_w, rate=float(rate),
+            W=W, D=int(self.data_sizes[i]), tau=c.tau,
+            eps_hw=float(self.eps_hw[i]), S_bits=S_bits,
+            f_min=c.f_min, f_max=c.f_max, alpha_min=c.alpha_min,
+            beta_min=c.beta_min, beta_max=c.beta_max)
+
+    def _distances(self, rng: np.random.Generator, n: int) -> np.ndarray:
+        c = self.cfg
+        w = c.wireless
+        if c.dist_mean_m is None:
+            pos = drop_positions(rng, n, w)
+            return np.linalg.norm(pos, axis=-1)
+        spread = (w.cell_radius_m / 4.0) * np.sqrt(c.dist_var_scale)
+        return np.clip(rng.normal(c.dist_mean_m, spread, n),
+                       10.0, w.cell_radius_m)
+
+    def round_envs(self, rng: np.random.Generator, W: float,
+                   S_bits: float) -> list[DeviceEnv]:
+        """Re-drop positions, draw fading and build per-device envs
+        (Eq. 6-9)."""
+        c = self.cfg
+        dist = self._distances(rng, c.n_devices)
+        rates = achievable_rate(dist, c.wireless, rng=rng)
+        return [self._env(i, rates[i], W, S_bits)
+                for i in range(c.n_devices)]
+
+
+_NOT_PORTED = {
+    "dynamics": "fleet dynamics (ROADMAP queue 1, 'Fleet dynamics')",
+    "topology": "the hierarchical topology (ROADMAP queue 1, "
+                "'Hierarchical topology')",
+    "mobility": "mobility and handover (ROADMAP queue 1, 'Mobility')",
+}
+
+
+def make_fleet(rng: np.random.Generator, cfg: FleetConfig,
+               data_sizes: np.ndarray) -> Fleet:
+    for field, item in _NOT_PORTED.items():
+        if getattr(cfg, field) is not None:
+            raise NotImplementedError(
+                f"FleetConfig.{field}: the port runs the static flat fleet "
+                f"only; {item} brings it")
+    lo, hi = cfg.eps_range
+    mean = 0.5 * (lo + hi)
+    half = 0.5 * (hi - lo) * np.sqrt(cfg.eps_var_scale)
+    eps = rng.uniform(mean - half, mean + half, cfg.n_devices)
+    eps = np.clip(eps, 1e-28, None)
+    e_lo, e_hi = cfg.E_max_range
+    e_max = rng.uniform(e_lo, e_hi, cfg.n_devices)
+    if len(data_sizes) != cfg.n_devices:
+        raise ValueError(f"{len(data_sizes)} data sizes for "
+                         f"{cfg.n_devices} devices")
+    return Fleet(cfg, eps, e_max, np.asarray(data_sizes))

@@ -1,0 +1,164 @@
+"""Multi-round federated training loop (paper §V experiments).
+
+Runs AnycostFL over the simulated heterogeneous fleet with real numerics
+on synthetic class-conditional data.  Tracks the Table-I columns: rounds,
+energy (J), latency (s), compute (FLOPs), communication (bits), test
+accuracy.  The round loop itself lives in ``orchestrator/runner.py``;
+this module keeps the public entry point (``run_fl``, the synchronous
+policy) and the config/log dataclasses and helpers shared with it.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core.anycost import DEFAULT_ALPHA_BUCKETS
+from repro_torch.models.registry import cls_loss
+from repro_torch.sysmodel.population import FleetConfig
+
+PyTree = Any
+
+
+@dataclasses.dataclass
+class FLRunConfig:
+    arch: str = "fmnist-cnn"
+    method: str = "anycostfl"
+    rounds: int = 30
+    lr: float = 0.05
+    batch_size: int = 32
+    tau: float = 1.0
+    seed: int = 0
+    iid: bool = True
+    dirichlet_alpha: float = 0.5
+    n_train: int = 2048
+    n_test: int = 512
+    eval_every: int = 5
+    alpha_buckets: tuple = DEFAULT_ALPHA_BUCKETS
+    use_planner: bool = True
+
+
+@dataclasses.dataclass
+class RoundLog:
+    """One round's record: the reference's fields that the synchronous
+    round on a static flat fleet sets."""
+    round: int
+    latency_s: float
+    energy_j: float
+    flops: float
+    comm_bits: float
+    mean_alpha: float
+    mean_beta: float
+    mean_gain: float
+    test_acc: Optional[float] = None
+    test_loss: Optional[float] = None
+    t_wall: float = 0.0           # simulated wall-clock at round end
+    n_clients: int = 0            # updates that entered the aggregation
+    n_dropped: int = 0            # completed but rejected
+    t_max_effective: float = 0.0  # T_max handed to the P4 solver
+    # per-phase split: energy sums to energy_j, latency to latency_s
+    energy_train_j: float = 0.0
+    energy_uplink_j: float = 0.0
+    latency_train_s: float = 0.0   # critical path: slowest client's T_cmp
+    latency_uplink_s: float = 0.0  # critical path: uplink + barrier wait
+
+
+@dataclasses.dataclass
+class History:
+    cfg: FLRunConfig
+    rounds: list
+    best_acc: float = 0.0
+    trace: Optional[tuple] = None   # event-queue replay signature
+    final_params: Optional[PyTree] = None   # the global model after the run
+
+    def log_round(self, round_idx: int, **fields) -> RoundLog:
+        log = RoundLog(round=round_idx, **fields)
+        self.rounds.append(log)
+        return log
+
+    def log_eval(self, log: RoundLog, acc: float, loss: float) -> None:
+        log.test_acc = acc
+        log.test_loss = loss
+        self.best_acc = max(self.best_acc, acc)
+
+    def cumulative(self, field: str) -> np.ndarray:
+        return np.cumsum([getattr(r, field) for r in self.rounds])
+
+    def wallclock(self) -> float:
+        """Simulated seconds at the end of the run."""
+        return self.rounds[-1].t_wall if self.rounds else 0.0
+
+    def time_to_acc(self, threshold: float) -> Optional[float]:
+        """Simulated wall-clock of the first eval reaching ``threshold``."""
+        for r in self.rounds:
+            if r.test_acc is not None and r.test_acc >= threshold:
+                return r.t_wall
+        return None
+
+    def to_rows(self) -> list[dict]:
+        """Per-round records plus the cumulative cost columns."""
+        out = []
+        for r, (ct, ce, cf, cb) in zip(
+                self.rounds, zip(self.cumulative("latency_s"),
+                                 self.cumulative("energy_j"),
+                                 self.cumulative("flops"),
+                                 self.cumulative("comm_bits"))):
+            row = dataclasses.asdict(r)
+            row.update(cum_latency_s=float(ct), cum_energy_j=float(ce),
+                       cum_flops=float(cf), cum_comm_bits=float(cb))
+            out.append(row)
+        return out
+
+
+def flops_per_sample(arch_cfg) -> float:
+    """Training FLOPs (fwd+bwd ~ 3x fwd) per sample — the paper's W."""
+    if arch_cfg.family != "cnn":
+        raise NotImplementedError("the LM families arrive with the pod "
+                                  "path (ROADMAP queue 1)")
+    c = arch_cfg.d_model
+    if arch_cfg.name.startswith("fmnist"):
+        fwd = (28 * 28 * 5 * 5 * 1 * c + 14 * 14 * 5 * 5 * c * 2 * c
+               + 7 * 7 * 2 * c * arch_cfg.d_ff
+               + arch_cfg.d_ff * arch_cfg.vocab_size) * 2
+    else:
+        fwd = (32 * 32 * 9 * (3 * c + c * c) + 16 * 16 * 9 * (c * 2 * c + 4 * c * c)
+               + 8 * 8 * 9 * (2 * c * 4 * c + 16 * c * c)
+               + 16 * 4 * c * arch_cfg.d_ff + arch_cfg.d_ff * arch_cfg.d_ff
+               + arch_cfg.d_ff * 10) * 2
+    return 3.0 * fwd
+
+
+def _make_eval(model, test_x: torch.Tensor, test_y: torch.Tensor):
+    def ev(params):
+        with torch.no_grad():
+            logits = model.forward(params, {"images": test_x})
+            acc = (logits.argmax(-1) == test_y).float().mean()
+            return acc, cls_loss(logits, test_y)
+
+    return ev
+
+
+def _device_batches(rng: np.random.Generator, x: np.ndarray, y: np.ndarray,
+                    idx: np.ndarray, batch_size: int, tau: float,
+                    device) -> dict:
+    """Stack tau-epoch minibatches -> (steps, B, ...) tensors on device."""
+    n = len(idx)
+    bs = min(batch_size, n)
+    steps = max(int(round(tau * n / bs)), 1)
+    order = np.concatenate([rng.permutation(n)
+                            for _ in range(math.ceil(steps * bs / n) + 1)])
+    sel = idx[order[:steps * bs]].reshape(steps, bs)
+    return {"images": torch.from_numpy(x[sel]).to(device),
+            "labels": torch.from_numpy(y[sel]).to(device)}
+
+
+def run_fl(run_cfg: FLRunConfig, fleet_cfg: Optional[FleetConfig] = None, *,
+           device="cuda", verbose: bool = False) -> "History":
+    """Synchronous federated training (the paper's lock-step rounds) on
+    ``device``: ``cuda`` unless the caller asks for the CPU."""
+    from repro_torch.orchestrator.runner import run_orchestrated
+    return run_orchestrated(run_cfg, fleet_cfg, device=device,
+                            verbose=verbose)

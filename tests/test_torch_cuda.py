@@ -1,0 +1,110 @@
+"""The port's CUDA kernels on a card, against their plain PyTorch versions.
+
+Every test here needs a CUDA card and skips without one; the file
+imports no JAX, so it runs on a machine that has only PyTorch:
+
+  python -m pytest -q -m gpu tests/test_torch_cuda.py
+
+Tolerances: level indices, masks and the aggregation exact (same
+float32 operations in the same order, no FMA contraction); norms rtol
+1e-5 (the plain version sums in another order).
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.core.compression import _leaf_views  # noqa: E402
+from repro_torch.kernels import (aio_agg, fused_compress, ops, ref,  # noqa: E402
+                                 sparsify)
+
+pytestmark = pytest.mark.gpu
+
+#: the fmnist-cnn update's leaves, in sorted-key order
+FMNIST_SHAPES = [(32,), (5, 5, 1, 32), (64,), (5, 5, 32, 64), (512,),
+                 (3136, 512), (10,), (512, 10)]
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _leaf_views_on(device, seed=11):
+    """Per-leaf (K, ksize) views of an update and its uniforms, as the
+    main path hands them to the kernels (strides (1, K))."""
+    n = sum(int(np.prod(s)) for s in FMNIST_SHAPES)
+    rng = np.random.default_rng(seed)
+    vec = torch.tensor(rng.standard_normal(n).astype(np.float32) * 1e-2,
+                       device=device)
+    rand = torch.tensor(rng.uniform(size=n).astype(np.float32),
+                        device=device)
+    return _leaf_views(vec, FMNIST_SHAPES), _leaf_views(rand, FMNIST_SHAPES)
+
+
+def test_norm_and_fused_kernels_match_plain_versions(cuda):
+    views, rands = _leaf_views_on(cuda)
+    for x, r in zip(views, rands):
+        norms = sparsify.kernel_l2(x)
+        torch.testing.assert_close(norms, ref.kernel_l2_ref(x), rtol=1e-5,
+                                   atol=0)
+        torch.testing.assert_close(sparsify.kernel_sumsq(x),
+                                   ref.kernel_sumsq_ref(x), rtol=1e-5,
+                                   atol=0)
+        thr = float(norms.median())
+        for levels in (2.0, 64.0, 37.25):
+            args = (x, norms, thr, 1e-4, float(x.abs().max()), levels, r)
+            q, lvl = fused_compress.fused_sparsify_quantize(*args)
+            qr, lr = ref.fused_sparsify_quantize_ref(*args)
+            assert q.stride() == x.stride()
+            assert torch.equal(lvl, lr)
+            assert torch.equal(q, qr)
+
+
+def test_fused_kernel_takes_row_major_views(cuda):
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn(300, 77, generator=g, device=cuda)
+    r = torch.rand(300, 77, generator=g, device=cuda)
+    norms = sparsify.kernel_l2(x)
+    args = (x, norms, float(norms.median()), 0.01, 3.0, 16.0, r)
+    q, lvl = fused_compress.fused_sparsify_quantize(*args)
+    qr, lr = ref.fused_sparsify_quantize_ref(*args)
+    assert torch.equal(lvl, lr) and torch.equal(q, qr)
+
+
+def test_aio_kernel_matches_plain_version_at_main_path_shape(cuda):
+    n = sum(int(np.prod(s)) for s in FMNIST_SHAPES)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    u = torch.randn(12, n, generator=g, device=cuda)
+    m = (torch.rand(12, n, generator=g, device=cuda) > 0.5).float()
+    m[:, :100] = 0.0                       # uncovered coordinates give 0
+    w = torch.rand(12, generator=g, device=cuda)
+    got = aio_agg.aio_aggregate(u, m, w)
+    assert torch.equal(got, ref.aio_aggregate_ref(u, m, w))
+    assert torch.equal(got[:100], torch.zeros(100, device=cuda))
+
+
+def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    x = torch.ones(4, 8, device=cuda)
+    with pytest.raises(TypeError):
+        sparsify.kernel_l2(x.double())
+    with pytest.raises(ValueError):
+        fused_compress.fused_sparsify_quantize(
+            x[:, ::2], torch.ones(4, device=cuda), 0.0, 0.0, 1.0, 2.0,
+            x[:, ::2])
+    with pytest.raises(ValueError):
+        aio_agg.aio_aggregate(x.t(), x.t(), torch.ones(8, device=cuda))
+
+
+def test_cuda_round_goes_through_every_kernel(cuda):
+    from repro_torch.sysmodel.population import FleetConfig
+    from repro_torch.train.fl_loop import FLRunConfig, run_fl
+    ops.reset_launch_counts()
+    hist = run_fl(FLRunConfig(rounds=1, n_train=128, n_test=32, eval_every=1,
+                              seed=3, use_planner=False),
+                  FleetConfig(n_devices=3), device="cuda")
+    counts = ops.launch_counts()
+    assert all(v > 0 for v in counts.values()), counts
+    assert np.isfinite(hist.rounds[-1].test_loss)

@@ -1,0 +1,210 @@
+"""The port's kernels on the CPU: plain PyTorch versions against the JAX
+oracles and the Pallas kernels (interpret mode), and the dispatch rules.
+The CUDA kernels themselves are held against the plain versions on a
+card, in ``tests/test_torch_cuda.py``.
+
+Inputs are made with a seeded numpy generator and handed to both sides.
+Tolerances: masks and level indices exact; values rtol 1e-6 (float32
+sums taken in another order), bits and norms as stated per test.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels import aio_agg as jax_aio  # noqa: E402
+from repro.kernels import fused_compress as jax_fused  # noqa: E402
+from repro.kernels import quantize as jax_quant  # noqa: E402
+from repro.kernels import ref as jax_ref  # noqa: E402
+from repro.kernels import sparsify as jax_sparsify  # noqa: E402
+from repro_torch.kernels import (aio_agg, build, fused_compress, ops,  # noqa: E402
+                                 ref, sparsify)
+
+torch.set_num_threads(1)
+
+
+def _rng(seed=0):
+    return np.random.default_rng(seed)
+
+
+def _t(a):
+    return torch.tensor(np.asarray(a))
+
+
+def _quant_inputs(rng, K, C):
+    x = rng.standard_normal((K, C)).astype(np.float32)
+    rand = rng.uniform(size=(K, C)).astype(np.float32)
+    norms = np.sqrt((x.astype(np.float32) ** 2).sum(1)).astype(np.float32)
+    thr = np.float32(np.median(norms))
+    keep = norms >= thr
+    av = np.abs(x) * keep[:, None]
+    u_min = np.float32(av[av > 0].min())
+    u_max = np.float32(av.max())
+    return x, rand, norms, thr, u_min, u_max
+
+
+def test_oracle_table_mirrors_reference():
+    assert set(ref.ORACLES) == set(jax_ref.ORACLES)
+
+
+@pytest.mark.parametrize("K,C", [(8, 128), (100, 700), (33, 1000),
+                                 (1000, 9), (512, 3136)])
+def test_kernel_sumsq_and_l2(K, C):
+    x = _rng(K).standard_normal((K, C)).astype(np.float32)
+    for port_fn, oracle, pallas in (
+            (ref.kernel_sumsq_ref, jax_ref.kernel_sumsq_ref,
+             jax_sparsify.kernel_sumsq),
+            (ref.kernel_l2_ref, jax_ref.kernel_l2_ref,
+             jax_sparsify.kernel_l2)):
+        got = port_fn(_t(x)).numpy()
+        np.testing.assert_allclose(got, np.asarray(oracle(jnp.asarray(x))),
+                                   rtol=1e-6)
+        np.testing.assert_allclose(
+            got, np.asarray(pallas(jnp.asarray(x), interpret=True)),
+            rtol=1e-6)
+
+
+def test_kernel_l2_op_takes_the_transposed_leaf_view():
+    """The main path's (K, ksize) view with strides (1, K) gives the
+    norms of a contiguous copy (rtol 1e-6: torch sums a strided view in
+    another order)."""
+    leaf = torch.tensor(_rng(1).standard_normal((5, 5, 4, 8))
+                        .astype(np.float32))
+    view = leaf.reshape(-1, 8).t()
+    assert view.stride() == (1, 8)
+    np.testing.assert_allclose(ops.kernel_l2_op(view).numpy(),
+                               ops.kernel_l2_op(view.contiguous()).numpy(),
+                               rtol=1e-6)
+
+
+@pytest.mark.parametrize("K,C", [(64, 256), (37, 129)])
+def test_threshold_apply(K, C):
+    x, _, norms, thr, _, _ = _quant_inputs(_rng(K), K, C)
+    xo, mo = ref.threshold_mask_ref(_t(x), _t(norms), float(thr))
+    xr, mr = jax_ref.threshold_mask_ref(jnp.asarray(x), jnp.asarray(norms),
+                                        jnp.float32(thr))
+    np.testing.assert_array_equal(xo.numpy(), np.asarray(xr))
+    np.testing.assert_array_equal(mo.numpy(), np.asarray(mr))
+
+
+@pytest.mark.parametrize("N", [512, 5000])
+@pytest.mark.parametrize("levels", [2, 16, 255, 37.25])
+def test_prob_quantize(N, levels):
+    rng = _rng(N)
+    v = rng.standard_normal(N).astype(np.float32)
+    mask = (rng.uniform(size=N) > 0.3).astype(np.float32)
+    rand = rng.uniform(size=N).astype(np.float32)
+    av = np.abs(v) * mask
+    u_min, u_max = np.float32(av[av > 0].min()), np.float32(av.max())
+    q, lvl = ref.quantize_ref(_t(v), _t(mask), float(u_min), float(u_max),
+                              levels, _t(rand))
+    qr, lr = jax_ref.quantize_ref(jnp.asarray(v), jnp.asarray(mask),
+                                  jnp.float32(u_min), jnp.float32(u_max),
+                                  jnp.float32(levels), jnp.asarray(rand))
+    qp, lp = jax_quant.prob_quantize(jnp.asarray(v), jnp.asarray(mask),
+                                     jnp.float32(u_min), jnp.float32(u_max),
+                                     jnp.float32(levels), jnp.asarray(rand),
+                                     interpret=True, block_n=512)
+    np.testing.assert_array_equal(lvl.numpy(), np.asarray(lr))
+    np.testing.assert_array_equal(lvl.numpy(), np.asarray(lp))
+    np.testing.assert_allclose(q.numpy(), np.asarray(qr), rtol=1e-6)
+    np.testing.assert_allclose(q.numpy(), np.asarray(qp), rtol=1e-6)
+
+
+@pytest.mark.parametrize("K,C", [(64, 256), (37, 129), (512, 3136)])
+@pytest.mark.parametrize("levels", [2, 64, 4096, 37.25])
+def test_fused_sparsify_quantize(K, C, levels):
+    x, rand, norms, thr, u_min, u_max = _quant_inputs(_rng(K + C), K, C)
+    args = (float(thr), float(u_min), float(u_max), float(levels))
+    q, lvl = ref.fused_sparsify_quantize_ref(_t(x), _t(norms), *args[:3],
+                                             args[3], _t(rand))
+    jargs = (jnp.asarray(x), jnp.asarray(norms), jnp.float32(thr),
+             jnp.float32(u_min), jnp.float32(u_max), jnp.float32(levels),
+             jnp.asarray(rand))
+    qr, lr = jax_ref.fused_sparsify_quantize_ref(*jargs)
+    qp, lp = jax_fused.fused_sparsify_quantize(*jargs, interpret=True)
+    for qq, ll in ((qr, lr), (qp, lp)):
+        np.testing.assert_array_equal(lvl.numpy(), np.asarray(ll))
+        np.testing.assert_allclose(q.numpy(), np.asarray(qq), rtol=1e-6)
+
+
+def test_fused_op_keeps_the_transposed_layout_semantics():
+    """Through ops, the strided (K, ksize) view of a leaf gives what the
+    contiguous copy gives."""
+    x, rand, norms, thr, u_min, u_max = _quant_inputs(_rng(3), 24, 50)
+    xt = _t(np.ascontiguousarray(x.T)).t()
+    rt = _t(np.ascontiguousarray(rand.T)).t()
+    args = (float(thr), float(u_min), float(u_max), 16.0)
+    a = ops.fused_sparsify_quantize_op(xt, _t(norms), *args, rt)
+    b = ops.fused_sparsify_quantize_op(_t(x), _t(norms), *args, _t(rand))
+    for u, v in zip(a, b):
+        np.testing.assert_array_equal(u.numpy(), v.numpy())
+
+
+@pytest.mark.parametrize("I,N", [(2, 512), (7, 3000), (12, 2048), (3, 17)])
+def test_aio_aggregate(I, N):
+    rng = _rng(I * N)
+    u = rng.standard_normal((I, N)).astype(np.float32)
+    m = (rng.uniform(size=(I, N)) > 0.5).astype(np.float32)
+    w = rng.uniform(size=I).astype(np.float32)
+    got = ref.aio_aggregate_ref(_t(u), _t(m), _t(w)).numpy()
+    want = np.asarray(jax_ref.aio_aggregate_ref(jnp.asarray(u),
+                                                jnp.asarray(m),
+                                                jnp.asarray(w)))
+    pallas = np.asarray(jax_aio.aio_aggregate(jnp.asarray(u), jnp.asarray(m),
+                                              jnp.asarray(w), interpret=True,
+                                              block_n=512))
+    # atol: float32 cancellation in num where signs mix
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(got, pallas, rtol=1e-6, atol=1e-6)
+    np.testing.assert_array_equal(got == 0, want == 0)
+
+
+def test_aio_absorb_and_merge_plain_versions():
+    rng = _rng(5)
+    num, den, u, m = (rng.standard_normal(300).astype(np.float32)
+                      for _ in range(4))
+    m = (m > 0).astype(np.float32)
+    for got, want in zip(
+            ref.aio_absorb_ref(_t(num), _t(den), _t(u), _t(m), 0.37),
+            jax_ref.aio_absorb_ref(jnp.asarray(num), jnp.asarray(den),
+                                   jnp.asarray(u), jnp.asarray(m), 0.37)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6)
+    for got, want in zip(
+            ref.aio_merge_ref(_t(num), _t(den), _t(u), _t(m)),
+            jax_ref.aio_merge_ref(jnp.asarray(num), jnp.asarray(den),
+                                  jnp.asarray(u), jnp.asarray(m))):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_cpu_route_launches_no_kernel():
+    ops.reset_launch_counts()
+    x = torch.ones(4, 8)
+    ops.kernel_l2_op(x)
+    ops.aio_aggregate_op(x, x, torch.ones(4))
+    assert set(ops.launch_counts().values()) == {0}
+
+
+def test_operands_off_cpu_and_cuda_raise():
+    x = torch.ones(4, 8, device="meta")
+    with pytest.raises(ValueError):
+        ops.kernel_l2_op(x)
+
+
+@pytest.mark.parametrize("call", [
+    lambda x: sparsify.kernel_l2(x),
+    lambda x: fused_compress.fused_sparsify_quantize(
+        x, torch.ones(4), 0.0, 0.0, 1.0, 2.0, x),
+    lambda x: aio_agg.aio_aggregate(x, x, torch.ones(4)),
+])
+def test_cuda_wrappers_refuse_cpu_tensors(call):
+    with pytest.raises(ValueError):
+        call(torch.ones(4, 8))
+
+
+def test_build_without_nvcc_raises(monkeypatch, tmp_path):
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setenv("PATH", str(tmp_path))
+    with pytest.raises(RuntimeError, match="nvcc"):
+        build.nvcc()
