@@ -15,16 +15,25 @@ masks; the denominator comes from those masks, never from ``values != 0``
 (a coordinate quantized to zero still counts).  :func:`aio_aggregate`
 stacks the flat updates and masks once as ``(I, N)`` and launches the
 ``aio_aggregate`` kernel once.  The coefficients are float32 on the CPU.
-The streaming ``PartialAgg`` monoid arrives with the hierarchical path.
+
+The streaming form is the :class:`PartialAgg` monoid: unnormalized
+running sums ``num = sum_i w_i m_i u_i`` and ``den = sum_i w_i m_i``,
+folded one update at a time (absorb) and fused pairwise (merge); Eq. 5's
+ratio cancels any common normalization of the weights, so the fold is
+order-free up to float rounding.  The planes are flat ``(N,)`` float32
+vectors over the sorted-key leaves, so an absorb is one ``aio_absorb``
+launch and a merge one ``aio_merge`` launch, both in place.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Sequence
 
 import torch
 
 from repro_torch.kernels import ops
-from repro_torch.utils.pytree import flatten_to_vector
+from repro_torch.utils.pytree import (flat_vector, flatten_to_vector,
+                                      split_vector, tree_leaves, tree_size)
 
 PyTree = Any
 F32 = torch.float32
@@ -59,3 +68,75 @@ def aio_aggregate(updates: Sequence[PyTree], masks: Sequence[PyTree],
     m = torch.stack([flatten_to_vector(x)[0] for x in masks])
     w = torch.as_tensor(weights, dtype=F32).to(u.device)
     return unflatten(ops.aio_aggregate_op(u, m, w))
+
+
+# --------------------------------------------------------------- PartialAgg
+
+@dataclasses.dataclass
+class PartialAgg:
+    """Unnormalized AIO running sums over the flattened coordinates.
+
+    ``num``/``den`` are flat ``(N,)`` float32 planes in the sorted-key
+    leaf order of ``template``, whose structure and leaf shapes they
+    follow.  ``count`` is how many updates were folded in (bookkeeping
+    only: it does not enter the math)."""
+    num: torch.Tensor
+    den: torch.Tensor
+    template: PyTree
+    count: int = 0
+
+
+def partial_init(template: PyTree) -> PartialAgg:
+    """The monoid identity: all-zero planes on ``template``'s device."""
+    dev = tree_leaves(template)[0].device
+    num = torch.zeros(tree_size(template), dtype=F32, device=dev)
+    return PartialAgg(num=num, den=torch.zeros_like(num), template=template)
+
+
+def absorb_trees(num: torch.Tensor, den: torch.Tensor, values: PyTree,
+                 mask: PyTree, weight: float) -> None:
+    """The absorb rule, IN PLACE on the flat planes: ``num += w*m*u``,
+    ``den += w*m``, one ``aio_absorb`` launch.  ``values``/``mask`` are
+    read as flat vectors without a copy when their leaves tile one
+    buffer (as ``AnycostClient.finish_round`` leaves them)."""
+    ops.aio_absorb_op(num, den, flat_vector(values), flat_vector(mask),
+                      weight)
+
+
+def partial_absorb(part: PartialAgg, values: PyTree, mask: PyTree,
+                   weight: float) -> None:
+    """Fold one device update into ``part`` in place.  ``weight`` is the
+    device's *unnormalized* coefficient (Eq. 5's ratio cancels any
+    common normalization)."""
+    absorb_trees(part.num, part.den, values, mask, weight)
+    part.count += 1
+
+
+def merge_trees(num_a: torch.Tensor, den_a: torch.Tensor,
+                num_b: torch.Tensor, den_b: torch.Tensor) -> None:
+    """The merge rule, IN PLACE on the a-side planes: ``num_a += num_b``,
+    ``den_a += den_b``, one ``aio_merge`` launch."""
+    ops.aio_merge_op(num_a, den_a, num_b, den_b)
+
+
+def partial_merge(a: PartialAgg, b: PartialAgg) -> None:
+    """Fuse ``b`` into ``a`` in place (commutative and associative up to
+    float rounding); ``b`` is left as it was."""
+    merge_trees(a.num, a.den, b.num, b.den)
+    a.count += b.count
+
+
+def finalize_trees(num: torch.Tensor, den: torch.Tensor,
+                   template: PyTree) -> PyTree:
+    """Eq. 5's ratio over the flat planes, ``num/den`` where any device
+    covered the coordinate and 0 elsewhere, as a pytree shaped like
+    ``template`` (plain PyTorch: the reference computes it outside any
+    kernel)."""
+    zero = torch.zeros((), dtype=F32, device=num.device)
+    agg = torch.where(den > 0, num / torch.clamp(den, min=1e-12), zero)
+    return split_vector(template, agg)
+
+
+def partial_finalize(part: PartialAgg) -> PyTree:
+    """Eq. 5's ratio of a partial, shaped like its template."""
+    return finalize_trees(part.num, part.den, part.template)

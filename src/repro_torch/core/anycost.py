@@ -15,7 +15,8 @@ import torch
 from repro_torch.core import aggregation, compression, shrinking
 from repro_torch.core.schedule import Strategy
 from repro_torch.models.registry import Model, loss_fn
-from repro_torch.utils.pytree import (tree_leaves, tree_map, tree_size,
+from repro_torch.utils.pytree import (flat_vector, split_vector,
+                                      tree_leaves, tree_map, tree_size,
                                       tree_sub, tree_unflatten)
 
 PyTree = Any
@@ -101,9 +102,13 @@ class AnycostClient:
         rho, levels = self.finish_plan(beta, planner)
         comp = compression.compress_update(full_update, beta, rand,
                                            rho=rho, n_levels=levels)
-        # the transmitted mask = width mask AND sparsity mask
-        mask = tree_map(torch.mul, width_mask, comp.mask)
-        values = tree_map(torch.mul, comp.values, mask)
+        # the transmitted mask = width mask AND sparsity mask; both trees
+        # are views of one flat buffer each, which the streaming
+        # aggregation reads without a copy
+        mask_vec = flat_vector(width_mask) * flat_vector(comp.mask)
+        mask = split_vector(width_mask, mask_vec)
+        values = split_vector(width_mask,
+                              flat_vector(comp.values) * mask_vec)
         n = tree_size(full_update)
         n_samples = n_steps * self.batch_size
         bits = float(comp.bits)

@@ -16,11 +16,14 @@ Pipeline over a local update pytree ``u``:
 :func:`compress_update` runs the norms through the ``kernel_l2`` kernel
 and steps 1-2 through the ``fused_sparsify_quantize`` kernel, one launch
 per leaf each (``kernels/ops.py`` picks the plain versions for CPU
-tensors).  The threshold (a sort of the K norms) and the masked
-``u_min``/``u_max`` are plain reductions, as in the reference.
-:func:`sparsify_mask` and :func:`prob_quantize` keep the reference's
-composition over the flat vector; the tests hold the kernel route
-against them.
+tensors).  :meth:`BetaPlanner.fit` keeps the reference's structure
+instead: step 1 once per ``rho`` (``threshold_apply``, one launch per
+leaf) and step 2 once per ``(rho, L)`` over the flat masked vector
+(``prob_quantize``, one launch).  The threshold (a sort of the K norms)
+and the masked ``u_min``/``u_max`` are plain reductions, as in the
+reference.  :func:`sparsify_mask` and :func:`prob_quantize` keep the
+reference's composition over the flat vector; the tests hold the kernel
+routes against them.
 
 Randomness is an input: where the reference draws uniforms from a JAX
 key, these functions take them as ``rand`` (one float32 per element of
@@ -326,12 +329,29 @@ class BetaPlanner:
         n = vec.numel()
         records = []
         for rho in rho_grid:
+            # Eq. 2 once per rho: one threshold_apply per leaf writes its
+            # slot of the flat masked vector
+            thr = float(sparsify_threshold(norms, rho))
+            masked = torch.empty_like(vec)
+            mask_views, k0 = [], 0
+            for x, out in zip(_leaf_views(vec, shapes),
+                              _leaf_views(masked, shapes)):
+                k = x.shape[0]
+                _, keep = ops.threshold_apply_op(x, norms[k0:k0 + k], thr,
+                                                 out=out)
+                mask_views.append(keep[:, None].expand(x.shape))
+                k0 += k
+            mask = _from_views(mask_views)
+            u_min, u_max = masked_range(masked, mask)
+            u_min_f, u_max_f = torch.stack([u_min, u_max]).tolist()
+            # Eq. 3-4 once per (rho, L) over the flat vector
             for L in level_grid:
-                fgc = _sparsify_quantize(vec, shapes, norms, rho, L, rand,
-                                         MAX_LEVELS)
-                beta = float(fgc.bits) / (32.0 * n)
-                err = float(torch.linalg.vector_norm(fgc.values * fgc.mask
-                                                     - vec))
+                values, levels = ops.prob_quantize_op(
+                    masked, mask, u_min_f, u_max_f, float(L), rand)
+                bits = compressed_bits(Quantized(values, levels, u_min,
+                                                 u_max), mask, MAX_LEVELS)
+                beta = float(bits) / (32.0 * n)
+                err = float(torch.linalg.vector_norm(values * mask - vec))
                 records.append((beta, rho, L, err))
         # pareto: for ascending beta keep min-err
         records.sort()

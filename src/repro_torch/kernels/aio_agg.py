@@ -1,9 +1,10 @@
-"""Hopper kernel: AIO aggregation, batched (Eq. 5).
+"""Hopper kernels: AIO aggregation (Eq. 5), batched and streaming.
 
-Wrapper over ``csrc/aio_agg.cu``, which replaces the reference's
-``aio_aggregate`` (``repro/kernels/aio_agg.py``).  The streaming
-``aio_absorb``/``aio_merge`` kernels arrive with the hierarchical and
-fedbuff paths.  The CPU route is ``kernels/ops.py``'s.
+Wrappers over ``csrc/aio_agg.cu``, which replaces the reference's
+``aio_aggregate``, ``aio_absorb`` and ``aio_merge``
+(``repro/kernels/aio_agg.py``).  ``aio_absorb`` and ``aio_merge`` update
+the ``(num, den)`` accumulator in its own storage, as the TPU kernels
+alias their outputs onto it.  The CPU route is ``kernels/ops.py``'s.
 """
 from __future__ import annotations
 
@@ -13,11 +14,39 @@ import torch
 
 from repro_torch.kernels import build
 
-launches = {"aio_aggregate": 0}
+launches = {"aio_aggregate": 0, "aio_absorb": 0, "aio_merge": 0}
 
 _SYMBOL = "aio_aggregate_f32"
 _ARGS = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
          ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p)
+_ABSORB = "aio_absorb_f32"
+_ABSORB_ARGS = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_void_p, ctypes.c_float, ctypes.c_int64,
+                ctypes.c_void_p)
+_MERGE = "aio_merge_f32"
+_MERGE_ARGS = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+               ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p)
+
+
+def _check_planes(kernel: str, **planes: torch.Tensor) -> int:
+    """Every plane a contiguous float32 (N,) vector on one CUDA device;
+    returns N."""
+    first = next(iter(planes.values()))
+    for name, t in planes.items():
+        if t.device.type != "cuda" or t.device != first.device:
+            raise ValueError(f"{kernel}: {name} must be on {first.device} "
+                             f"(CUDA); got {t.device}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{kernel}: {name} must be float32; got "
+                            f"{t.dtype}")
+        if t.dim() != 1 or t.shape != first.shape or not t.is_contiguous():
+            raise ValueError(f"{kernel}: every plane must be a contiguous "
+                             f"vector of one length; {name} has shape "
+                             f"{tuple(t.shape)}, strides {t.stride()}")
+    if first.numel() >= 2 ** 31:
+        raise ValueError(f"{kernel}: {first.numel()} elements exceed the "
+                         f"kernel's grid")
+    return first.numel()
 
 
 def aio_aggregate(u: torch.Tensor, m: torch.Tensor,
@@ -48,3 +77,36 @@ def aio_aggregate(u: torch.Tensor, m: torch.Tensor,
     build.check("aio_agg", _SYMBOL, code)
     launches["aio_aggregate"] += 1
     return out
+
+
+def aio_absorb(num: torch.Tensor, den: torch.Tensor, u: torch.Tensor,
+               m: torch.Tensor, w: float) -> None:
+    """In place: ``num += w*m*u``, ``den += w*m``; all (N,) float32
+    contiguous CUDA vectors, ``w`` rounded to float32."""
+    N = _check_planes("aio_absorb", num=num, den=den, u=u, m=m)
+    if N == 0:
+        return
+    fn = build.function("aio_agg", _ABSORB, _ABSORB_ARGS)
+    with torch.cuda.device(num.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = fn(num.data_ptr(), den.data_ptr(), u.data_ptr(),
+                  m.data_ptr(), float(w), N, stream)
+    build.check("aio_agg", _ABSORB, code)
+    launches["aio_absorb"] += 1
+
+
+def aio_merge(num_a: torch.Tensor, den_a: torch.Tensor, num_b: torch.Tensor,
+              den_b: torch.Tensor) -> None:
+    """In place: ``num_a += num_b``, ``den_a += den_b``; all (N,) float32
+    contiguous CUDA vectors."""
+    N = _check_planes("aio_merge", num_a=num_a, den_a=den_a, num_b=num_b,
+                      den_b=den_b)
+    if N == 0:
+        return
+    fn = build.function("aio_agg", _MERGE, _MERGE_ARGS)
+    with torch.cuda.device(num_a.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = fn(num_a.data_ptr(), den_a.data_ptr(), num_b.data_ptr(),
+                  den_b.data_ptr(), N, stream)
+    build.check("aio_agg", _MERGE, code)
+    launches["aio_merge"] += 1

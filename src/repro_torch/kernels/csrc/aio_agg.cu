@@ -1,4 +1,6 @@
-// AIO aggregation, batched (paper Eq. 5):
+// AIO aggregation (paper Eq. 5), batched and streaming.
+//
+// Batched:
 //   out[j] = sum_i w_i m_ij u_ij / sum_i w_i m_ij   where the sum is > 0,
 //   else 0.
 //
@@ -48,5 +50,63 @@ extern "C" int aio_aggregate_f32(const float* u, const float* m,
   const unsigned grid = static_cast<unsigned>((N + THREADS - 1) / THREADS);
   aio_kernel<<<grid, THREADS, 0, stream>>>(u, m, w, out,
                                            static_cast<int>(I), N);
+  return repro_launch_status();
+}
+
+namespace {
+
+// Streaming (the PartialAgg monoid of core/aggregation.py), in place:
+//   absorb: num[j] += w m[j] u[j];  den[j] += w m[j]
+//   merge:  num_a[j] += num_b[j];   den_a[j] += den_b[j]
+//
+// Replaces: repro/kernels/aio_agg.py:aio_absorb (pl.pallas_call at :108)
+// and aio_merge (:143).  The TPU kernels alias their outputs onto the
+// accumulator operands ({1: 0, 2: 1} and {0: 0, 1: 1}) and are donated;
+// here the accumulator is read and written through one pointer per plane,
+// never declared __restrict__, and nothing is allocated.
+//
+// Bound on an H100 (3.35 TB/s): bytes.  Absorb reads num, den, u, m and
+// writes num, den; merge reads four planes and writes two: 24 B per
+// element each, 39.9 MB for the fmnist-cnn update (N = 1,663,370), about
+// 11.9 us.
+//
+// Design: one thread per element, coalesced.  wm = w * m is rounded first,
+// then num + wm * u, with __fmul_rn / __fadd_rn (no FMA contraction), as
+// the plain version computes it: the two agree bit for bit.  w arrives by
+// value as a float32, the reference's jnp.float32(weight).
+__global__ void __launch_bounds__(THREADS)
+absorb_kernel(float* num, float* den, const float* __restrict__ u,
+              const float* __restrict__ m, float w, int64_t N) {
+  const int64_t j = static_cast<int64_t>(blockIdx.x) * THREADS + threadIdx.x;
+  if (j >= N) return;
+  const float wm = __fmul_rn(w, m[j]);
+  num[j] = __fadd_rn(num[j], __fmul_rn(wm, u[j]));
+  den[j] = __fadd_rn(den[j], wm);
+}
+
+__global__ void __launch_bounds__(THREADS)
+merge_kernel(float* num_a, float* den_a, const float* num_b,
+             const float* den_b, int64_t N) {
+  const int64_t j = static_cast<int64_t>(blockIdx.x) * THREADS + threadIdx.x;
+  if (j >= N) return;
+  num_a[j] = __fadd_rn(num_a[j], num_b[j]);
+  den_a[j] = __fadd_rn(den_a[j], den_b[j]);
+}
+
+}  // namespace
+
+extern "C" int aio_absorb_f32(float* num, float* den, const float* u,
+                              const float* m, float w, int64_t N,
+                              cudaStream_t stream) {
+  const unsigned grid = static_cast<unsigned>((N + THREADS - 1) / THREADS);
+  absorb_kernel<<<grid, THREADS, 0, stream>>>(num, den, u, m, w, N);
+  return repro_launch_status();
+}
+
+extern "C" int aio_merge_f32(float* num_a, float* den_a, const float* num_b,
+                             const float* den_b, int64_t N,
+                             cudaStream_t stream) {
+  const unsigned grid = static_cast<unsigned>((N + THREADS - 1) / THREADS);
+  merge_kernel<<<grid, THREADS, 0, stream>>>(num_a, den_a, num_b, den_b, N);
   return repro_launch_status();
 }

@@ -25,10 +25,10 @@
 // and lvl share x's layout.
 // Exactness: built without --use_fast_math, so '/' is IEEE division and
 // floorf is exact; the level index must equal the reference's bit for bit.
-// -fmad=false is not used: the products and sums of the q formula and of
-// v = x * keep are written with __fmul_rn / __fadd_rn / __fsub_rn, which
-// are never contracted into an FMA, so q rounds exactly as the unfused
-// PyTorch version does.
+// -fmad=false is not used: v = x * keep and the Eq. 3-4 step (shared with
+// quantize.cu through common.cuh) are written with __fmul_rn / __fadd_rn /
+// __fsub_rn, which are never contracted into an FMA, so q rounds exactly
+// as the unfused PyTorch version does.
 #include "common.cuh"
 
 namespace {
@@ -46,15 +46,10 @@ fused_kernel(const float* __restrict__ x, const float* __restrict__ rand,
   const uint32_t k = kernel_fastest ? o % K : o / C;
   const float keep = norms[k] >= thr ? 1.0f : 0.0f;
   const float v = __fmul_rn(x[o], keep);
-  const float av = fabsf(v);
-  const float step = fmaxf(__fsub_rn(u_max, u_min), 1e-20f) / L;
-  const float t = fminf(fmaxf(__fsub_rn(av, u_min) / step, 0.0f), L);
-  const float lo = floorf(t);
-  const float up = rand[o] < __fsub_rn(t, lo) ? 1.0f : 0.0f;
-  const float level = fminf(fmaxf(__fadd_rn(lo, up), 0.0f), L);
-  const float sgn = v > 0.0f ? 1.0f : (v < 0.0f ? -1.0f : 0.0f);
-  const float qv = __fmul_rn(__fadd_rn(u_min, __fmul_rn(level, step)), sgn);
-  const bool nz = av > 0.0f;
+  float qv, level;
+  repro_quantize_element(v, rand[o], u_min, repro_quant_step(u_min, u_max, L),
+                         L, &qv, &level);
+  const bool nz = fabsf(v) > 0.0f;
   q[o] = nz ? qv : 0.0f;
   lvl[o] = nz ? static_cast<int32_t>(level) : 0;
 }

@@ -23,16 +23,16 @@ _ARGS = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
          ctypes.c_float, ctypes.c_void_p)
 
 
-def _kernel_fastest(t: torch.Tensor) -> bool:
+def kernel_fastest(t: torch.Tensor, kernel: str) -> bool:
     """True for a dense (K, C) view whose kernel index varies fastest in
-    memory (the transpose of a C-order leaf), False for row-major."""
+    memory (the transpose of a C-order leaf), False for row-major; any
+    other layout raises, naming ``kernel``."""
     if t.t().is_contiguous():
         return True
     if t.is_contiguous():
         return False
-    raise ValueError(f"fused_sparsify_quantize takes a dense (K, ksize) "
-                     f"view; got strides {t.stride()} for shape "
-                     f"{tuple(t.shape)}")
+    raise ValueError(f"{kernel} takes a dense (K, ksize) view; got strides "
+                     f"{t.stride()} for shape {tuple(t.shape)}")
 
 
 def fused_sparsify_quantize(x: torch.Tensor, norms: torch.Tensor, thr: float,
@@ -58,8 +58,8 @@ def fused_sparsify_quantize(x: torch.Tensor, norms: torch.Tensor, thr: float,
         raise ValueError(f"fused_sparsify_quantize: norms must be a "
                          f"contiguous ({K},) vector; got "
                          f"{tuple(norms.shape)}")
-    fastest = _kernel_fastest(x)
-    if _kernel_fastest(rand) != fastest:
+    fastest = kernel_fastest(x, "fused_sparsify_quantize")
+    if kernel_fastest(rand, "fused_sparsify_quantize") != fastest:
         raise ValueError("fused_sparsify_quantize: rand must share x's "
                          "layout")
     n = x.numel()

@@ -7,11 +7,15 @@ to the other, and no switch besides the device the data lies on.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
-from repro_torch.kernels import aio_agg, fused_compress, ref, sparsify
+from repro_torch.kernels import (aio_agg, fused_compress, quantize, ref,
+                                 sparsify)
 
-_COUNTERS = (sparsify.launches, fused_compress.launches, aio_agg.launches)
+_COUNTERS = (sparsify.launches, quantize.launches, fused_compress.launches,
+             aio_agg.launches)
 
 
 def _on_cuda(*tensors: torch.Tensor) -> bool:
@@ -36,6 +40,28 @@ def kernel_l2_op(x: torch.Tensor) -> torch.Tensor:
     return ref.kernel_l2_ref(x)
 
 
+def threshold_apply_op(x: torch.Tensor, norms: torch.Tensor, thr,
+                       out: Optional[torch.Tensor] = None
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Eq. 2 on one (K, ksize) leaf view: (x with the rows below ``thr``
+    zeroed, laid out like x and written into ``out`` when given; the
+    float32 keep vector (K,))."""
+    if _on_cuda(x, norms):
+        return sparsify.threshold_apply(x, norms, thr, out)
+    xm, keep = ref.threshold_mask_ref(x, norms, thr)
+    if out is None:
+        return xm, keep
+    return out.copy_(xm), keep
+
+
+def prob_quantize_op(v: torch.Tensor, mask: torch.Tensor, u_min, u_max,
+                     n_levels, rand: torch.Tensor
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    if _on_cuda(v, mask, rand):
+        return quantize.prob_quantize(v, mask, u_min, u_max, n_levels, rand)
+    return ref.quantize_ref(v, mask, u_min, u_max, n_levels, rand)
+
+
 def fused_sparsify_quantize_op(x, norms, thr, u_min, u_max, n_levels, rand):
     if _on_cuda(x, norms, rand):
         return fused_compress.fused_sparsify_quantize(
@@ -51,6 +77,31 @@ def aio_aggregate_op(u: torch.Tensor, m: torch.Tensor,
     return ref.aio_aggregate_ref(u, m, w)
 
 
+# The streaming pair updates the (num, den) accumulator IN PLACE on both
+# routes (the TPU kernels alias their outputs onto it) and returns
+# nothing: a caller that still needs the old planes must copy them first.
+
+def aio_absorb_op(num: torch.Tensor, den: torch.Tensor, u: torch.Tensor,
+                  m: torch.Tensor, w: float) -> None:
+    """``num += w*m*u``, ``den += w*m`` in place; w rounded to float32."""
+    if _on_cuda(num, den, u, m):
+        aio_agg.aio_absorb(num, den, u, m, w)
+        return
+    wm = torch.as_tensor(w, dtype=ref.F32) * m
+    num.add_(wm * u)
+    den.add_(wm)
+
+
+def aio_merge_op(num_a: torch.Tensor, den_a: torch.Tensor,
+                 num_b: torch.Tensor, den_b: torch.Tensor) -> None:
+    """``num_a += num_b``, ``den_a += den_b`` in place."""
+    if _on_cuda(num_a, den_a, num_b, den_b):
+        aio_agg.aio_merge(num_a, den_a, num_b, den_b)
+        return
+    num_a.add_(num_b)
+    den_a.add_(den_b)
+
+
 def launch_counts() -> dict[str, int]:
     """Launches of every CUDA kernel wrapper since the last reset."""
     out: dict[str, int] = {}
@@ -63,3 +114,4 @@ def reset_launch_counts() -> None:
     for c in _COUNTERS:
         for k in c:
             c[k] = 0
+

@@ -1,7 +1,9 @@
-"""FL training entry point: the paper's synchronous AnycostFL round.
+"""FL training entry point: the paper's synchronous AnycostFL round, on a
+flat fleet or a client -> edge -> cloud hierarchy.
 
   PYTHONPATH=src python -m repro_torch.launch.train --mode fl \\
-      --method anycostfl --rounds 40 --devices 12 [--device cpu]
+      --method anycostfl --rounds 40 --devices 12 [--device cpu] \\
+      [--topology hier --cells 4 --backhaul-codec int8 --backhaul-ef]
 
 Runs on the CUDA card unless ``--device cpu`` is given, and prints the
 reference launcher's final JSON fields.
@@ -11,8 +13,30 @@ from __future__ import annotations
 import argparse
 import json
 
+from repro_torch.orchestrator.policies import OrchestratorConfig
 from repro_torch.sysmodel.population import FleetConfig
+from repro_torch.topology import BackhaulConfig, TopologyConfig
 from repro_torch.train.fl_loop import FLRunConfig, run_fl
+
+
+def _topology_config(args):
+    """The multi-cell topology from the flags; None for ``flat``."""
+    if args.topology == "flat":
+        return None
+    return TopologyConfig(
+        kind="hier", n_cells=args.cells,
+        assignment=args.cell_assignment,
+        cell_radius_scale=args.cell_radius_scale,
+        cell_deadline_s=args.cell_deadline,
+        backhaul_rate_range=(tuple(args.backhaul_rate_range)
+                             if args.backhaul_rate_range else None),
+        backhaul_het_seed=args.seed,
+        backhaul=BackhaulConfig(
+            rate_bps=args.backhaul_rate,
+            latency_s=args.backhaul_latency,
+            energy_per_bit=args.backhaul_energy,
+            codec=args.backhaul_codec,
+            error_feedback=args.backhaul_ef))
 
 
 def main(argv=None):
@@ -26,21 +50,65 @@ def main(argv=None):
     ap.add_argument("--eval-every", type=int, default=5)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    # ---- hierarchical multi-cell topology
+    ap.add_argument("--topology", default="flat", choices=["flat", "hier"],
+                    help="flat = the paper's single cell; hier = "
+                         "client->edge->cloud with per-cell wireless, "
+                         "streaming edge aggregation and a modelled "
+                         "backhaul")
+    ap.add_argument("--cells", type=int, default=4,
+                    help="number of edge cells under --topology hier")
+    ap.add_argument("--cell-assignment", default="contiguous",
+                    choices=["contiguous", "round_robin"],
+                    help="device->cell mapping")
+    ap.add_argument("--cell-radius-scale", type=float, default=None,
+                    help="per-cell radius as a fraction of the macro "
+                         "cell's (default: 1/sqrt(cells), area tiling)")
+    ap.add_argument("--cell-deadline", type=float, default=None,
+                    help="per-cell edge deadline in seconds (the edge "
+                         "ships its partial then; late arrivals drop)")
+    ap.add_argument("--backhaul-rate", type=float, default=1e9,
+                    help="edge->cloud backhaul throughput in bit/s")
+    ap.add_argument("--backhaul-latency", type=float, default=0.01,
+                    help="edge->cloud one-way latency in seconds")
+    ap.add_argument("--backhaul-energy", type=float, default=0.0,
+                    help="edge->cloud energy tariff in J/bit")
+    ap.add_argument("--backhaul-codec", default="f32",
+                    choices=["f32", "bf16", "int8"],
+                    help="wire dtype of the shipped (num, den) partial")
+    ap.add_argument("--backhaul-ef", action="store_true",
+                    help="feed each round's bf16/int8 backhaul "
+                         "quantization error back into the next round's "
+                         "shipped partial (per-cell residual)")
+    ap.add_argument("--backhaul-rate-range", type=float, nargs=2,
+                    default=None, metavar=("LO", "HI"),
+                    help="heterogeneous backhaul: draw each cell's rate "
+                         "log-uniformly from [LO, HI] bit/s (seeded per "
+                         "cell id; overrides --backhaul-rate)")
+    ap.add_argument("--agg-route", default="streaming",
+                    choices=["streaming", "batched"],
+                    help="hierarchical aggregation route: the streaming "
+                         "edge fold, or the batched (I, N) Eq. 5")
     args = ap.parse_args(argv)
     run_cfg = FLRunConfig(method=args.method, rounds=args.rounds,
                           seed=args.seed, n_train=args.n_train,
                           n_test=args.n_test, eval_every=args.eval_every)
-    hist = run_fl(run_cfg, FleetConfig(n_devices=args.devices),
+    fleet = FleetConfig(n_devices=args.devices,
+                        topology=_topology_config(args))
+    hist = run_fl(run_cfg, fleet, OrchestratorConfig(agg_route=args.agg_route),
                   device=args.device, verbose=True)
     tta = {f"acc>={th:.2f}": hist.time_to_acc(th)
            for th in (0.3, 0.5, 0.7, 0.9) if hist.best_acc >= th}
     print(json.dumps({"method": args.method, "policy": "sync",
                       "availability": "always", "selection": "uniform",
-                      "topology": "flat", "cells": 1, "mobility": "static",
+                      "topology": args.topology,
+                      "cells": args.cells if args.topology == "hier" else 1,
+                      "mobility": "static",
                       "handover_policy": "nearest", "n_handovers": 0,
                       "best_acc": hist.best_acc,
                       "sim_wallclock_s": hist.wallclock(),
-                      "backhaul_mb": 0.0,
+                      "backhaul_mb": float(sum(r.backhaul_bits
+                                               for r in hist.rounds) / 8e6),
                       "time_to_acc_s": tta,
                       "rows": hist.to_rows()[-1]}, indent=1))
     return hist

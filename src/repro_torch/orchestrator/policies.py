@@ -1,9 +1,12 @@
 """Arrival/aggregation policies: the paper's synchronous round.
 
-:class:`SyncPolicy` — the server barriers on every dispatched client and
-the round lasts ``max_i (T_cmp_i + T_com_i)``.  ``semisync`` and
-``fedbuff`` are named so that a config asking for them fails loudly; they
-arrive with ROADMAP queue 1's 'Semisync and fedbuff' item.
+:class:`SyncPolicy` — the server (or, in a hierarchical topology, each
+edge) barriers on every dispatched client and the round lasts
+``max_i (T_cmp_i + T_com_i)``.  ``semisync`` and ``fedbuff`` are named so
+that a config asking for them fails loudly; they arrive with ROADMAP
+queue 1's 'Semisync and fedbuff' item.  The flat round normalizes its
+coefficients (:func:`base_weights`); the hierarchical edge fold absorbs
+each update with its :func:`unnormalized_weight`.
 """
 from __future__ import annotations
 
@@ -15,12 +18,19 @@ import torch
 from repro_torch.core import aggregation
 
 POLICIES = ("sync", "semisync", "fedbuff")
+# aggregation route of hierarchical round merges
+AGG_ROUTES = ("streaming", "batched", "mesh")
 
 
 @dataclasses.dataclass
 class OrchestratorConfig:
     """Knobs of the discrete-event server."""
     policy: str = "sync"
+    # hierarchical aggregation route -- streaming: per-cell edge fold and
+    # cloud merge (aio_absorb / aio_merge, the wire codec's numerics);
+    # batched: the flat (I, N) Eq. 5 over every accepted update
+    # (aio_aggregate), backhaul costs still charged per cell
+    agg_route: str = "streaming"
 
     def __post_init__(self):
         if self.policy not in POLICIES:
@@ -30,6 +40,13 @@ class OrchestratorConfig:
             raise NotImplementedError(
                 f"policy {self.policy!r}: the port runs the sync policy "
                 f"only; ROADMAP queue 1 'Semisync and fedbuff' brings it")
+        if self.agg_route not in AGG_ROUTES:
+            raise ValueError(f"unknown agg_route {self.agg_route!r}; "
+                             f"expected one of {AGG_ROUTES}")
+        if self.agg_route == "mesh":
+            raise NotImplementedError(
+                "agg_route 'mesh': cells over a mesh of cards is not "
+                "ported; ROADMAP queue 1, 'Pod path', brings it")
 
 
 def base_weights(updates: Sequence) -> torch.Tensor:
@@ -39,6 +56,16 @@ def base_weights(updates: Sequence) -> torch.Tensor:
     return aggregation.optimal_coefficients(
         [u.alpha for u in updates],
         [max(u.beta_target, 1e-6) for u in updates])
+
+
+def unnormalized_weight(update) -> float:
+    """One update's Theorem-1 coefficient without the cohort sum, as the
+    streaming AIO monoid needs it: ``1 / max(d^2, 1e-12)`` with d the
+    float32 divergence factor, the rest in Python floats as in the
+    reference."""
+    d = float(aggregation.divergence_factor(update.alpha,
+                                            max(update.beta_target, 1e-6)))
+    return 1.0 / max(d * d, 1e-12)
 
 
 def apply_scales(weights: torch.Tensor,

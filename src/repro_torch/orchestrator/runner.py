@@ -1,8 +1,19 @@
 """FL runner over the discrete-event engine: the synchronous round on a
-static flat fleet.
+static fleet, flat or hierarchical.
 
 ``train/fl_loop.run_fl`` builds a :class:`Simulation` and runs
-:func:`_run_round_based` with the sync policy.  The numpy generator is
+:func:`_run_round_based` with the sync policy.
+
+**Hierarchical topologies** (``FleetConfig.topology`` of kind ``hier``):
+devices are partitioned into cells, each with its own wireless
+environment; each cell's edge applies the arrival policy to its own
+arrivals, folds the accepted updates into one O(N) streaming partial
+with *unnormalized* coefficients (``aio_absorb``, in place), and ships it
+over the modelled backhaul, through the wire codec; the cloud merges the
+partials (EDGE_MERGE events, ``aio_merge`` in place) and finalizes Eq. 5
+once (:func:`_hier_round_merge`).  ``OrchestratorConfig.agg_route``
+``batched`` aggregates the same accepted updates with the flat Eq. 5
+(``aio_aggregate``) instead, charging the same backhaul costs.  The numpy generator is
 consumed in the reference's order (``repro/orchestrator/runner.py``):
 setup (task data, partition, fleet), then per round the channel draws,
 the planner's probe permutation (first round only) and each device's
@@ -25,7 +36,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_config
-from repro_torch.core import compression, schedule, shrinking
+from repro_torch.core import aggregation, compression, schedule, shrinking
 from repro_torch.core.anycost import (AnycostClient, AnycostServer,
                                       ClientUpdate, bucket_alpha)
 from repro_torch.data.partition import partition_dirichlet, partition_iid
@@ -36,12 +47,17 @@ from repro_torch.models.registry import build_model
 from repro_torch.orchestrator import events as ev_mod
 from repro_torch.orchestrator.policies import (OrchestratorConfig,
                                                SyncPolicy, apply_scales,
-                                               base_weights)
+                                               base_weights,
+                                               unnormalized_weight)
 from repro_torch.sysmodel.population import FleetConfig, make_fleet
+from repro_torch.topology.codec import (decode_partial, encode_partial,
+                                        payload_bits)
+from repro_torch.topology.edge import (CodecErrorFeedback, EdgeAggregator,
+                                       cloud_merge, finalize_apply)
 from repro_torch.train.fl_loop import (FLRunConfig, History,
                                        _device_batches, _make_eval,
                                        flops_per_sample)
-from repro_torch.utils.pytree import tree_size, tree_sub
+from repro_torch.utils.pytree import tree_leaves, tree_size, tree_sub
 
 PyTree = Any
 #: n -> (n,) float32 uniforms in [0, 1) on the run's device
@@ -89,6 +105,8 @@ class PendingUpdate:
     batches: dict
     draw: Draw                   # the round's quantization uniforms
     n_steps: int
+    cell: int = 0                # serving cell at dispatch: the update
+                                 # merges at the edge that dispatched it
     dispatched_at: float = 0.0
     completes_at: float = 0.0
     # filled by Simulation.materialize
@@ -151,10 +169,31 @@ class Simulation:
         self.uniforms = uniforms if uniforms is not None \
             else TorchUniforms(run_cfg.seed + 1, self.device)
 
+        # hierarchical topology (None -> the paper's flat single cell)
+        topo = fleet_cfg.topology
+        self.topo = topo if topo is not None and topo.kind == "hier" \
+            else None
+        self.cell_backhauls = self.topo.cell_backhauls() \
+            if self.topo is not None else None
+        self.codec_ef = None
+        self._ef_frame = None
+        if self.topo is not None and self.topo.backhaul.error_feedback:
+            self.codec_ef = CodecErrorFeedback()
+        # set from OrchestratorConfig.agg_route by run_orchestrated
+        self.agg_route = "streaming"
+
     # ------------------------------------------------------------ round body
 
     def sort_params(self, params: PyTree) -> PyTree:
-        return self.server.sort(params)
+        if self.codec_ef is None:
+            return self.server.sort(params)
+        # EF residuals live in the sorted coordinate frame: keep the
+        # round's sort permutations, so that a frame move drops a stale
+        # residual instead of adding it into the wrong channels
+        sorted_p, perms = shrinking.sort_channels(params, self.spec,
+                                                  return_perms=True)
+        self._ef_frame = tuple(tuple(p.tolist()) for p in perms)
+        return sorted_p
 
     def ensure_planner(self, sorted_params: PyTree) -> None:
         """Fit the server-side beta planner on a probe update (§III-C.3)."""
@@ -188,7 +227,8 @@ class Simulation:
                                   self.device)
         return PendingUpdate(client_id=i, env=env, strat=strat, alpha=alpha,
                              batches=batches, draw=draw,
-                             n_steps=int(batches["images"].shape[0]))
+                             n_steps=int(batches["images"].shape[0]),
+                             cell=self.fleet.cell_of(i))
 
     def train_one(self, p: PendingUpdate, sorted_params: PyTree) -> PyTree:
         sub = shrinking.shrink(sorted_params, p.alpha, self.spec)
@@ -225,8 +265,129 @@ class Simulation:
         acc, loss = self.ev(params)
         return float(acc), float(loss)
 
+    # --------------------------------------------------- hierarchical glue
+
+    def encode_ship(self, k: int, part: aggregation.PartialAgg):
+        """Wire-encode cell k's partial, through the cell's EF residual
+        when the codec runs with error feedback."""
+        codec = self.topo.backhaul.codec
+        if self.codec_ef is not None:
+            return self.codec_ef.encode_ship(k, part, codec,
+                                             frame=self._ef_frame)
+        return encode_partial(part, codec)
+
+    def resolve_agg_route(self, route: str) -> str:
+        """The batched route aggregates in exact float32: only the
+        streaming edge fold passes the numerics through the wire codec
+        (the bits are charged at the codec's size on both)."""
+        if route != "streaming" and self.topo is not None \
+                and (self.topo.backhaul.codec != "f32"
+                     or self.codec_ef is not None):
+            print(f"[topology] warning: --agg-route {route} models the "
+                  f"backhaul codec's cost but not its numerics (and "
+                  f"ignores --backhaul-ef); use the streaming route to "
+                  f"study codec/EF effects")
+        return route
+
 
 # ---------------------------------------------------------------- round mode
+
+def _hier_round_merge(sim: Simulation, policy: SyncPolicy,
+                      live: list[PendingUpdate], sorted_params: PyTree,
+                      queue: ev_mod.EventQueue, t_wall: float):
+    """One hierarchical round tail: per-cell accept -> edge absorb ->
+    backhaul ship -> cloud merge.
+
+    Each cell applies the arrival policy to its own arrivals (trimmed to
+    ``cell_deadline_s`` when set), folds the accepted updates into its
+    partial with unnormalized coefficients, and ships it; the round
+    lasts until the slowest cell's barrier plus its shipping time.
+    Membership is the cell recorded on each flight at dispatch.
+
+    Returns ``(accepted, new_params or None, lat, ship_energy,
+    backhaul_bits, n_cells_reporting, lat_parts)``; ``lat_parts`` splits
+    ``lat`` into (train, uplink, backhaul) along the critical cell."""
+    topo, fleet = sim.topo, sim.fleet
+    cell_dl = topo.cell_deadline_s
+    route = sim.agg_route
+    accepted_all, parts, ships, route_pairs = [], [], [], []
+    lat = e_ship = bh_bits = 0.0
+    n_rep = 0
+    # (total, barrier, ship, max accepted t_cmp) per cell: the critical
+    # path of the round's latency split
+    crit: list[tuple[float, float, float, float]] = []
+    for k in range(fleet.n_cells):
+        cell_live = [p for p in live if p.cell == k]
+        if not cell_live:
+            continue
+        acc_k, scales_k, lat_k = policy.accept(cell_live, 0.0)
+        if cell_dl is not None:
+            # the edge never waits past its own deadline
+            pairs = [(p, s) for p, s in zip(acc_k, scales_k)
+                     if p.duration <= cell_dl]
+            if len(pairs) < len(acc_k):
+                acc_k = [p for p, _ in pairs]
+                scales_k = [s for _, s in pairs]
+                lat_k = cell_dl
+            else:
+                lat_k = min(lat_k, cell_dl)
+        if acc_k:
+            w_uns = [unnormalized_weight(p.update) * s
+                     for p, s in zip(acc_k, scales_k)]
+            if route == "streaming":
+                edge = EdgeAggregator(k, sorted_params)
+                for p, w_un in zip(acc_k, w_uns):
+                    edge.absorb(p.update.values, p.update.mask, w_un)
+                # the exact encoded size (planes + int8 scale headers)
+                # is what the link serializes and the tariff charges
+                enc = sim.encode_ship(k, edge.ship())
+                parts.append(enc)
+                bits = enc.bits
+            else:
+                route_pairs.extend(zip(acc_k, w_uns))
+                bits = payload_bits(tree_size(sorted_params),
+                                    len(tree_leaves(sorted_params)),
+                                    topo.backhaul.codec)
+            t_ship, e_k = sim.cell_backhauls[k].ship_bits(bits)
+            bh_bits += bits
+            e_ship += e_k
+            ships.append((t_wall + lat_k + t_ship, k))
+            lat = max(lat, lat_k + t_ship)
+            n_rep += 1
+            crit.append((lat_k + t_ship, lat_k, t_ship,
+                         max(p.t_cmp for p in acc_k)))
+        else:
+            lat = max(lat, lat_k)
+            crit.append((lat_k, lat_k, 0.0, 0.0))
+        accepted_all.extend(acc_k)
+    for t_arr, k in ships:      # record cloud arrival order
+        queue.push(t_arr, ev_mod.EDGE_MERGE, k)
+    for _ in ships:
+        queue.pop()
+    new_params = None
+    if parts:
+        # in place: the first decoded partial becomes the cloud's
+        # accumulator (with f32, that is the edge's own planes)
+        merged = cloud_merge([decode_partial(e) for e in parts])
+        new_params = finalize_apply(sorted_params, merged,
+                                    sim.server.server_lr)
+    elif route_pairs:              # batched: the flat (I, N) Eq. 5
+        agg = aggregation.aio_aggregate(
+            [p.update.values for p, _ in route_pairs],
+            [p.update.mask for p, _ in route_pairs],
+            torch.tensor([w for _, w in route_pairs], dtype=torch.float32))
+        new_params = sim.server.apply_update(sorted_params, agg)
+    # latency split along the critical cell: its barrier splits into
+    # compute (until the slowest accepted T_cmp elapses) and uplink (the
+    # rest); shipping is the backhaul share.  The three sum to lat.
+    lat_parts = (0.0, 0.0, 0.0)
+    if crit:
+        _, bar, t_ship_c, max_tcmp = max(crit, key=lambda c: c[0])
+        lt = min(bar, max_tcmp)
+        lat_parts = (lt, bar - lt, t_ship_c)
+    return (accepted_all, new_params, lat, e_ship, bh_bits, n_rep,
+            lat_parts)
+
 
 def _run_round_based(sim: Simulation, policy: SyncPolicy,
                      orch: OrchestratorConfig, verbose: bool) -> History:
@@ -267,15 +428,26 @@ def _run_round_based(sim: Simulation, policy: SyncPolicy,
                            t_max_effective=T_max)
             continue
 
-        accepted, scales, lat = policy.accept(live, 0.0)
-        # critical-path split: compute until the slowest accepted
-        # client's T_cmp elapses, uplink/barrier wait for the rest
-        lt = min(lat, max((p.t_cmp for p in accepted), default=0.0))
-        t_wall += lat
-        if accepted:
-            w = apply_scales(base_weights([p.update for p in accepted]),
-                             scales)
-            params = sim.aggregate(sorted_params, accepted, w)
+        bh_bits, n_cells_rep, e_ship = 0.0, 0, 0.0
+        if sim.topo is not None:
+            (accepted, new_params, lat, e_ship, bh_bits, n_cells_rep,
+             lat_parts) = _hier_round_merge(sim, policy, live,
+                                            sorted_params, queue, t_wall)
+            en += e_ship
+            t_wall += lat
+            if new_params is not None:
+                params = new_params
+        else:
+            accepted, scales, lat = policy.accept(live, 0.0)
+            # critical-path split: compute until the slowest accepted
+            # client's T_cmp elapses, uplink/barrier wait for the rest
+            lt = min(lat, max((p.t_cmp for p in accepted), default=0.0))
+            lat_parts = (lt, lat - lt, 0.0)
+            t_wall += lat
+            if accepted:
+                w = apply_scales(base_weights([p.update for p in accepted]),
+                                 scales)
+                params = sim.aggregate(sorted_params, accepted, w)
 
         log = hist.log_round(
             t, latency_s=lat, energy_j=en, flops=fl, comm_bits=cb,
@@ -285,8 +457,10 @@ def _run_round_based(sim: Simulation, policy: SyncPolicy,
             mean_gain=float(np.mean([p.strat.gain for p in live])),
             t_wall=t_wall, n_clients=len(accepted),
             n_dropped=len(live) - len(accepted), t_max_effective=T_max,
+            n_cells_reporting=n_cells_rep, backhaul_bits=bh_bits,
             energy_train_j=en_cmp, energy_uplink_j=en_com,
-            latency_train_s=lt, latency_uplink_s=lat - lt)
+            energy_backhaul_j=e_ship, latency_train_s=lat_parts[0],
+            latency_uplink_s=lat_parts[1], latency_backhaul_s=lat_parts[2])
         if t % rc.eval_every == 0 or t == rc.rounds - 1:
             acc, loss = sim.evaluate(params)
             hist.log_eval(log, acc, loss)
@@ -305,8 +479,10 @@ def run_orchestrated(run_cfg: FLRunConfig,
                      fleet_cfg: Optional[FleetConfig] = None,
                      orch: Optional[OrchestratorConfig] = None, *,
                      device="cuda", verbose: bool = False) -> History:
-    """Run federated training under an arrival/aggregation policy (sync)."""
+    """Run federated training under an arrival/aggregation policy (sync),
+    on a flat or a hierarchical fleet."""
     orch = orch or OrchestratorConfig()
     sim = Simulation(run_cfg, fleet_cfg, device=device)
+    sim.agg_route = sim.resolve_agg_route(orch.agg_route)
     return _run_round_based(sim, SyncPolicy(orch), orch, verbose)
 

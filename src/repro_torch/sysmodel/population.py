@@ -1,10 +1,13 @@
-"""Heterogeneous device fleet sampler (paper §V-A.2): the static flat fleet.
+"""Heterogeneous device fleet sampler (paper §V-A.2): static fleets, flat
+or split into cells.
 
 I = 60 devices in a 550 m cell; energy coefficient eps_i ~ U[5e-27, 1e-26];
 positions re-dropped every round; per-round energy budget E_max ~ U[3, 9] J;
-shared latency budget T_max.  ``make_fleet`` and ``Fleet.round_envs``
-consume the numpy generator exactly as ``repro/sysmodel/population.py``
-does for this fleet, so one seed gives the same envs.
+shared latency budget T_max.  A hierarchical topology
+(``FleetConfig.topology``) binds each device to a cell with its own
+wireless config.  ``make_fleet`` and ``Fleet.round_envs`` consume the
+numpy generator exactly as ``repro/sysmodel/population.py`` does for
+these fleets, so one seed gives the same envs.
 """
 from __future__ import annotations
 
@@ -16,6 +19,7 @@ import numpy as np
 from repro_torch.core.schedule import DeviceEnv
 from repro_torch.sysmodel.wireless import (WirelessConfig, achievable_rate,
                                            drop_positions)
+from repro_torch.topology.cells import TopologyConfig, assign_cells
 
 
 @dataclasses.dataclass
@@ -35,10 +39,11 @@ class FleetConfig:
     eps_var_scale: float = 1.0
     dist_mean_m: Optional[float] = None      # None -> uniform in cell
     dist_var_scale: float = 1.0
-    # fleet dynamics, multi-cell topology and device motion are not
-    # ported yet: anything but None raises in make_fleet
+    # multi-cell topology (None / flat -> the paper's single cell)
+    topology: Optional[TopologyConfig] = None
+    # fleet dynamics and device motion are not ported yet: anything but
+    # None raises in make_fleet
     dynamics: Optional[Any] = None
-    topology: Optional[Any] = None
     mobility: Optional[Any] = None
 
 
@@ -48,20 +53,36 @@ class Fleet:
     eps_hw: np.ndarray        # (I,) fixed per device
     E_max: np.ndarray         # (I,) fixed per device
     data_sizes: np.ndarray    # (I,) samples per device
+    # hierarchical topology: device -> cell id and per-cell wireless
+    # (None -> the single macro cell)
+    cells: Optional[np.ndarray] = None
+    cell_wireless: Optional[list] = None
+
+    @property
+    def n_cells(self) -> int:
+        return len(self.cell_wireless) if self.cell_wireless else 1
+
+    def cell_of(self, i: int) -> int:
+        return int(self.cells[i]) if self.cells is not None else 0
+
+    def _wireless(self, i: int) -> WirelessConfig:
+        if self.cell_wireless is None:
+            return self.cfg.wireless
+        return self.cell_wireless[self.cell_of(i)]
 
     def _env(self, i: int, rate: float, W: float, S_bits: float) -> DeviceEnv:
         c = self.cfg
         return DeviceEnv(
             T_max=c.T_max, E_max=float(self.E_max[i]),
-            P_com=c.wireless.tx_power_w, rate=float(rate),
+            P_com=self._wireless(i).tx_power_w, rate=float(rate),
             W=W, D=int(self.data_sizes[i]), tau=c.tau,
             eps_hw=float(self.eps_hw[i]), S_bits=S_bits,
             f_min=c.f_min, f_max=c.f_max, alpha_min=c.alpha_min,
             beta_min=c.beta_min, beta_max=c.beta_max)
 
-    def _distances(self, rng: np.random.Generator, n: int) -> np.ndarray:
+    def _distances(self, rng: np.random.Generator, n: int,
+                   w: WirelessConfig) -> np.ndarray:
         c = self.cfg
-        w = c.wireless
         if c.dist_mean_m is None:
             pos = drop_positions(rng, n, w)
             return np.linalg.norm(pos, axis=-1)
@@ -72,18 +93,30 @@ class Fleet:
     def round_envs(self, rng: np.random.Generator, W: float,
                    S_bits: float) -> list[DeviceEnv]:
         """Re-drop positions, draw fading and build per-device envs
-        (Eq. 6-9)."""
+        (Eq. 6-9).
+
+        A multi-cell fleet draws each cell's positions and fading against
+        that cell's wireless config, in ascending cell order.  A 1-cell
+        hierarchy takes the flat draw with the same config object, so it
+        consumes the same stream and gives the same envs."""
         c = self.cfg
-        dist = self._distances(rng, c.n_devices)
-        rates = achievable_rate(dist, c.wireless, rng=rng)
+        if self.cells is None or self.n_cells == 1:
+            w = self.cell_wireless[0] if self.cell_wireless else c.wireless
+            dist = self._distances(rng, c.n_devices, w)
+            rates = achievable_rate(dist, w, rng=rng)
+        else:
+            rates = np.empty(c.n_devices)
+            for k in range(self.n_cells):
+                idx = np.flatnonzero(self.cells == k)
+                w = self.cell_wireless[k]
+                dist = self._distances(rng, len(idx), w)
+                rates[idx] = achievable_rate(dist, w, rng=rng)
         return [self._env(i, rates[i], W, S_bits)
                 for i in range(c.n_devices)]
 
 
 _NOT_PORTED = {
     "dynamics": "fleet dynamics (ROADMAP queue 1, 'Fleet dynamics')",
-    "topology": "the hierarchical topology (ROADMAP queue 1, "
-                "'Hierarchical topology')",
     "mobility": "mobility and handover (ROADMAP queue 1, 'Mobility')",
 }
 
@@ -93,8 +126,8 @@ def make_fleet(rng: np.random.Generator, cfg: FleetConfig,
     for field, item in _NOT_PORTED.items():
         if getattr(cfg, field) is not None:
             raise NotImplementedError(
-                f"FleetConfig.{field}: the port runs the static flat fleet "
-                f"only; {item} brings it")
+                f"FleetConfig.{field}: the port runs static fleets only; "
+                f"{item} brings it")
     lo, hi = cfg.eps_range
     mean = 0.5 * (lo + hi)
     half = 0.5 * (hi - lo) * np.sqrt(cfg.eps_var_scale)
@@ -105,4 +138,11 @@ def make_fleet(rng: np.random.Generator, cfg: FleetConfig,
     if len(data_sizes) != cfg.n_devices:
         raise ValueError(f"{len(data_sizes)} data sizes for "
                          f"{cfg.n_devices} devices")
-    return Fleet(cfg, eps, e_max, np.asarray(data_sizes))
+    cells = cell_wireless = None
+    if cfg.topology is not None and cfg.topology.kind == "hier":
+        # deterministic assignment, no rng: the eps/E_max/position
+        # streams are the same with or without a topology
+        cell_wireless = cfg.topology.cell_wireless(cfg.wireless)
+        cells = assign_cells(cfg.n_devices, cfg.topology)
+    return Fleet(cfg, eps, e_max, np.asarray(data_sizes), cells=cells,
+                 cell_wireless=cell_wireless)

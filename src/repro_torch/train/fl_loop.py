@@ -44,7 +44,7 @@ class FLRunConfig:
 @dataclasses.dataclass
 class RoundLog:
     """One round's record: the reference's fields that the synchronous
-    round on a static flat fleet sets."""
+    round on a static fleet, flat or hierarchical, sets."""
     round: int
     latency_s: float
     energy_j: float
@@ -59,11 +59,16 @@ class RoundLog:
     n_clients: int = 0            # updates that entered the aggregation
     n_dropped: int = 0            # completed but rejected
     t_max_effective: float = 0.0  # T_max handed to the P4 solver
+    # hierarchical topologies (0 on the flat path)
+    n_cells_reporting: int = 0    # cells that shipped a partial
+    backhaul_bits: float = 0.0    # edge->cloud bits this round
     # per-phase split: energy sums to energy_j, latency to latency_s
     energy_train_j: float = 0.0
     energy_uplink_j: float = 0.0
+    energy_backhaul_j: float = 0.0
     latency_train_s: float = 0.0   # critical path: slowest client's T_cmp
     latency_uplink_s: float = 0.0  # critical path: uplink + barrier wait
+    latency_backhaul_s: float = 0.0  # critical path: the cell's shipping
 
 
 @dataclasses.dataclass
@@ -155,10 +160,12 @@ def _device_batches(rng: np.random.Generator, x: np.ndarray, y: np.ndarray,
             "labels": torch.from_numpy(y[sel]).to(device)}
 
 
-def run_fl(run_cfg: FLRunConfig, fleet_cfg: Optional[FleetConfig] = None, *,
-           device="cuda", verbose: bool = False) -> "History":
+def run_fl(run_cfg: FLRunConfig, fleet_cfg: Optional[FleetConfig] = None,
+           orch=None, *, device="cuda", verbose: bool = False) -> "History":
     """Synchronous federated training (the paper's lock-step rounds) on
-    ``device``: ``cuda`` unless the caller asks for the CPU."""
+    ``device``: ``cuda`` unless the caller asks for the CPU.  ``orch`` is
+    an ``OrchestratorConfig`` (its ``agg_route`` picks the hierarchical
+    aggregation route); None is the sync default."""
     from repro_torch.orchestrator.runner import run_orchestrated
-    return run_orchestrated(run_cfg, fleet_cfg, device=device,
+    return run_orchestrated(run_cfg, fleet_cfg, orch, device=device,
                             verbose=verbose)

@@ -80,3 +80,36 @@ def flatten_to_vector(tree: PyTree) -> tuple[torch.Tensor, Callable]:
         return tree_unflatten(tree, out)
 
     return vec, unflatten
+
+
+def flat_vector(tree: PyTree) -> torch.Tensor:
+    """The leaves (sorted-key order) as one flat float32 vector.
+
+    A view, with no copy, when the leaves are contiguous float32 tensors
+    that tile one buffer in that order (as :func:`split_vector` leaves
+    them); a fresh ``torch.cat`` otherwise."""
+    leaves = tree_leaves(tree)
+    first = leaves[0]
+    if all(x.dtype == torch.float32 and x.is_contiguous() for x in leaves):
+        base = first.untyped_storage().data_ptr()
+        end = first.storage_offset()
+        for x in leaves:
+            if x.untyped_storage().data_ptr() != base \
+                    or x.storage_offset() != end:
+                break
+            end += x.numel()
+        else:
+            return first.as_strided((end - first.storage_offset(),), (1,))
+    return torch.cat([x.float().reshape(-1) for x in leaves])
+
+
+def split_vector(template: PyTree, vec: torch.Tensor) -> PyTree:
+    """Views of a flat vector, one per leaf of ``template`` (sorted-key
+    order), in its structure and leaf shapes."""
+    out = []
+    off = 0
+    for x in tree_leaves(template):
+        n = x.numel()
+        out.append(vec[off:off + n].view(x.shape))
+        off += n
+    return tree_unflatten(template, out)

@@ -5,8 +5,9 @@ imports no JAX, so it runs on a machine that has only PyTorch:
 
   python -m pytest -q -m gpu tests/test_torch_cuda.py
 
-Tolerances: level indices, masks and the aggregation exact (same
-float32 operations in the same order, no FMA contraction); norms rtol
+Tolerances: level indices, masks, the threshold step and the
+aggregation (batched and streaming) exact (same float32 operations in the
+same order, no FMA contraction); quantized values rtol 1e-6; norms rtol
 1e-5 (the plain version sums in another order).
 """
 import numpy as np
@@ -15,8 +16,8 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.core.compression import _leaf_views  # noqa: E402
-from repro_torch.kernels import (aio_agg, fused_compress, ops, ref,  # noqa: E402
-                                 sparsify)
+from repro_torch.kernels import (aio_agg, fused_compress, ops,  # noqa: E402
+                                 quantize, ref, sparsify)
 
 pytestmark = pytest.mark.gpu
 
@@ -86,6 +87,55 @@ def test_aio_kernel_matches_plain_version_at_main_path_shape(cuda):
     assert torch.equal(got[:100], torch.zeros(100, device=cuda))
 
 
+def test_threshold_and_quantize_kernels_match_plain_versions(cuda):
+    """#3 per leaf into one flat buffer, then #4 over the flat vector, as
+    the beta planner runs them."""
+    views, _ = _leaf_views_on(cuda, seed=12)
+    n = sum(x.numel() for x in views)
+    rand = torch.rand(n, generator=torch.Generator(device=cuda).manual_seed(2),
+                      device=cuda)
+    norms = [sparsify.kernel_l2(x) for x in views]
+    thr = float(torch.cat(norms).median())
+    flat = torch.empty(n, device=cuda)
+    masks = []
+    for x, nk, out in zip(views, norms, _leaf_views(flat, FMNIST_SHAPES)):
+        got, keep = sparsify.threshold_apply(x, nk, thr, out=out)
+        want, want_keep = ref.threshold_mask_ref(x, nk, thr)
+        assert got.data_ptr() == out.data_ptr()
+        assert torch.equal(got, want) and torch.equal(keep, want_keep)
+        masks.append(keep[:, None].expand(x.shape).t().reshape(-1))
+    mask = torch.cat(masks)
+    av = flat.abs()[mask > 0]
+    for levels in (2.0, 256.0, 37.25):
+        args = (flat, mask, float(av[av > 0].min()), float(av.max()),
+                levels, rand)
+        q, lvl = quantize.prob_quantize(*args)
+        qr, lr = ref.quantize_ref(*args)
+        assert torch.equal(lvl, lr)
+        torch.testing.assert_close(q, qr, rtol=1e-6, atol=0)
+
+
+def test_absorb_and_merge_kernels_are_exact_and_in_place(cuda):
+    """Both write into the caller's accumulator, return nothing, and agree
+    with the plain versions bit for bit; merge leaves its b side alone."""
+    n = sum(int(np.prod(s)) for s in FMNIST_SHAPES)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    u = torch.randn(n, generator=g, device=cuda)
+    m = (torch.rand(n, generator=g, device=cuda) > 0.5).float()
+    b_side = (u.clone(), m.clone())
+    for kernel, plain, operands in (
+            (aio_agg.aio_absorb, ref.aio_absorb_ref, (u, m, 0.3712)),
+            (aio_agg.aio_merge, ref.aio_merge_ref, b_side)):
+        acc = (torch.randn(n, generator=g, device=cuda),
+               torch.rand(n, generator=g, device=cuda))
+        want = plain(*acc, *operands)
+        ptrs = [t.data_ptr() for t in acc]
+        assert kernel(*acc, *operands) is None
+        assert [t.data_ptr() for t in acc] == ptrs
+        assert torch.equal(acc[0], want[0]) and torch.equal(acc[1], want[1])
+    assert torch.equal(b_side[0], u) and torch.equal(b_side[1], m)
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     x = torch.ones(4, 8, device=cuda)
     with pytest.raises(TypeError):
@@ -96,15 +146,46 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
             x[:, ::2])
     with pytest.raises(ValueError):
         aio_agg.aio_aggregate(x.t(), x.t(), torch.ones(8, device=cuda))
+    v = torch.ones(64, device=cuda)
+    with pytest.raises(ValueError):
+        sparsify.threshold_apply(x[:, ::2], torch.ones(4, device=cuda), 0.5)
+    with pytest.raises(ValueError):
+        sparsify.threshold_apply(x, torch.ones(4, device=cuda), 0.5,
+                                 out=torch.empty(8, 4, device=cuda).t())
+    with pytest.raises(TypeError):
+        quantize.prob_quantize(v.double(), v, 0.0, 1.0, 2.0, v)
+    with pytest.raises(ValueError):
+        quantize.prob_quantize(v[::2], v[:32], 0.0, 1.0, 2.0, v[:32])
+    with pytest.raises(ValueError):
+        quantize.prob_quantize(v, v.cpu(), 0.0, 1.0, 2.0, v)
+    for call in (aio_agg.aio_absorb, aio_agg.aio_merge):
+        extra = (0.5,) if call is aio_agg.aio_absorb else ()
+        with pytest.raises(ValueError):
+            call(v.cpu(), v.cpu(), v.cpu(), v.cpu(), *extra)
+        with pytest.raises(ValueError):
+            call(v[::2], v[:32], v[:32], v[:32], *extra)
+        with pytest.raises(TypeError):
+            call(v.double(), v, v, v, *extra)
 
 
 def test_cuda_round_goes_through_every_kernel(cuda):
+    """A flat round with the planner launches #1-#6; a hierarchical one
+    #7 and #8 and not #6."""
     from repro_torch.sysmodel.population import FleetConfig
+    from repro_torch.topology import TopologyConfig
     from repro_torch.train.fl_loop import FLRunConfig, run_fl
+    cfg = FLRunConfig(rounds=1, n_train=128, n_test=32, eval_every=1, seed=3)
     ops.reset_launch_counts()
-    hist = run_fl(FLRunConfig(rounds=1, n_train=128, n_test=32, eval_every=1,
-                              seed=3, use_planner=False),
-                  FleetConfig(n_devices=3), device="cuda")
+    hist = run_fl(cfg, FleetConfig(n_devices=3), device="cuda")
     counts = ops.launch_counts()
-    assert all(v > 0 for v in counts.values()), counts
+    flat = {k for k, v in counts.items() if v > 0}
+    assert flat == set(counts) - {"aio_absorb", "aio_merge"}, counts
+    assert np.isfinite(hist.rounds[-1].test_loss)
+    ops.reset_launch_counts()
+    hist = run_fl(cfg, FleetConfig(n_devices=4, topology=TopologyConfig(
+        kind="hier", n_cells=2)), device="cuda")
+    counts = ops.launch_counts()
+    assert counts["aio_absorb"] == hist.rounds[0].n_clients > 0, counts
+    assert counts["aio_merge"] == hist.rounds[0].n_cells_reporting - 1 == 1
+    assert counts["aio_aggregate"] == 0
     assert np.isfinite(hist.rounds[-1].test_loss)

@@ -151,7 +151,8 @@ def test_sync_run_final_params_match(runs):
 
 def test_port_imports_neither_jax_nor_the_reference():
     """In a fresh interpreter where ``jax`` and ``repro`` cannot be
-    imported, every module of the port imports and one CPU round runs."""
+    imported, every module of the port imports and one flat and one
+    hierarchical CPU round run."""
     code = textwrap.dedent("""
         import importlib, pkgutil, sys
         sys.modules["jax"] = None
@@ -166,6 +167,13 @@ def test_port_imports_neither_jax_nor_the_reference():
         hist = run_fl(FLRunConfig(rounds=1, n_train=64, n_test=32,
                                   eval_every=1, seed=1, use_planner=False),
                       FleetConfig(n_devices=2), device="cpu")
+        assert hist.rounds[0].test_loss == hist.rounds[0].test_loss
+        from repro_torch.topology import TopologyConfig
+        hist = run_fl(FLRunConfig(rounds=1, n_train=64, n_test=32,
+                                  eval_every=1, seed=1, use_planner=False),
+                      FleetConfig(n_devices=2, topology=TopologyConfig(
+                          kind="hier", n_cells=2)), device="cpu")
+        assert hist.rounds[0].n_cells_reporting > 0
         assert hist.rounds[0].test_loss == hist.rounds[0].test_loss
         assert not [k for k, v in sys.modules.items() if v is not None
                     and (k.split(".")[0] in ("jax", "jaxlib", "repro"))]

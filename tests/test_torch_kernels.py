@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels import aio_agg as jax_aio  # noqa: E402
@@ -18,8 +19,9 @@ from repro.kernels import fused_compress as jax_fused  # noqa: E402
 from repro.kernels import quantize as jax_quant  # noqa: E402
 from repro.kernels import ref as jax_ref  # noqa: E402
 from repro.kernels import sparsify as jax_sparsify  # noqa: E402
+from repro_torch.core import compression  # noqa: E402
 from repro_torch.kernels import (aio_agg, build, fused_compress, ops,  # noqa: E402
-                                 ref, sparsify)
+                                 quantize, ref, sparsify)
 
 torch.set_num_threads(1)
 
@@ -84,8 +86,21 @@ def test_threshold_apply(K, C):
     xo, mo = ref.threshold_mask_ref(_t(x), _t(norms), float(thr))
     xr, mr = jax_ref.threshold_mask_ref(jnp.asarray(x), jnp.asarray(norms),
                                         jnp.float32(thr))
-    np.testing.assert_array_equal(xo.numpy(), np.asarray(xr))
-    np.testing.assert_array_equal(mo.numpy(), np.asarray(mr))
+    xp, mp = jax_sparsify.threshold_apply(jnp.asarray(x), jnp.asarray(norms),
+                                          jnp.float32(thr), interpret=True)
+    for xx, mm in ((xr, mr), (xp, mp)):
+        np.testing.assert_array_equal(xo.numpy(), np.asarray(xx))
+        np.testing.assert_array_equal(mo.numpy(), np.asarray(mm))
+    # the op on the main path's transposed leaf view, into a slot of a
+    # flat buffer: the same values, written in place
+    flat = torch.zeros(K * C + 5)
+    out = flat[5:].view(C, K).t()
+    xt = _t(np.ascontiguousarray(x.T)).t()
+    got, keep = ops.threshold_apply_op(xt, _t(norms), float(thr), out=out)
+    assert got.data_ptr() == out.data_ptr()
+    np.testing.assert_array_equal(out.numpy(), xo.numpy())
+    np.testing.assert_array_equal(keep.numpy(), mo.numpy())
+    assert not flat[:5].any()
 
 
 @pytest.mark.parametrize("N", [512, 5000])
@@ -110,6 +125,9 @@ def test_prob_quantize(N, levels):
     np.testing.assert_array_equal(lvl.numpy(), np.asarray(lp))
     np.testing.assert_allclose(q.numpy(), np.asarray(qr), rtol=1e-6)
     np.testing.assert_allclose(q.numpy(), np.asarray(qp), rtol=1e-6)
+    qo, lo = ops.prob_quantize_op(_t(v), _t(mask), float(u_min),
+                                  float(u_max), levels, _t(rand))
+    assert torch.equal(qo, q) and torch.equal(lo, lvl)
 
 
 @pytest.mark.parametrize("K,C", [(64, 256), (37, 129), (512, 3136)])
@@ -178,12 +196,75 @@ def test_aio_absorb_and_merge_plain_versions():
         np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
+@pytest.mark.parametrize("N", [512, 5000])
+def test_aio_absorb_and_merge_against_pallas_and_in_place(N):
+    """The plain versions against the interpret-mode Pallas kernels; the
+    ops' CPU route computes the same in place.  atol on absorb: float32
+    cancellation in num + w*m*u where signs mix (XLA may contract it into
+    one FMA)."""
+    rng = _rng(5 + N)
+    num, den, u, m = (rng.standard_normal(N).astype(np.float32)
+                      for _ in range(4))
+    m = (m > 0).astype(np.float32)
+
+    def j():     # fresh arrays: the Pallas kernels donate the accumulator
+        return [jnp.asarray(a) for a in (num, den, u, m)]
+
+    want_abs = ref.aio_absorb_ref(_t(num), _t(den), _t(u), _t(m), 0.37)
+    other = jax_aio.aio_absorb(*j(), jnp.float32(0.37), interpret=True,
+                               block_n=512)
+    for got, want in zip(want_abs, other):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6,
+                                   atol=1e-6)
+    want_merge = ref.aio_merge_ref(_t(num), _t(den), _t(u), _t(m))
+    other = jax_aio.aio_merge(*j(), interpret=True, block_n=512)
+    for got, want in zip(want_merge, other):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    for op, extra, want in ((ops.aio_absorb_op, (0.37,), want_abs),
+                            (ops.aio_merge_op, (), want_merge)):
+        a, b = _t(num), _t(den)
+        ptrs = (a.data_ptr(), b.data_ptr())
+        assert op(a, b, _t(u), _t(m), *extra) is None
+        assert (a.data_ptr(), b.data_ptr()) == ptrs
+        assert torch.equal(a, want[0]) and torch.equal(b, want[1])
+
+
+def test_planner_on_threshold_and_quantize_matches_reference():
+    """BetaPlanner.fit runs #3 once per (rho, leaf) and #4 once per
+    (rho, L); its map equals the reference's on a second probe (the
+    module test holds the first)."""
+    from repro.core import compression as jcomp
+    rng = _rng(31)
+    shapes = {"conv": (3, 3, 2, 6), "b": (6,), "dense": (24, 10)}
+    upd = {k: (rng.standard_normal(s) * 1e-2).astype(np.float32)
+           for k, s in shapes.items()}
+    upd["dense"][:, 3] = 0.0          # a dead kernel: its norm is 0
+    n = sum(x.size for x in upd.values())
+    key = jax.random.PRNGKey(3)
+    rand = np.asarray(jax.random.uniform(key, (n,)))
+    grids = dict(rho_grid=(0.0, 0.3, 0.8, 0.99),
+                 level_grid=(2, 8, 64, 4096))
+    jp = jcomp.BetaPlanner.fit({k: jnp.asarray(v) for k, v in upd.items()},
+                               key, **grids)
+    tp = compression.BetaPlanner.fit({k: _t(v) for k, v in upd.items()},
+                                     _t(rand), **grids)
+    np.testing.assert_array_equal(tp.rhos, jp.rhos)
+    np.testing.assert_array_equal(tp.levels, jp.levels)
+    np.testing.assert_allclose(tp.betas, jp.betas, rtol=1e-5)
+
+
 def test_cpu_route_launches_no_kernel():
     ops.reset_launch_counts()
     x = torch.ones(4, 8)
+    v = torch.ones(32)
     ops.kernel_l2_op(x)
+    ops.threshold_apply_op(x, torch.ones(4), 0.5)
+    ops.prob_quantize_op(v, v, 0.0, 1.0, 4.0, v)
     ops.aio_aggregate_op(x, x, torch.ones(4))
-    assert set(ops.launch_counts().values()) == {0}
+    ops.aio_absorb_op(v.clone(), v.clone(), v, v, 0.5)
+    ops.aio_merge_op(v.clone(), v.clone(), v, v)
+    counts = ops.launch_counts()
+    assert set(counts) == set(ref.ORACLES) and set(counts.values()) == {0}
 
 
 def test_operands_off_cpu_and_cuda_raise():
@@ -197,6 +278,10 @@ def test_operands_off_cpu_and_cuda_raise():
     lambda x: fused_compress.fused_sparsify_quantize(
         x, torch.ones(4), 0.0, 0.0, 1.0, 2.0, x),
     lambda x: aio_agg.aio_aggregate(x, x, torch.ones(4)),
+    lambda x: sparsify.threshold_apply(x, torch.ones(4), 0.5),
+    lambda x: quantize.prob_quantize(x[0], x[0], 0.0, 1.0, 2.0, x[0]),
+    lambda x: aio_agg.aio_absorb(x[0], x[0], x[0], x[0], 0.5),
+    lambda x: aio_agg.aio_merge(x[0], x[0], x[0], x[0]),
 ])
 def test_cuda_wrappers_refuse_cpu_tensors(call):
     with pytest.raises(ValueError):

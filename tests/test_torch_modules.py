@@ -170,11 +170,15 @@ def test_data_and_fleet_draws_match(fleet_kw):
 
 
 def test_fleet_features_outside_the_slice_raise():
-    for field in ("dynamics", "topology", "mobility"):
+    for field in ("dynamics", "mobility"):
         cfg = population.FleetConfig(n_devices=2, **{field: object()})
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             population.make_fleet(np.random.default_rng(0), cfg,
                                   np.array([1, 1]))
+    # topologies are ported; device motion and handover are not
+    from repro_torch.topology import TopologyConfig
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        TopologyConfig(kind="hier", n_cells=2, handover=object())
 
 
 # ------------------------------------------------------------------------ EMS
