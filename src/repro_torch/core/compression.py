@@ -13,13 +13,14 @@ Pipeline over a local update pytree ``u``:
 3. *Lossless coding size model*: empirical-entropy bits for the level
    indices + Golomb bits for the sparsity mask + header.
 
-:func:`compress_update` runs the norms through the ``kernel_l2`` kernel
-and steps 1-2 through the ``fused_sparsify_quantize`` kernel, one launch
-per leaf each (``kernels/ops.py`` picks the plain versions for CPU
-tensors).  :meth:`BetaPlanner.fit` keeps the reference's structure
-instead: step 1 once per ``rho`` (``threshold_apply``, one launch per
-leaf) and step 2 once per ``(rho, L)`` over the flat masked vector
-(``prob_quantize``, one launch).  The threshold (a sort of the K norms)
+:func:`compress_update` runs the norms through the ``kernel_l2`` kernel,
+one call over every leaf, and steps 1-2 through the
+``fused_sparsify_quantize`` kernel, one launch per leaf
+(``kernels/ops.py`` picks the plain versions for CPU tensors).
+:meth:`BetaPlanner.fit` keeps the reference's structure instead: step 1
+once per ``rho`` (``threshold_apply``, one launch per leaf) and step 2
+once per ``(rho, L)`` over the flat masked vector (``prob_quantize``, one
+launch).  The threshold (a sort of the K norms)
 and the masked ``u_min``/``u_max`` are plain reductions, as in the
 reference.  :func:`sparsify_mask` and :func:`prob_quantize` keep the
 reference's composition over the flat vector; the tests hold the kernel
@@ -41,6 +42,8 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import ops
+from repro_torch.kernels.ref import leaf_kernel_shape
+from repro_torch.kernels.ref import leaf_views as _leaf_views
 from repro_torch.utils.pytree import flatten_to_vector, tree_leaves
 
 PyTree = Any
@@ -50,13 +53,6 @@ MAX_LEVELS = 65535
 
 
 # ----------------------------------------------------------- kernel structure
-
-def leaf_kernel_shape(shape: tuple) -> tuple[int, int]:
-    """(K, ksize): kernels = output units (last axis); 1-D leaves = 1 kernel."""
-    if len(shape) >= 2:
-        return shape[-1], math.prod(shape[:-1])
-    return 1, math.prod(shape) if shape else 1
-
 
 def kernel_segments(tree: PyTree) -> tuple[np.ndarray, int]:
     """Element -> kernel-id map for the flattened update vector.
@@ -77,19 +73,6 @@ def kernel_segments(tree: PyTree) -> tuple[np.ndarray, int]:
     if not seg:
         return np.zeros((0,), np.int32), 0
     return np.concatenate(seg), kid
-
-
-def _leaf_views(vec: torch.Tensor, shapes: list) -> list[torch.Tensor]:
-    """Each leaf's segment of a flat vector as its (K, ksize) kernel view:
-    the transpose of the C-order (ksize, K) buffer, strides (1, K), no
-    copy."""
-    views = []
-    off = 0
-    for shape in shapes:
-        k, ksize = leaf_kernel_shape(shape)
-        views.append(vec[off:off + k * ksize].view(ksize, k).t())
-        off += k * ksize
-    return views
 
 
 def _from_views(views: list[torch.Tensor]) -> torch.Tensor:
@@ -249,8 +232,9 @@ class _Fgc(NamedTuple):
 
 
 def _norms(vec: torch.Tensor, shapes: list) -> torch.Tensor:
-    """Per-kernel norms, one ``kernel_l2`` launch per leaf."""
-    return torch.cat([ops.kernel_l2_op(x) for x in _leaf_views(vec, shapes)])
+    """Per-kernel norms of the flat update: one ``kernel_l2`` call over
+    every leaf."""
+    return ops.kernel_l2_flat_op(vec, shapes)
 
 
 def _sparsify_quantize(vec: torch.Tensor, shapes: list, norms: torch.Tensor,

@@ -23,9 +23,9 @@ _ABSORB = "aio_absorb_f32"
 _ABSORB_ARGS = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                 ctypes.c_void_p, ctypes.c_float, ctypes.c_int64,
                 ctypes.c_void_p)
-_MERGE = "aio_merge_f32"
-_MERGE_ARGS = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-               ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p)
+_MERGE = build.Entry("aio_agg", "aio_merge_f32",
+                     (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                      ctypes.c_void_p, ctypes.c_int64))
 
 
 def _check_planes(kernel: str, **planes: torch.Tensor) -> int:
@@ -98,15 +98,12 @@ def aio_absorb(num: torch.Tensor, den: torch.Tensor, u: torch.Tensor,
 def aio_merge(num_a: torch.Tensor, den_a: torch.Tensor, num_b: torch.Tensor,
               den_b: torch.Tensor) -> None:
     """In place: ``num_a += num_b``, ``den_a += den_b``; all (N,) float32
-    contiguous CUDA vectors."""
-    N = _check_planes("aio_merge", num_a=num_a, den_a=den_a, num_b=num_b,
-                      den_b=den_b)
-    if N == 0:
+    contiguous CUDA vectors.  The launch goes through ``build``'s lean
+    path, so its host cost stays below the kernel's device time."""
+    n = num_a.numel()
+    index = build.f32_vectors("aio_merge", n, num_a, den_a, num_b, den_b)
+    if n == 0:
         return
-    fn = build.function("aio_agg", _MERGE, _MERGE_ARGS)
-    with torch.cuda.device(num_a.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = fn(num_a.data_ptr(), den_a.data_ptr(), num_b.data_ptr(),
-                  den_b.data_ptr(), N, stream)
-    build.check("aio_agg", _MERGE, code)
+    _MERGE.launch(index, num_a.data_ptr(), den_a.data_ptr(),
+                  num_b.data_ptr(), den_b.data_ptr(), n)
     launches["aio_merge"] += 1

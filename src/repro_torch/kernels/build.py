@@ -21,6 +21,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 SOURCES = ("sparsify", "quantize", "fused_compress", "aio_agg")
@@ -116,3 +118,66 @@ def check(source: str, symbol: str, code: int) -> None:
     if code != 0:
         msg = _library(source).repro_cuda_error_string(code).decode()
         raise RuntimeError(f"{symbol}: CUDA error {code} at launch: {msg}")
+
+
+# ---------------------------------------------------------- lean launch path
+#
+# The redesigned wrappers (``aio_merge``, the norms) cost the host less
+# than their kernels cost the device: one pass of direct checks, no
+# ``torch.cuda.device`` context unless the operands lie on another device
+# than the current one, the raw stream handle without a ``torch.cuda.Stream``
+# object, and a C entry resolved once.
+
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
+def current_stream(index: int) -> int:
+    """The ``cudaStream_t`` of device ``index``'s current stream."""
+    if _raw_stream is not None:
+        return _raw_stream(index)
+    return torch.cuda.current_stream(index).cuda_stream
+
+
+def f32_vectors(kernel: str, n: int, *planes: torch.Tensor) -> int:
+    """Check that every plane is a contiguous float32 ``(n,)`` vector on
+    one CUDA device; return that device's index."""
+    index = planes[0].get_device()
+    for t in planes:
+        if t.get_device() != index or index < 0:
+            raise ValueError(f"{kernel}: every operand must lie on one CUDA "
+                             f"device; got {[str(p.device) for p in planes]}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{kernel}: operands must be float32; got "
+                            f"{t.dtype}")
+        if t.dim() != 1 or t.shape[0] != n or not t.is_contiguous():
+            raise ValueError(f"{kernel}: operands must be contiguous ({n},) "
+                             f"vectors; got shape {tuple(t.shape)}, strides "
+                             f"{t.stride()}")
+    return index
+
+
+class Entry:
+    """One C entry point, resolved at its first launch and kept.
+
+    ``launch(index, *args)`` calls it with ``args`` and the current stream
+    of device ``index``, entering that device only when it is not the
+    current one, and raises on a CUDA error."""
+
+    __slots__ = ("source", "symbol", "argtypes", "_fn")
+
+    def __init__(self, source: str, symbol: str, argtypes: tuple):
+        self.source, self.symbol, self.argtypes = source, symbol, argtypes
+        self._fn = None
+
+    def launch(self, index: int, *args) -> None:
+        fn = self._fn
+        if fn is None:
+            fn = self._fn = function(self.source, self.symbol,
+                                     (*self.argtypes, ctypes.c_void_p))
+        if index == torch.cuda.current_device():
+            code = fn(*args, current_stream(index))
+        else:
+            with torch.cuda.device(index):
+                code = fn(*args, current_stream(index))
+        if code:
+            check(self.source, self.symbol, code)

@@ -70,10 +70,11 @@ namespace {
 // element each, 39.9 MB for the fmnist-cnn update (N = 1,663,370), about
 // 11.9 us.
 //
-// Design: one thread per element, coalesced.  wm = w * m is rounded first,
-// then num + wm * u, with __fmul_rn / __fadd_rn (no FMA contraction), as
-// the plain version computes it: the two agree bit for bit.  w arrives by
-// value as a float32, the reference's jnp.float32(weight).
+// Design (absorb): one thread per element, coalesced.  wm = w * m is
+// rounded first, then num + wm * u, with __fmul_rn / __fadd_rn (no FMA
+// contraction), as the plain version computes it: the two agree bit for
+// bit.  w arrives by value as a float32, the reference's
+// jnp.float32(weight).  merge has its own design, below.
 __global__ void __launch_bounds__(THREADS)
 absorb_kernel(float* num, float* den, const float* __restrict__ u,
               const float* __restrict__ m, float w, int64_t N) {
@@ -84,13 +85,79 @@ absorb_kernel(float* num, float* den, const float* __restrict__ u,
   den[j] = __fadd_rn(den[j], wm);
 }
 
-__global__ void __launch_bounds__(THREADS)
-merge_kernel(float* num_a, float* den_a, const float* num_b,
-             const float* den_b, int64_t N) {
-  const int64_t j = static_cast<int64_t>(blockIdx.x) * THREADS + threadIdx.x;
-  if (j >= N) return;
-  num_a[j] = __fadd_rn(num_a[j], num_b[j]);
-  den_a[j] = __fadd_rn(den_a[j], den_b[j]);
+// merge, redesigned for the H100.  Its 24 B per element are about 12 us at
+// the HBM rate, while one launch through a wrapper costs the host more than
+// that: the design keeps the device side at the byte rate and leaves the
+// rest to the wrapper's lean launch path (kernels/build.py).
+//
+// Design: a grid-stride loop over a grid sized from the SM count (read once
+// per device and cached), so a launch costs the same few thousand threads
+// whatever N is.  When all four planes are 16-byte aligned, each thread
+// moves float4s, one 16-byte load or store per plane per step, and the
+// first block adds the N % 4 tail with scalar accesses; a misaligned view
+// (a plane that starts off a 16-byte boundary) takes the scalar loop.  Both
+// loops are the kernel.  Each element is one __fadd_rn, so the result is
+// the plain version's bit for bit.  The a-side pointers are read and
+// written in place and are not __restrict__.
+constexpr int MERGE_THREADS = 256;
+constexpr int MERGE_BLOCKS_PER_SM = 8;   // 2048 threads: a full H100 SM
+constexpr int MAX_DEVICES = 64;
+
+__device__ __forceinline__ float4 add4(float4 a, float4 b) {
+  return make_float4(__fadd_rn(a.x, b.x), __fadd_rn(a.y, b.y),
+                     __fadd_rn(a.z, b.z), __fadd_rn(a.w, b.w));
+}
+
+__global__ void __launch_bounds__(MERGE_THREADS)
+merge_vec4_kernel(float* num_a, float* den_a, const float* num_b,
+                  const float* den_b, int64_t N) {
+  const int64_t n4 = N / 4;
+  float4* na = reinterpret_cast<float4*>(num_a);
+  float4* da = reinterpret_cast<float4*>(den_a);
+  const float4* nb = reinterpret_cast<const float4*>(num_b);
+  const float4* db = reinterpret_cast<const float4*>(den_b);
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * MERGE_THREADS;
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * MERGE_THREADS +
+                   threadIdx.x;
+       i < n4; i += stride) {
+    na[i] = add4(na[i], nb[i]);
+    da[i] = add4(da[i], db[i]);
+  }
+  const int64_t j = 4 * n4 + threadIdx.x;
+  if (blockIdx.x == 0 && j < N) {
+    num_a[j] = __fadd_rn(num_a[j], num_b[j]);
+    den_a[j] = __fadd_rn(den_a[j], den_b[j]);
+  }
+}
+
+__global__ void __launch_bounds__(MERGE_THREADS)
+merge_scalar_kernel(float* num_a, float* den_a, const float* num_b,
+                    const float* den_b, int64_t N) {
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * MERGE_THREADS;
+  for (int64_t j = static_cast<int64_t>(blockIdx.x) * MERGE_THREADS +
+                   threadIdx.x;
+       j < N; j += stride) {
+    num_a[j] = __fadd_rn(num_a[j], num_b[j]);
+    den_a[j] = __fadd_rn(den_a[j], den_b[j]);
+  }
+}
+
+// Blocks that fill every SM of the current device once, read once per
+// device and cached; returns the CUDA error of the query.
+cudaError_t merge_grid_cap(int* cap) {
+  static int cached[MAX_DEVICES] = {0};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  if (cached[dev] == 0) {
+    int sms = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+    cached[dev] = sms * MERGE_BLOCKS_PER_SM;
+  }
+  *cap = cached[dev];
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -106,7 +173,22 @@ extern "C" int aio_absorb_f32(float* num, float* den, const float* u,
 extern "C" int aio_merge_f32(float* num_a, float* den_a, const float* num_b,
                              const float* den_b, int64_t N,
                              cudaStream_t stream) {
-  const unsigned grid = static_cast<unsigned>((N + THREADS - 1) / THREADS);
-  merge_kernel<<<grid, THREADS, 0, stream>>>(num_a, den_a, num_b, den_b, N);
+  int cap = 0;
+  const cudaError_t err = merge_grid_cap(&cap);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const bool vec4 = ((reinterpret_cast<uintptr_t>(num_a) |
+                      reinterpret_cast<uintptr_t>(den_a) |
+                      reinterpret_cast<uintptr_t>(num_b) |
+                      reinterpret_cast<uintptr_t>(den_b)) & 15) == 0;
+  const int64_t work = vec4 ? N / 4 : N;
+  const int64_t want = (work + MERGE_THREADS - 1) / MERGE_THREADS;
+  const unsigned grid = static_cast<unsigned>(
+      want < 1 ? 1 : (want < cap ? want : cap));
+  if (vec4)
+    merge_vec4_kernel<<<grid, MERGE_THREADS, 0, stream>>>(num_a, den_a, num_b,
+                                                          den_b, N);
+  else
+    merge_scalar_kernel<<<grid, MERGE_THREADS, 0, stream>>>(
+        num_a, den_a, num_b, den_b, N);
   return repro_launch_status();
 }

@@ -8,6 +8,8 @@ floats or 0-d tensors; arithmetic is float32 throughout.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 F32 = torch.float32
@@ -25,6 +27,38 @@ def kernel_sumsq_ref(x: torch.Tensor) -> torch.Tensor:
 def kernel_l2_ref(x: torch.Tensor) -> torch.Tensor:
     """Row-wise L2 norms. x: (K, ksize) -> (K,) f32."""
     return torch.sqrt(kernel_sumsq_ref(x))
+
+
+def leaf_kernel_shape(shape: tuple) -> tuple[int, int]:
+    """(K, ksize): kernels = output units (last axis); a 1-D leaf is one
+    kernel."""
+    if len(shape) >= 2:
+        return shape[-1], math.prod(shape[:-1])
+    return 1, math.prod(shape) if shape else 1
+
+
+def leaf_views(vec: torch.Tensor, shapes) -> list[torch.Tensor]:
+    """Each leaf's segment of a flat vector as its (K, ksize) kernel view:
+    the transpose of the C-order (ksize, K) buffer, strides (1, K), no
+    copy."""
+    views = []
+    off = 0
+    for shape in shapes:
+        k, ksize = leaf_kernel_shape(tuple(shape))
+        views.append(vec[off:off + k * ksize].view(ksize, k).t())
+        off += k * ksize
+    return views
+
+
+def kernel_sumsq_flat_ref(vec: torch.Tensor, shapes) -> torch.Tensor:
+    """Every leaf's row sums of squares over a flat update with leaves
+    ``shapes``, concatenated -> (K_total,) f32."""
+    return torch.cat([kernel_sumsq_ref(x) for x in leaf_views(vec, shapes)])
+
+
+def kernel_l2_flat_ref(vec: torch.Tensor, shapes) -> torch.Tensor:
+    """Every leaf's row L2 norms, concatenated -> (K_total,) f32."""
+    return torch.cat([kernel_l2_ref(x) for x in leaf_views(vec, shapes)])
 
 
 def threshold_mask_ref(x: torch.Tensor, norms: torch.Tensor, thr

@@ -2,37 +2,126 @@
 
 Wrappers over ``csrc/sparsify.cu``, which replaces the reference's
 ``kernel_sumsq``, ``kernel_l2`` and ``threshold_apply``
-(``repro/kernels/sparsify.py``).  The norms take a ``(K, ksize)`` float32
-CUDA view with any strides; the main path passes each leaf's C-order
-buffer as its transpose, strides ``(1, K)``, without a copy.
-``threshold_apply`` takes the same view, dense.  The CPU route is
-``kernels/ops.py``'s.
+(``repro/kernels/sparsify.py``).  The norm kernel reads a table of
+segments, each a ``(K, ksize)`` float32 view with any strides over one
+base pointer: :func:`kernel_l2_flat` takes the whole flat update, one
+segment per leaf (each leaf's C-order buffer read as its transpose,
+strides ``(1, K)``), in one call; :func:`kernel_l2` takes a single view,
+a one-segment table.  ``threshold_apply`` takes one dense view.  The CPU
+route is ``kernels/ops.py``'s.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import functools
+from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.fused_compress import kernel_fastest
+from repro_torch.kernels.ref import leaf_kernel_shape
 
-#: launches of the CUDA kernels: ``kernel_sumsq`` counts every launch of
-#: the norm kernel, ``kernel_l2`` those with the sqrt epilogue
+#: launches of the CUDA kernels: ``kernel_sumsq`` counts every call of the
+#: norm kernel's C entry, ``kernel_l2`` those with the sqrt epilogue
 launches = {"kernel_sumsq": 0, "kernel_l2": 0, "threshold_apply": 0}
 
-_SYMBOL = "kernel_sumsq_f32"
-_ARGS = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
-         ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_void_p)
+#: the most segments one norm call takes (the kernel's table is passed by
+#: value and must stay within the 4 KB of a launch's parameters)
+MAX_SEGMENTS = 64
+#: kernels and columns of one tile of the norm kernel (csrc/sparsify.cu)
+TILE_ROWS, TILE_CHUNK = 32, 256
+
+_SUMSQ = build.Entry("sparsify", "kernel_sumsq_segments_f32",
+                     (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                      ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
+                      ctypes.c_int64, ctypes.c_int))
 _THR_SYMBOL = "threshold_apply_f32"
 _THR_ARGS = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
              ctypes.c_int, ctypes.c_float, ctypes.c_void_p)
 
 
-def _launch(x: torch.Tensor, take_sqrt: bool) -> torch.Tensor:
-    if x.device.type != "cuda":
+class SegmentTable(NamedTuple):
+    """The norm kernel's work description, built on the host.
+
+    ``rows`` holds one row per segment: ``(offset, K, C, sK, sC,
+    out_base, tile_base, part_base, ktiles)``, element ``(k, c)`` of the
+    segment at ``offset + k*sK + c*sC`` from the base pointer and its
+    result at ``out[out_base + k]``; the last three place the segment's
+    tiles and partial sums.  ``blob`` is ``rows`` as the C entry reads it
+    (int64, row-major); ``n_elements`` counts the elements the segments
+    read."""
+    rows: tuple
+    n_elements: int
+    k_total: int
+    n_tiles: int
+    n_partials: int
+    blob: bytes
+
+
+def segment_table(segments: tuple) -> SegmentTable:
+    """The table for ``segments``, a tuple of ``(offset, K, C, sK, sC)``
+    views laid end to end in the output; raises above
+    :data:`MAX_SEGMENTS` segments or past the kernel's 32-bit counts."""
+    if not 0 < len(segments) <= MAX_SEGMENTS:
+        raise ValueError(f"the norm kernel takes 1 to {MAX_SEGMENTS} "
+                         f"segments; got {len(segments)}")
+    rows, out, tile, part = [], 0, 0, 0
+    for offset, K, C, sK, sC in segments:
+        ktiles = -(-K // TILE_ROWS)
+        chunks = -(-C // TILE_CHUNK)
+        rows.append((offset, K, C, sK, sC, out, tile, part, ktiles))
+        out += K
+        tile += ktiles * chunks
+        part += chunks * K
+    if max(out, tile, max(max(r[1], r[2]) for r in rows)) >= 2 ** 31:
+        raise ValueError(f"the norm kernel counts kernels, columns and "
+                         f"tiles in 32 bits; got {out} kernels, {tile} "
+                         f"tiles")
+    blob = np.asarray(rows, dtype=np.int64).tobytes()
+    return SegmentTable(tuple(rows), sum(r[1] * r[2] for r in rows), out,
+                        tile, part, blob)
+
+
+@functools.lru_cache(maxsize=64)
+def flat_table(shapes: tuple) -> SegmentTable:
+    """One segment per leaf of a flat update with leaves ``shapes``, in
+    order: each leaf's C-order buffer as its ``(K, ksize)`` transpose,
+    element ``(k, c)`` at ``offset + c*K + k``; a 1-D leaf is one kernel."""
+    segments, offset = [], 0
+    for shape in shapes:
+        K, C = leaf_kernel_shape(tuple(shape))
+        segments.append((offset, K, C, 1, K))
+        offset += K * C
+    return segment_table(tuple(segments))
+
+
+@functools.lru_cache(maxsize=64)
+def _view_table(K: int, C: int, sK: int, sC: int) -> SegmentTable:
+    return segment_table(((0, K, C, sK, sC),))
+
+
+def _norms(x: torch.Tensor, index: int, table: SegmentTable,
+           take_sqrt: bool) -> torch.Tensor:
+    """One call of the C entry over ``table`` from ``x``'s first element."""
+    out = x.new_empty((table.k_total,))
+    if table.k_total == 0:
+        return out
+    part = x.new_empty((table.n_partials,))
+    _SUMSQ.launch(index, x.data_ptr(), out.data_ptr(), part.data_ptr(),
+                  table.blob, len(table.rows), table.n_tiles, table.k_total,
+                  int(take_sqrt))
+    launches["kernel_sumsq"] += 1
+    if take_sqrt:
+        launches["kernel_l2"] += 1
+    return out
+
+
+def _view_norms(x: torch.Tensor, take_sqrt: bool) -> torch.Tensor:
+    index = x.get_device()
+    if index < 0:
         raise ValueError(f"kernel_sumsq launches on CUDA tensors; got "
                          f"{x.device}")
     if x.dtype != torch.float32:
@@ -40,30 +129,35 @@ def _launch(x: torch.Tensor, take_sqrt: bool) -> torch.Tensor:
     if x.dim() != 2:
         raise ValueError(f"kernel_sumsq takes a (K, ksize) view; got "
                          f"shape {tuple(x.shape)}")
-    K, C = x.shape
-    out = torch.empty(K, dtype=torch.float32, device=x.device)
-    if K == 0:
-        return out
-    fn = build.function("sparsify", _SYMBOL, _ARGS)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = fn(x.data_ptr(), out.data_ptr(), K, C, x.stride(0),
-                  x.stride(1), int(take_sqrt), stream)
-    build.check("sparsify", _SYMBOL, code)
-    launches["kernel_sumsq"] += 1
-    if take_sqrt:
-        launches["kernel_l2"] += 1
-    return out
+    return _norms(x, index, _view_table(*x.shape, *x.stride()), take_sqrt)
+
+
+def _flat_norms(vec: torch.Tensor, shapes, take_sqrt: bool) -> torch.Tensor:
+    table = flat_table(tuple(shapes))
+    index = build.f32_vectors("kernel_sumsq", table.n_elements, vec)
+    return _norms(vec, index, table, take_sqrt)
 
 
 def kernel_sumsq(x: torch.Tensor) -> torch.Tensor:
     """x: (K, ksize) float32 CUDA view -> row sums of squares (K,)."""
-    return _launch(x, take_sqrt=False)
+    return _view_norms(x, take_sqrt=False)
 
 
 def kernel_l2(x: torch.Tensor) -> torch.Tensor:
     """x: (K, ksize) float32 CUDA view -> row L2 norms (K,)."""
-    return _launch(x, take_sqrt=True)
+    return _view_norms(x, take_sqrt=True)
+
+
+def kernel_sumsq_flat(vec: torch.Tensor, shapes) -> torch.Tensor:
+    """vec: the contiguous float32 (N,) CUDA vector of an update whose
+    leaves have ``shapes`` -> every leaf's kernel sums of squares,
+    concatenated (K_total,), in one call."""
+    return _flat_norms(vec, shapes, take_sqrt=False)
+
+
+def kernel_l2_flat(vec: torch.Tensor, shapes) -> torch.Tensor:
+    """As :func:`kernel_sumsq_flat`, the L2 norms."""
+    return _flat_norms(vec, shapes, take_sqrt=True)
 
 
 def threshold_apply(x: torch.Tensor, norms: torch.Tensor, thr: float,

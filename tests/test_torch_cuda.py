@@ -8,7 +8,8 @@ imports no JAX, so it runs on a machine that has only PyTorch:
 Tolerances: level indices, masks, the threshold step and the
 aggregation (batched and streaming) exact (same float32 operations in the
 same order, no FMA contraction); quantized values rtol 1e-6; norms rtol
-1e-5 (the plain version sums in another order).
+1e-5 (the plain version sums in another order), and bitwise equal between
+two calls of the kernel (it sums in a fixed order).
 """
 import numpy as np
 import pytest
@@ -62,6 +63,28 @@ def test_norm_and_fused_kernels_match_plain_versions(cuda):
             assert q.stride() == x.stride()
             assert torch.equal(lvl, lr)
             assert torch.equal(q, qr)
+
+
+@pytest.mark.parametrize("shapes", [
+    FMNIST_SHAPES,
+    [(6,), (3, 3, 2, 6), (17,), (24, 10)],
+    [(5, 5, 1, 32), (32,), (40, 33), (1,)],
+    [(7,), (300, 70), (70,)],
+])
+def test_flat_norms_match_plain_version_and_are_stable(cuda, shapes):
+    """One call over the whole update: the plain version's norms within
+    rtol 1e-5, and the same bits from a second call."""
+    n = sum(int(np.prod(s)) for s in shapes)
+    rng = np.random.default_rng(n)
+    vec = torch.tensor(rng.standard_normal(n).astype(np.float32) * 1e-2,
+                       device=cuda)
+    for kernel, plain in ((sparsify.kernel_sumsq_flat,
+                           ref.kernel_sumsq_flat_ref),
+                          (sparsify.kernel_l2_flat, ref.kernel_l2_flat_ref)):
+        got = kernel(vec, shapes)
+        torch.testing.assert_close(got, plain(vec, shapes), rtol=1e-5,
+                                   atol=0)
+        assert torch.equal(got, kernel(vec, shapes))
 
 
 def test_fused_kernel_takes_row_major_views(cuda):
@@ -136,10 +159,38 @@ def test_absorb_and_merge_kernels_are_exact_and_in_place(cuda):
     assert torch.equal(b_side[0], u) and torch.equal(b_side[1], m)
 
 
+@pytest.mark.parametrize("n,offset", [
+    (sum(int(np.prod(s)) for s in FMNIST_SHAPES), 0),
+    *((k, 0) for k in range(1, 8)),
+    (sum(int(np.prod(s)) for s in FMNIST_SHAPES), 1),
+])
+def test_merge_kernel_exact_at_every_length_and_alignment(cuda, n, offset):
+    """The float4 loop with its N % 4 tail, and the scalar loop for a
+    plane that starts ``offset`` elements off its buffer (off a 16-byte
+    boundary for offset 1): bit for bit, in place."""
+    g = torch.Generator(device=cuda).manual_seed(n + offset)
+    planes = [torch.randn(n + offset, generator=g, device=cuda)[offset:]
+              for _ in range(4)]
+    want = ref.aio_merge_ref(*planes)
+    ptrs = [t.data_ptr() for t in planes[:2]]
+    aio_agg.aio_merge(*planes)
+    assert [t.data_ptr() for t in planes[:2]] == ptrs
+    assert torch.equal(planes[0], want[0]) and torch.equal(planes[1], want[1])
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     x = torch.ones(4, 8, device=cuda)
     with pytest.raises(TypeError):
         sparsify.kernel_l2(x.double())
+    flat = torch.ones(64, device=cuda)
+    with pytest.raises(TypeError):
+        sparsify.kernel_l2_flat(flat.double(), [(8, 8)])
+    with pytest.raises(ValueError):
+        sparsify.kernel_l2_flat(flat[:60], [(8, 8)])
+    with pytest.raises(ValueError):
+        sparsify.kernel_l2_flat(torch.ones(128, device=cuda)[::2], [(8, 8)])
+    with pytest.raises(ValueError):
+        sparsify.kernel_l2_flat(torch.ones(65, device=cuda), [(1,)] * 65)
     with pytest.raises(ValueError):
         fused_compress.fused_sparsify_quantize(
             x[:, ::2], torch.ones(4, device=cuda), 0.0, 0.0, 1.0, 2.0,
@@ -169,8 +220,9 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
 
 
 def test_cuda_round_goes_through_every_kernel(cuda):
-    """A flat round with the planner launches #1-#6; a hierarchical one
-    #7 and #8 and not #6."""
+    """A flat round with the planner launches #1-#6, the norms once per
+    compressed update and planner probe; a hierarchical one #7 and #8 and
+    not #6."""
     from repro_torch.sysmodel.population import FleetConfig
     from repro_torch.topology import TopologyConfig
     from repro_torch.train.fl_loop import FLRunConfig, run_fl
@@ -180,6 +232,8 @@ def test_cuda_round_goes_through_every_kernel(cuda):
     counts = ops.launch_counts()
     flat = {k for k, v in counts.items() if v > 0}
     assert flat == set(counts) - {"aio_absorb", "aio_merge"}, counts
+    updates = sum(r.n_clients + r.n_dropped for r in hist.rounds)
+    assert counts["kernel_l2"] == counts["kernel_sumsq"] == updates + 1
     assert np.isfinite(hist.rounds[-1].test_loss)
     ops.reset_launch_counts()
     hist = run_fl(cfg, FleetConfig(n_devices=4, topology=TopologyConfig(

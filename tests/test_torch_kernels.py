@@ -80,6 +80,152 @@ def test_kernel_l2_op_takes_the_transposed_leaf_view():
                                rtol=1e-6)
 
 
+#: the fmnist-cnn update's leaves, in sorted-key order
+FMNIST_SHAPES = [(32,), (5, 5, 1, 32), (64,), (5, 5, 32, 64), (512,),
+                 (3136, 512), (10,), (512, 10)]
+#: small updates with 1-D leaves, a one-element leaf and ragged K (not a
+#: multiple of the 32-kernel tile) and C (not of the 256-column tile)
+SMALL_SHAPE_LISTS = [
+    [(6,), (3, 3, 2, 6), (17,), (24, 10)],
+    [(5, 5, 1, 32), (32,), (40, 33), (1,)],
+    [(7,), (300, 70), (70,)],
+]
+
+
+def _emulate_norm_kernel(base, table, take_sqrt):
+    """The two passes of ``csrc/sparsify.cu``'s norm kernel, over the
+    table's rows, in numpy: tiles of 32 kernels x 256 columns write
+    partial sums, then each kernel's partials are added in chunk order.
+    Returns (norms, how often each element of ``base`` was read)."""
+    rows = table.rows
+    reads = np.zeros(base.size, np.int64)
+    part = np.full(table.n_partials, np.nan)
+
+    def segment(i, field):          # the kernel's linear scan
+        s = 0
+        while s + 1 < len(rows) and i >= rows[s + 1][field]:
+            s += 1
+        return rows[s]
+
+    for b in range(table.n_tiles):
+        off, K, C, sK, sC, _, tile0, part0, ktiles = segment(b, 6)
+        kt, ct = (b - tile0) % ktiles, (b - tile0) // ktiles
+        ks = np.arange(kt * sparsify.TILE_ROWS,
+                       min((kt + 1) * sparsify.TILE_ROWS, K))
+        cs = np.arange(ct * sparsify.TILE_CHUNK,
+                       min((ct + 1) * sparsify.TILE_CHUNK, C))
+        idx = off + ks[:, None] * sK + cs[None, :] * sC
+        np.add.at(reads, idx.reshape(-1), 1)
+        part[part0 + ct * K + ks] = (base[idx].astype(np.float64) ** 2).sum(1)
+    out = np.zeros(table.k_total)
+    for i in range(table.k_total):
+        _, K, C, _, _, out0, _, part0, _ = segment(i, 5)
+        chunks = -(-C // sparsify.TILE_CHUNK)
+        out[i] = sum(part[part0 + ch * K + i - out0] for ch in range(chunks))
+    return (np.sqrt(out) if take_sqrt else out), reads
+
+
+def test_segment_table_of_the_fmnist_update():
+    """8 segments, one per leaf, whose element ranges tile N; K_total 622;
+    the (3136, 512) dense leaf alone spans more tiles than the H100 has
+    SMs; the table is cached per tuple of shapes."""
+    table = sparsify.flat_table(tuple(FMNIST_SHAPES))
+    assert sparsify.flat_table(tuple(FMNIST_SHAPES)) is table
+    assert len(table.rows) == 8
+    assert table.k_total == 622 and table.n_elements == 1_663_370
+    end = 0
+    for (off, K, C, sK, sC, *_), shape in zip(table.rows, FMNIST_SHAPES):
+        assert off == end and (K, C) == compression.leaf_kernel_shape(shape)
+        assert (sK, sC) == (1, K)
+        end += K * C
+    assert end == 1_663_370
+    dense = table.rows[5]
+    dense_tiles = table.rows[6][6] - dense[6]
+    assert (dense[1], dense[2]) == (512, 3136) and dense_tiles >= 132
+    assert len(table.blob) == 8 * 9 * 8
+
+
+@pytest.mark.parametrize("shapes", [FMNIST_SHAPES, *SMALL_SHAPE_LISTS])
+def test_segment_table_reads_every_element_once(shapes):
+    """Emulated over its table, the kernel reads each element of the flat
+    update exactly once and gives the plain version's norms."""
+    n = sum(int(np.prod(s)) for s in shapes)
+    vec = _rng(n).standard_normal(n).astype(np.float32)
+    table = sparsify.flat_table(tuple(shapes))
+    got, reads = _emulate_norm_kernel(vec, table, take_sqrt=True)
+    assert (reads == 1).all()
+    np.testing.assert_allclose(
+        got, ref.kernel_l2_flat_ref(_t(vec), shapes).numpy(), rtol=1e-5)
+
+
+@pytest.mark.parametrize("layout", ["row-major", "transposed"])
+def test_segment_table_of_a_single_view(layout):
+    """A single (K, ksize) view with any strides is a one-segment table
+    over the view's own first element."""
+    base = _rng(7).standard_normal(70 * 300).astype(np.float32)
+    x = _t(base).view(70, 300) if layout == "row-major" \
+        else _t(base).view(300, 70).t()
+    table = sparsify._view_table(*x.shape, *x.stride())
+    assert table.rows == ((0, 70, 300, *x.stride(), 0, 0, 0, 3),)
+    assert table.n_tiles == 3 * 2 and table.n_partials == 2 * 70
+    got, reads = _emulate_norm_kernel(base, table, take_sqrt=False)
+    assert (reads == 1).all()
+    np.testing.assert_allclose(got, ref.kernel_sumsq_ref(x).numpy(),
+                               rtol=1e-5)
+
+
+def test_segment_table_cap():
+    """At most MAX_SEGMENTS segments ride in the launch; the largest model
+    config of the port (vgg9-cifar) fits under the cap."""
+    from repro_torch.configs.vgg9_cifar import CONFIG
+    from repro_torch.models.cnn import init_vgg9
+    from repro_torch.utils.pytree import tree_leaves
+    cap = sparsify.MAX_SEGMENTS
+    assert len(sparsify.flat_table(((3,),) * cap).rows) == cap
+    with pytest.raises(ValueError, match="segments"):
+        sparsify.flat_table(((3,),) * (cap + 1))
+    with pytest.raises(ValueError, match="segments"):
+        sparsify.segment_table(())
+    leaves = tree_leaves(init_vgg9(torch.Generator().manual_seed(0), CONFIG))
+    shapes = tuple(tuple(x.shape) for x in leaves)
+    assert len(sparsify.flat_table(shapes).rows) == len(leaves) <= cap
+
+
+@pytest.mark.parametrize("shapes", SMALL_SHAPE_LISTS)
+def test_flat_norms_match_the_pallas_kernel_per_leaf(shapes):
+    """The flat entry's CPU route against the JAX package's Pallas kernels
+    (interpret mode), one call per leaf view, concatenated."""
+    n = sum(int(np.prod(s)) for s in shapes)
+    vec = _rng(n + 1).standard_normal(n).astype(np.float32)
+    leaves, off = [], 0
+    for s in shapes:
+        K, C = compression.leaf_kernel_shape(s)
+        leaves.append(jnp.asarray(vec[off:off + K * C].reshape(C, K).T))
+        off += K * C
+    for op, pallas in ((ops.kernel_sumsq_flat_op, jax_sparsify.kernel_sumsq),
+                       (ops.kernel_l2_flat_op, jax_sparsify.kernel_l2)):
+        want = np.concatenate([np.asarray(pallas(x, interpret=True))
+                               for x in leaves])
+        np.testing.assert_allclose(op(_t(vec), shapes).numpy(), want,
+                                   rtol=1e-6)
+
+
+@pytest.mark.parametrize("shapes", SMALL_SHAPE_LISTS)
+def test_norms_match_reference_kernel_norms(shapes):
+    """compression._norms (the flat entry) against the reference's
+    segment-sum ``core/compression.kernel_norms`` (rtol 1e-5: the two sum
+    in another order)."""
+    from repro.core import compression as jcomp
+    tree = {f"l{i}": jnp.zeros(s, jnp.float32) for i, s in enumerate(shapes)}
+    seg, K = jcomp.kernel_segments(tree)
+    n = seg.size
+    vec = _rng(n + 2).standard_normal(n).astype(np.float32)
+    want = np.asarray(jcomp.kernel_norms(jnp.asarray(vec), seg, K))
+    # the reference walks leaves in sorted-key order: l0, l1, ... for < 10
+    got = compression._norms(_t(vec), list(shapes))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5)
+
+
 @pytest.mark.parametrize("K,C", [(64, 256), (37, 129)])
 def test_threshold_apply(K, C):
     x, _, norms, thr, _, _ = _quant_inputs(_rng(K), K, C)
@@ -258,6 +404,7 @@ def test_cpu_route_launches_no_kernel():
     x = torch.ones(4, 8)
     v = torch.ones(32)
     ops.kernel_l2_op(x)
+    ops.kernel_l2_flat_op(x.reshape(-1), [(4, 8)])
     ops.threshold_apply_op(x, torch.ones(4), 0.5)
     ops.prob_quantize_op(v, v, 0.0, 1.0, 4.0, v)
     ops.aio_aggregate_op(x, x, torch.ones(4))
@@ -275,6 +422,7 @@ def test_operands_off_cpu_and_cuda_raise():
 
 @pytest.mark.parametrize("call", [
     lambda x: sparsify.kernel_l2(x),
+    lambda x: sparsify.kernel_l2_flat(x.reshape(-1), [(4, 8)]),
     lambda x: fused_compress.fused_sparsify_quantize(
         x, torch.ones(4), 0.0, 0.0, 1.0, 2.0, x),
     lambda x: aio_agg.aio_aggregate(x, x, torch.ones(4)),
