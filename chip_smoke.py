@@ -42,8 +42,9 @@ Phases, in order; any failure exits non-zero:
    could take (bytes moved over 3.35 TB/s, or float32 operations over
    67 TFLOP/s, whichever is larger); then each one's device-only time
    (replays of a CUDA graph of 20 calls; the profiler's summed device time
-   where a plain version cannot be captured).  Working sets under the
-   50 MB L2 run warm in these loops.  Prints both runs' host wall time.
+   where a plain version cannot be captured).  Prints each unit's
+   footprint (the bytes of the distinct storages it reads and writes)
+   beside the 50 MB L2, and both main-path runs' host wall time.
 
 The last lines are the card's name and power limit, one JSON object of
 kernels, and the result line.  Without a card, or without the rest of
@@ -476,10 +477,11 @@ def main() -> None:
 
     def fused_all(fn):
         def run():
-            k0 = 0
+            outs, k0 = [], 0
             for x, r in zip(views, rviews):
-                fn(x, norms[k0:k0 + x.shape[0]], *scal, r)
+                outs.append(fn(x, norms[k0:k0 + x.shape[0]], *scal, r))
                 k0 += x.shape[0]
+            return outs
         return run
 
     def threshold_all(fn, flat_out):
@@ -487,19 +489,35 @@ def main() -> None:
             if flat_out is not None else [None] * len(views)
 
         def run():
-            k0 = 0
+            res, k0 = [], 0
             for x, out in zip(views, outs):
                 nk = norms[k0:k0 + x.shape[0]]
-                if out is None:
-                    fn(x, nk, thr_f)
-                else:
-                    fn(x, nk, thr_f, out=out)
+                res.append(fn(x, nk, thr_f) if out is None
+                           else fn(x, nk, thr_f, out=out))
                 k0 += x.shape[0]
+            return res
         return run
+
+    def tensors_in(obj):
+        if isinstance(obj, torch.Tensor):
+            return [obj]
+        if isinstance(obj, (tuple, list)):
+            return [t for o in obj for t in tensors_in(o)]
+        return []
+
+    def footprint_mb(r):
+        """The bytes of the distinct storages the unit reads (its
+        operands) and writes (in place, or what it returns)."""
+        storages = {}
+        for t in tensors_in([r["operands"], r["unit"]()]):
+            st = t.untyped_storage()
+            storages[st.data_ptr()] = st.nbytes()
+        return sum(storages.values()) / 1e6
 
     num_a, den_a = num.clone(), den.clone()
     ones = torch.ones_like(msk)
-    # Each row: the main path's unit of work through the kernel, its plain
+    # Each row: the main path's unit of work through the kernel, the
+    # tensors it reads (its outputs are what it returns), its plain
     # version, the one PyTorch call (or per-leaf calls) that computes the
     # same function where there is one, the bytes the unit must move and
     # the float32 operations it does.  "graph" names the callables that a
@@ -508,6 +526,7 @@ def main() -> None:
     # that synchronises) cannot be captured, and the profiler times them.
     rows = [
         dict(name="kernel_sumsq", source="sparsify.cu",
+             operands=(vec,),
              replaces="src/repro/kernels/sparsify.py:36",
              unit=lambda: sparsify.kernel_sumsq_flat(vec, FMNIST_SHAPES),
              plain=lambda: ref.kernel_sumsq_flat_ref(vec, FMNIST_SHAPES),
@@ -516,6 +535,7 @@ def main() -> None:
              tolerance="rtol 1e-5, bitwise stable", nbytes=4 * n + 4 * K,
              nflops=2 * n),
         dict(name="kernel_l2", source="sparsify.cu",
+             operands=(vec,),
              replaces="src/repro/kernels/sparsify.py:58",
              unit=lambda: sparsify.kernel_l2_flat(vec, FMNIST_SHAPES),
              plain=lambda: ref.kernel_l2_flat_ref(vec, FMNIST_SHAPES),
@@ -524,6 +544,7 @@ def main() -> None:
              tolerance="rtol 1e-5, bitwise stable", nbytes=4 * n + 4 * K,
              nflops=2 * n + K),
         dict(name="fused_sparsify_quantize", source="fused_compress.cu",
+             operands=(vec, norms, rand),
              replaces="src/repro/kernels/fused_compress.py:43",
              unit=fused_all(fused_compress.fused_sparsify_quantize),
              plain=fused_all(ref.fused_sparsify_quantize_ref),
@@ -531,6 +552,7 @@ def main() -> None:
              tolerance="levels and support exact, values rtol 1e-6",
              nbytes=16 * n + 4 * K, nflops=12 * n),
         dict(name="aio_aggregate", source="aio_agg.cu",
+             operands=(u, m, w),
              replaces="src/repro/kernels/aio_agg.py:53",
              unit=lambda: aio_agg.aio_aggregate(u, m, w),
              plain=lambda: ref.aio_aggregate_ref(u, m, w),
@@ -539,12 +561,14 @@ def main() -> None:
              nbytes=8 * N_DEVICES * n + 4 * N_DEVICES + 4 * n,
              nflops=4 * N_DEVICES * n + n),
         dict(name="threshold_apply", source="sparsify.cu",
+             operands=(vec, norms),
              replaces="src/repro/kernels/sparsify.py:70",
              unit=threshold_all(sparsify.threshold_apply, masked),
              plain=threshold_all(ref.threshold_mask_ref, None),
              library=None, library_name=None, plain_graph=False,
              tolerance="exact", nbytes=8 * n + 8 * K, nflops=n),
         dict(name="prob_quantize", source="quantize.cu",
+             operands=qargs[:2] + qargs[5:],
              replaces="src/repro/kernels/quantize.py:39",
              unit=lambda: quantize.prob_quantize(*qargs),
              plain=lambda: ref.quantize_ref(*qargs),
@@ -552,6 +576,7 @@ def main() -> None:
              tolerance="levels exact, values rtol 1e-6", nbytes=20 * n,
              nflops=12 * n),
         dict(name="aio_absorb", source="aio_agg.cu",
+             operands=(num_a, den_a, upd, msk),
              replaces="src/repro/kernels/aio_agg.py:90",
              unit=lambda: aio_agg.aio_absorb(num_a, den_a, upd, msk, 0.5),
              plain=lambda: ref.aio_absorb_ref(num_a, den_a, upd, msk, 0.5),
@@ -561,6 +586,7 @@ def main() -> None:
              plain_graph=False, tolerance="exact, in place",
              nbytes=24 * n, nflops=4 * n),
         dict(name="aio_merge", source="aio_agg.cu",
+             operands=(num_a, den_a, num_b, den_b),
              replaces="src/repro/kernels/aio_agg.py:130",
              unit=lambda: aio_agg.aio_merge(num_a, den_a, num_b, den_b),
              plain=lambda: ref.aio_merge_ref(num_a, den_a, num_b, den_b),
@@ -588,13 +614,12 @@ def main() -> None:
             device_by=dict(kernel="graph", library="graph",
                            plain="graph" if r["plain_graph"] else "profiler"),
             library_call=r["library_name"],
-            working_set_mb=r["nbytes"] / 1e6,
-            l2_resident=r["nbytes"] <= L2_BYTES,
             tolerance=r["tolerance"]))
-    for k in kernels:
-        warm = (f"working set {k['working_set_mb']:.1f} MB "
-                + ("fits the 50 MB L2: the timed loops run warm"
-                   if k["l2_resident"] else "exceeds the 50 MB L2"))
+    footprints = [footprint_mb(r) for r in rows]
+    for k, mb in zip(kernels, footprints):
+        warm = (f"footprint {mb:.1f} MB, "
+                + ("within the 50 MB L2" if mb * 1e6 <= L2_BYTES
+                   else "beyond the 50 MB L2"))
         below = " (below the HBM bound: L2-resident)" \
             if k["device_ms"] < k["bound_ms"] else ""
         print(f"[time] {k['name']}: kernel {k['ms']:.6f} ms, device "

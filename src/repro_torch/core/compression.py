@@ -57,22 +57,17 @@ MAX_LEVELS = 65535
 def kernel_segments(tree: PyTree) -> tuple[np.ndarray, int]:
     """Element -> kernel-id map for the flattened update vector.
 
-    Returns (segment_ids (N,), total kernel count K)."""
-    seg = []
+    Returns (segment_ids (N,), total kernel count K): row ``k`` of each
+    leaf's :func:`_leaf_views` view holds its kernel's id."""
+    shapes = [tuple(leaf.shape) for leaf in tree_leaves(tree)]
+    seg = np.empty(sum(math.prod(s) for s in shapes), np.int32)
     kid = 0
-    for leaf in tree_leaves(tree):
-        shape = tuple(leaf.shape)
-        k, ksize = leaf_kernel_shape(shape)
-        if len(shape) >= 2:
-            # C-order flattening: the last axis varies fastest, so element i
-            # belongs to kernel i % k
-            seg.append(np.tile(np.arange(k, dtype=np.int32), ksize) + kid)
-        else:
-            seg.append(np.full(math.prod(shape), kid, np.int32))
+    for v in _leaf_views(torch.from_numpy(seg), shapes):
+        k = v.shape[0]
+        v.copy_(torch.arange(kid, kid + k, dtype=torch.int32)[:, None]
+                .expand_as(v))
         kid += k
-    if not seg:
-        return np.zeros((0,), np.int32), 0
-    return np.concatenate(seg), kid
+    return seg, kid
 
 
 def _from_views(views: list[torch.Tensor]) -> torch.Tensor:

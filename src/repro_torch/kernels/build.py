@@ -128,14 +128,9 @@ def check(source: str, symbol: str, code: int) -> None:
 # than the current one, the raw stream handle without a ``torch.cuda.Stream``
 # object, and a C entry resolved once.
 
-_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
-
-
 def current_stream(index: int) -> int:
     """The ``cudaStream_t`` of device ``index``'s current stream."""
-    if _raw_stream is not None:
-        return _raw_stream(index)
-    return torch.cuda.current_stream(index).cuda_stream
+    return torch._C._cuda_getCurrentRawStream(index)
 
 
 def f32_vectors(kernel: str, n: int, *planes: torch.Tensor) -> int:

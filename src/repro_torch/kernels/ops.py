@@ -40,16 +40,9 @@ def kernel_l2_op(x: torch.Tensor) -> torch.Tensor:
     return ref.kernel_l2_ref(x)
 
 
-def kernel_sumsq_flat_op(vec: torch.Tensor, shapes) -> torch.Tensor:
-    """Every leaf's kernel sums of squares over a flat update with leaves
-    ``shapes``, concatenated (K_total,): one kernel call on CUDA."""
-    if _on_cuda(vec):
-        return sparsify.kernel_sumsq_flat(vec, shapes)
-    return ref.kernel_sumsq_flat_ref(vec, shapes)
-
-
 def kernel_l2_flat_op(vec: torch.Tensor, shapes) -> torch.Tensor:
-    """As :func:`kernel_sumsq_flat_op`, the L2 norms (Eq. 2's)."""
+    """Every leaf's kernel L2 norms (Eq. 2's) over a flat update with
+    leaves ``shapes``, concatenated (K_total,): one kernel call on CUDA."""
     if _on_cuda(vec):
         return sparsify.kernel_l2_flat(vec, shapes)
     return ref.kernel_l2_flat_ref(vec, shapes)

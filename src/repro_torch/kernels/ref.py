@@ -52,7 +52,8 @@ def leaf_views(vec: torch.Tensor, shapes) -> list[torch.Tensor]:
 
 def kernel_sumsq_flat_ref(vec: torch.Tensor, shapes) -> torch.Tensor:
     """Every leaf's row sums of squares over a flat update with leaves
-    ``shapes``, concatenated -> (K_total,) f32."""
+    ``shapes``, concatenated -> (K_total,) f32: the plain version of
+    ``sparsify.kernel_sumsq_flat``."""
     return torch.cat([kernel_sumsq_ref(x) for x in leaf_views(vec, shapes)])
 
 

@@ -5,15 +5,16 @@ Wrappers over ``csrc/sparsify.cu``, which replaces the reference's
 (``repro/kernels/sparsify.py``).  The norm kernel reads a table of
 segments, each a ``(K, ksize)`` float32 view with any strides over one
 base pointer: :func:`kernel_l2_flat` takes the whole flat update, one
-segment per leaf (each leaf's C-order buffer read as its transpose,
-strides ``(1, K)``), in one call; :func:`kernel_l2` takes a single view,
-a one-segment table.  ``threshold_apply`` takes one dense view.  The CPU
+segment per leaf view of ``ref.leaf_views`` (each leaf's C-order buffer
+read as its transpose, strides ``(1, K)``), in one call;
+:func:`kernel_l2` takes a single view, a one-segment table.  ``threshold_apply`` takes one dense view.  The CPU
 route is ``kernels/ops.py``'s.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -21,7 +22,7 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.fused_compress import kernel_fastest
-from repro_torch.kernels.ref import leaf_kernel_shape
+from repro_torch.kernels.ref import leaf_views
 
 #: launches of the CUDA kernels: ``kernel_sumsq`` counts every call of the
 #: norm kernel's C entry, ``kernel_l2`` those with the sqrt epilogue
@@ -88,14 +89,12 @@ def segment_table(segments: tuple) -> SegmentTable:
 @functools.lru_cache(maxsize=64)
 def flat_table(shapes: tuple) -> SegmentTable:
     """One segment per leaf of a flat update with leaves ``shapes``, in
-    order: each leaf's C-order buffer as its ``(K, ksize)`` transpose,
-    element ``(k, c)`` at ``offset + c*K + k``; a 1-D leaf is one kernel."""
-    segments, offset = [], 0
-    for shape in shapes:
-        K, C = leaf_kernel_shape(tuple(shape))
-        segments.append((offset, K, C, 1, K))
-        offset += K * C
-    return segment_table(tuple(segments))
+    order: each leaf's ``(K, ksize)`` view as ``ref.leaf_views`` lays it
+    out, read off views of a storage-less vector."""
+    n = sum(math.prod(shape) for shape in shapes)
+    views = leaf_views(torch.empty(n, device="meta"), shapes)
+    return segment_table(tuple((v.storage_offset(), *v.shape, *v.stride())
+                               for v in views))
 
 
 @functools.lru_cache(maxsize=64)

@@ -193,8 +193,9 @@ def test_segment_table_cap():
 
 @pytest.mark.parametrize("shapes", SMALL_SHAPE_LISTS)
 def test_flat_norms_match_the_pallas_kernel_per_leaf(shapes):
-    """The flat entry's CPU route against the JAX package's Pallas kernels
-    (interpret mode), one call per leaf view, concatenated."""
+    """The flat entries' plain versions (the L2 one through its CPU
+    dispatch) against the JAX package's Pallas kernels (interpret mode),
+    one call per leaf view, concatenated."""
     n = sum(int(np.prod(s)) for s in shapes)
     vec = _rng(n + 1).standard_normal(n).astype(np.float32)
     leaves, off = [], 0
@@ -202,7 +203,7 @@ def test_flat_norms_match_the_pallas_kernel_per_leaf(shapes):
         K, C = compression.leaf_kernel_shape(s)
         leaves.append(jnp.asarray(vec[off:off + K * C].reshape(C, K).T))
         off += K * C
-    for op, pallas in ((ops.kernel_sumsq_flat_op, jax_sparsify.kernel_sumsq),
+    for op, pallas in ((ref.kernel_sumsq_flat_ref, jax_sparsify.kernel_sumsq),
                        (ops.kernel_l2_flat_op, jax_sparsify.kernel_l2)):
         want = np.concatenate([np.asarray(pallas(x, interpret=True))
                                for x in leaves])
