@@ -10,13 +10,16 @@ Phases, in order; any failure exits non-zero:
 2. Hold every kernel function against its plain PyTorch version on the
    card, at the shapes the fmnist-cnn update gives it (N = 1,663,370
    parameters in 8 leaves, K = 622 FGC kernels; 12 devices at the
-   server).  Tolerances: level indices, the keep mask, the threshold step
-   and the streaming absorb/merge exact (the last two must also write
-   into the caller's storage; merge also at N = 1..7 and on a plane one
-   element off a 16-byte boundary); norms rtol 1e-5 (the plain version
-   sums in another order), per leaf view and as the main path's one flat
-   call over the update, which must also give bitwise-equal norms on a
-   second call; dequantized values and the batched aggregate rtol 1e-6.
+   server).  Tolerances: level indices, the kept support, the keep mask,
+   the threshold step and the streaming absorb/merge exact (the last two
+   must also write into the caller's storage, also at N = 1..7 and on a
+   plane one element off a 16-byte boundary); norms rtol 1e-5 (the plain
+   version sums in another order), per leaf view and as the main path's
+   one flat call over the update, which must also give bitwise-equal
+   norms on a second call; dequantized values and the batched aggregate
+   rtol 1e-6.  The fused step per leaf view and as the main path's one
+   launch over the flat update, also on leaves that start off a 16-byte
+   boundary, on aligned and misaligned planes.
 3. Agreement on small inputs: a 3-device flat run and a 4-device, 2-cell
    hierarchical run, each for 2 rounds on the card and on the CPU (plain
    versions), same seed, same uniforms.  Strategies, cells reporting and
@@ -32,17 +35,18 @@ Phases, in order; any failure exits non-zero:
        and ships 4 f32 partials; #8 launches once per extra reporting
        cell (9).
    In both, #1/#2 launch once per compressed update and planner probe
-   (37).  Losses must be finite and the final parameters finite CUDA
+   (37), #5 once per compressed update (36).  Losses must be finite and the final parameters finite CUDA
    tensors of the model's shapes.
 5. Time each kernel's unit of work on the main path (one flat call per
-   update for #1/#2, all 8 leaves for #3 and #5, one launch for the
+   update for #1/#2 and #5, all 8 leaves for #3, one launch for the
    others), its plain version and, where one PyTorch call computes the
    same function, that call (CUDA events around back-to-back calls, so
    the host's launch cost is in the time), beside the least time the card
    could take (bytes moved over 3.35 TB/s, or float32 operations over
    67 TFLOP/s, whichever is larger); then each one's device-only time
    (replays of a CUDA graph of 20 calls; the profiler's summed device time
-   where a plain version cannot be captured).  Prints each unit's
+   where a plain version cannot be captured), after every back-to-back
+   time, since a profiler session raises the host cost of later launches.  Prints each unit's
    footprint (the bytes of the distinct storages it reads and writes)
    beside the 50 MB L2, and both main-path runs' host wall time.
 
@@ -67,6 +71,8 @@ F32_FLOPS = 67e12                # H100 SXM, float32 outside the tensor cores
 L2_BYTES = 50e6                  # H100 L2 cache
 FMNIST_SHAPES = [(32,), (5, 5, 1, 32), (64,), (5, 5, 32, 64), (512,),
                  (3136, 512), (10,), (512, 10)]
+#: leaves that start off a 16-byte boundary (offsets 7 and 21007), N % 4 = 1
+MISALIGNED_SHAPES = [(7,), (300, 70), (70,)]
 N_DEVICES = 12
 N_CELLS = 4
 
@@ -258,7 +264,41 @@ def main() -> None:
         torch.testing.assert_close(q, qr, rtol=1e-6, atol=0)
         fused_err = max(fused_err, float((q - qr).abs().max()))
         k0 += x.shape[0]
+    # the main path's unit: one launch over the whole flat update, also on
+    # leaves that start off a 16-byte boundary and on planes one element
+    # off one (the scalar loop)
+    def check_fused_flat(x, r, shapes, nk, sc, label):
+        before = fused_compress.launches["fused_sparsify_quantize"]
+        q, lvl = fused_compress.fused_sparsify_quantize_flat(x, shapes, nk,
+                                                             *sc, r)
+        if fused_compress.launches["fused_sparsify_quantize"] != before + 1:
+            fail(f"fused_sparsify_quantize_flat ({label}) is not one launch")
+        qr, lr = ref.fused_sparsify_quantize_flat_ref(x, shapes, nk, *sc, r)
+        if not torch.equal(lvl, lr):
+            fail(f"fused_sparsify_quantize_flat ({label}): level indices "
+                 f"differ at {int((lvl != lr).sum())} elements")
+        if not torch.equal(q != 0, qr != 0):
+            fail(f"fused_sparsify_quantize_flat ({label}): the kept support "
+                 f"differs")
+        torch.testing.assert_close(q, qr, rtol=1e-6, atol=0)
+        return float((q - qr).abs().max())
+
+    fused_err = max(fused_err, check_fused_flat(
+        vec, rand, FMNIST_SHAPES, norms, scal, "fmnist-cnn"))
+    n_mis = sum(math.prod(s) for s in MISALIGNED_SHAPES)
+    for off in (0, 1):
+        xs = torch.randn(n_mis + off, generator=gen, device=dev)[off:]
+        rs = torch.rand(n_mis + off, generator=gen, device=dev)[off:]
+        nk = sparsify.kernel_l2_flat(xs, MISALIGNED_SHAPES)
+        sc = (float(nk.median()), 1e-4, float(xs.abs().max()), 37.25)
+        fused_err = max(fused_err, check_fused_flat(
+            xs, rs, MISALIGNED_SHAPES, nk, sc,
+            f"leaves off 16 B, plane offset {off}"))
     checks["fused_sparsify_quantize"] = fused_err
+    print(f"[check] fused_sparsify_quantize: one launch over the flat update "
+          f"(fmnist-cnn, and leaves {MISALIGNED_SHAPES} on aligned and "
+          f"misaligned planes): levels and support exact, values rtol 1e-6",
+          flush=True)
 
     # threshold_apply per leaf into its slot of one flat buffer (the
     # planner's call), then prob_quantize over the flat masked vector
@@ -284,46 +324,41 @@ def main() -> None:
     torch.testing.assert_close(q4, q4r, rtol=1e-6, atol=0)
     checks["prob_quantize"] = float((q4 - q4r).abs().max())
 
-    # the streaming pair, in place, bit for bit
+    # the streaming pair, in place, bit for bit, at full N, at N = 1..7
+    # (the N % 4 tail alone and with a body) and on a plane one element off
+    # a 16-byte boundary (the scalar loop)
     num = torch.randn(n, generator=gen, device=dev) * 1e-3
     den = torch.rand(n, generator=gen, device=dev)
     upd = torch.randn(n, generator=gen, device=dev) * 1e-2
     msk = (torch.rand(n, generator=gen, device=dev) > 0.4).float()
-    ptrs = (num.data_ptr(), den.data_ptr())
-    want = ref.aio_absorb_ref(num, den, upd, msk, 3.7184)
-    aio_agg.aio_absorb(num, den, upd, msk, 3.7184)
-    if (num.data_ptr(), den.data_ptr()) != ptrs:
-        fail("aio_absorb did not update the accumulator in place")
-    if not (torch.equal(num, want[0]) and torch.equal(den, want[1])):
-        fail("aio_absorb differs from its plain version")
-    checks["aio_absorb"] = max(float((num - want[0]).abs().max()),
-                               float((den - want[1]).abs().max()))
     num_b, den_b = upd.clone(), msk.clone()
 
-    def check_merge(planes, label):
+    def check_stream(kernel, planes, extra, label):
         a_side = [t.data_ptr() for t in planes[:2]]
-        want = ref.aio_merge_ref(*planes)
-        aio_agg.aio_merge(*planes)
+        want = getattr(ref, f"{kernel}_ref")(*planes, *extra)
+        getattr(aio_agg, kernel)(*planes, *extra)
         if [t.data_ptr() for t in planes[:2]] != a_side:
-            fail(f"aio_merge ({label}) did not update in place")
+            fail(f"{kernel} ({label}) did not update in place")
         if not (torch.equal(planes[0], want[0])
                 and torch.equal(planes[1], want[1])):
-            fail(f"aio_merge ({label}) differs from its plain version")
+            fail(f"{kernel} ({label}) differs from its plain version")
         return max(float((planes[0] - want[0]).abs().max()),
                    float((planes[1] - want[1]).abs().max()))
 
-    merge_err = check_merge((num, den, num_b, den_b), f"N = {n}")
-    for k in range(1, 8):           # the N % 4 tail alone and with a body
-        small_planes = tuple(torch.randn(k, generator=gen, device=dev)
-                             for _ in range(4))
-        merge_err = max(merge_err, check_merge(small_planes, f"N = {k}"))
-    # a plane one element off a 16-byte boundary takes the scalar loop
-    shifted = torch.randn(n + 1, generator=gen, device=dev)[1:]
-    merge_err = max(merge_err, check_merge(
-        (shifted, den.clone(), num_b, den_b), "misaligned"))
-    checks["aio_merge"] = merge_err
-    print(f"[check] aio_merge bit for bit and in place at N = {n}, N = 1..7 "
-          f"and on a misaligned plane", flush=True)
+    for kernel, b_side, extra in (("aio_absorb", (upd, msk), (3.7184,)),
+                                  ("aio_merge", (num_b, den_b), ())):
+        err = check_stream(kernel, (num, den, *b_side), extra, f"N = {n}")
+        for k in range(1, 8):
+            small_planes = tuple(torch.randn(k, generator=gen, device=dev)
+                                 for _ in range(4))
+            err = max(err, check_stream(kernel, small_planes, extra,
+                                        f"N = {k}"))
+        shifted = torch.randn(n + 1, generator=gen, device=dev)[1:]
+        err = max(err, check_stream(kernel, (shifted, den.clone(), *b_side),
+                                    extra, "misaligned"))
+        checks[kernel] = err
+    print(f"[check] aio_absorb and aio_merge bit for bit and in place at "
+          f"N = {n}, N = 1..7 and on a misaligned plane", flush=True)
 
     u = torch.randn(N_DEVICES, n, generator=gen, device=dev) * 1e-2
     m = (torch.rand(N_DEVICES, n, generator=gen, device=dev) > 0.4).float()
@@ -439,6 +474,14 @@ def main() -> None:
                  f"probe, {n_norm_calls}")
         print(f"[main] {kind}: kernel_l2 launched {n_norm_calls} times, once "
               f"per compressed update and planner probe", flush=True)
+        # the fused step: one launch per compressed update, kept or dropped
+        n_updates = n_norm_calls - 1
+        if counts[kind]["fused_sparsify_quantize"] != n_updates:
+            fail(f"{kind}: fused_sparsify_quantize launched "
+                 f"{counts[kind]['fused_sparsify_quantize']} times, expected "
+                 f"one per compressed update, {n_updates}")
+        print(f"[main] {kind}: fused_sparsify_quantize launched {n_updates} "
+              f"times, once per compressed update", flush=True)
         if not all(r.test_loss is not None and math.isfinite(r.test_loss)
                    for r in hist.rounds):
             fail(f"{kind}: a round's test loss is not finite")
@@ -474,15 +517,6 @@ def main() -> None:
     # ---------------------------------------------------------------- 5
     def per_leaf(fn):
         return lambda: [fn(x) for x in views]
-
-    def fused_all(fn):
-        def run():
-            outs, k0 = [], 0
-            for x, r in zip(views, rviews):
-                outs.append(fn(x, norms[k0:k0 + x.shape[0]], *scal, r))
-                k0 += x.shape[0]
-            return outs
-        return run
 
     def threshold_all(fn, flat_out):
         outs = compression._leaf_views(flat_out, FMNIST_SHAPES) \
@@ -546,8 +580,10 @@ def main() -> None:
         dict(name="fused_sparsify_quantize", source="fused_compress.cu",
              operands=(vec, norms, rand),
              replaces="src/repro/kernels/fused_compress.py:43",
-             unit=fused_all(fused_compress.fused_sparsify_quantize),
-             plain=fused_all(ref.fused_sparsify_quantize_ref),
+             unit=lambda: fused_compress.fused_sparsify_quantize_flat(
+                 vec, FMNIST_SHAPES, norms, *scal, rand),
+             plain=lambda: ref.fused_sparsify_quantize_flat_ref(
+                 vec, FMNIST_SHAPES, norms, *scal, rand),
              library=None, library_name=None, plain_graph=False,
              tolerance="levels and support exact, values rtol 1e-6",
              nbytes=16 * n + 4 * K, nflops=12 * n),
@@ -595,12 +631,14 @@ def main() -> None:
              library_name="_foreach_add_", plain_graph=True,
              tolerance="exact, in place", nbytes=24 * n, nflops=2 * n),
     ]
+    # Every back-to-back time first: a torch.profiler session leaves each
+    # later launch in the process costing the host more, so the device-only
+    # pass, which profiles the plain versions a graph cannot capture, comes
+    # after all of them.
     kernels = []
     for r in rows:
         b, by = bound_ms(r["nbytes"], r["nflops"])
         lib = r["library"]
-        plain_dev = graph_ms(r["plain"]) if r["plain_graph"] \
-            else profiled_ms(r["plain"])
         kernels.append(dict(
             name=r["name"], route="cuda",
             source=f"src/repro_torch/kernels/csrc/{r['source']}",
@@ -608,13 +646,17 @@ def main() -> None:
             max_abs_err=checks[r["name"]], ms=cuda_ms(r["unit"]),
             plain_ms=cuda_ms(r["plain"]), bound_ms=b, bound_by=by,
             library_ms=cuda_ms(lib) if lib else None,
-            device_ms=graph_ms(r["unit"]),
-            plain_device_ms=plain_dev,
-            library_device_ms=graph_ms(lib) if lib else None,
-            device_by=dict(kernel="graph", library="graph",
-                           plain="graph" if r["plain_graph"] else "profiler"),
             library_call=r["library_name"],
             tolerance=r["tolerance"]))
+    for r, k in zip(rows, kernels):
+        lib = r["library"]
+        k.update(
+            device_ms=graph_ms(r["unit"]),
+            plain_device_ms=graph_ms(r["plain"]) if r["plain_graph"]
+            else profiled_ms(r["plain"]),
+            library_device_ms=graph_ms(lib) if lib else None,
+            device_by=dict(kernel="graph", library="graph",
+                           plain="graph" if r["plain_graph"] else "profiler"))
     footprints = [footprint_mb(r) for r in rows]
     for k, mb in zip(kernels, footprints):
         warm = (f"footprint {mb:.1f} MB, "

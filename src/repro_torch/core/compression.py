@@ -13,10 +13,10 @@ Pipeline over a local update pytree ``u``:
 3. *Lossless coding size model*: empirical-entropy bits for the level
    indices + Golomb bits for the sparsity mask + header.
 
-:func:`compress_update` runs the norms through the ``kernel_l2`` kernel,
-one call over every leaf, and steps 1-2 through the
-``fused_sparsify_quantize`` kernel, one launch per leaf
-(``kernels/ops.py`` picks the plain versions for CPU tensors).
+:func:`compress_update` runs the norms through the ``kernel_l2`` kernel
+and steps 1-2 through the ``fused_sparsify_quantize`` kernel, one call
+each over every leaf of the flat update (``kernels/ops.py`` picks the
+plain versions for CPU tensors).
 :meth:`BetaPlanner.fit` keeps the reference's structure instead: step 1
 once per ``rho`` (``threshold_apply``, one launch per leaf) and step 2
 once per ``(rho, L)`` over the flat masked vector (``prob_quantize``, one
@@ -236,7 +236,8 @@ def _sparsify_quantize(vec: torch.Tensor, shapes: list, norms: torch.Tensor,
                        rho, n_levels, rand: torch.Tensor,
                        max_levels: int) -> _Fgc:
     """Eq. 2-4 over a flat update whose per-kernel norms are known: one
-    ``fused_sparsify_quantize`` launch per leaf, then the size model."""
+    ``fused_sparsify_quantize`` call over every leaf, then the size
+    model."""
     thr = sparsify_threshold(norms, rho)
     keep = (norms >= thr).to(F32)
     mask_views, k0 = [], 0
@@ -248,17 +249,10 @@ def _sparsify_quantize(vec: torch.Tensor, shapes: list, norms: torch.Tensor,
     u_min, u_max = masked_range(vec, mask)
     # one host sync: the scalars ride into the kernel as arguments
     thr_f, u_min_f, u_max_f = torch.stack([thr, u_min, u_max]).tolist()
-    qs, lvls, k0 = [], [], 0
-    for x, r in zip(_leaf_views(vec, shapes), _leaf_views(rand, shapes)):
-        k = x.shape[0]
-        q, lvl = ops.fused_sparsify_quantize_op(
-            x, norms[k0:k0 + k], thr_f, u_min_f, u_max_f, float(n_levels), r)
-        qs.append(q)
-        lvls.append(lvl)
-        k0 += k
-    levels = _from_views(lvls)
-    q = Quantized(_from_views(qs), levels, u_min, u_max)
-    return _Fgc(q.values, levels, mask, compressed_bits(q, mask, max_levels))
+    values, levels = ops.fused_sparsify_quantize_flat_op(
+        vec, shapes, norms, thr_f, u_min_f, u_max_f, float(n_levels), rand)
+    q = Quantized(values, levels, u_min, u_max)
+    return _Fgc(values, levels, mask, compressed_bits(q, mask, max_levels))
 
 
 def compress_update(update: PyTree, beta, rand: torch.Tensor,

@@ -4,7 +4,8 @@ Wrappers over ``csrc/aio_agg.cu``, which replaces the reference's
 ``aio_aggregate``, ``aio_absorb`` and ``aio_merge``
 (``repro/kernels/aio_agg.py``).  ``aio_absorb`` and ``aio_merge`` update
 the ``(num, den)`` accumulator in its own storage, as the TPU kernels
-alias their outputs onto it.  The CPU route is ``kernels/ops.py``'s.
+alias their outputs onto it; both launch through ``build``'s lean path.
+The CPU route is ``kernels/ops.py``'s.
 """
 from __future__ import annotations
 
@@ -19,34 +20,12 @@ launches = {"aio_aggregate": 0, "aio_absorb": 0, "aio_merge": 0}
 _SYMBOL = "aio_aggregate_f32"
 _ARGS = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
          ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p)
-_ABSORB = "aio_absorb_f32"
-_ABSORB_ARGS = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                ctypes.c_void_p, ctypes.c_float, ctypes.c_int64,
-                ctypes.c_void_p)
+_ABSORB = build.Entry("aio_agg", "aio_absorb_f32",
+                      (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                       ctypes.c_void_p, ctypes.c_float, ctypes.c_int64))
 _MERGE = build.Entry("aio_agg", "aio_merge_f32",
                      (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                       ctypes.c_void_p, ctypes.c_int64))
-
-
-def _check_planes(kernel: str, **planes: torch.Tensor) -> int:
-    """Every plane a contiguous float32 (N,) vector on one CUDA device;
-    returns N."""
-    first = next(iter(planes.values()))
-    for name, t in planes.items():
-        if t.device.type != "cuda" or t.device != first.device:
-            raise ValueError(f"{kernel}: {name} must be on {first.device} "
-                             f"(CUDA); got {t.device}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{kernel}: {name} must be float32; got "
-                            f"{t.dtype}")
-        if t.dim() != 1 or t.shape != first.shape or not t.is_contiguous():
-            raise ValueError(f"{kernel}: every plane must be a contiguous "
-                             f"vector of one length; {name} has shape "
-                             f"{tuple(t.shape)}, strides {t.stride()}")
-    if first.numel() >= 2 ** 31:
-        raise ValueError(f"{kernel}: {first.numel()} elements exceed the "
-                         f"kernel's grid")
-    return first.numel()
 
 
 def aio_aggregate(u: torch.Tensor, m: torch.Tensor,
@@ -82,16 +61,14 @@ def aio_aggregate(u: torch.Tensor, m: torch.Tensor,
 def aio_absorb(num: torch.Tensor, den: torch.Tensor, u: torch.Tensor,
                m: torch.Tensor, w: float) -> None:
     """In place: ``num += w*m*u``, ``den += w*m``; all (N,) float32
-    contiguous CUDA vectors, ``w`` rounded to float32."""
-    N = _check_planes("aio_absorb", num=num, den=den, u=u, m=m)
-    if N == 0:
+    contiguous CUDA vectors, ``w`` rounded to float32.  The launch goes
+    through ``build``'s lean path, as :func:`aio_merge`'s does."""
+    n = num.numel()
+    index = build.f32_vectors("aio_absorb", n, num, den, u, m)
+    if n == 0:
         return
-    fn = build.function("aio_agg", _ABSORB, _ABSORB_ARGS)
-    with torch.cuda.device(num.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = fn(num.data_ptr(), den.data_ptr(), u.data_ptr(),
-                  m.data_ptr(), float(w), N, stream)
-    build.check("aio_agg", _ABSORB, code)
+    _ABSORB.launch(index, num.data_ptr(), den.data_ptr(), u.data_ptr(),
+                   m.data_ptr(), float(w), n)
     launches["aio_absorb"] += 1
 
 

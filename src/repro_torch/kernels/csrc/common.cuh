@@ -19,6 +19,36 @@ inline int repro_launch_status() {
   return static_cast<int>(cudaGetLastError());
 }
 
+// Blocks for a grid-stride loop over `work` items, `threads` a block: as
+// many as the work needs, at most `blocks_per_sm` on each SM of the current
+// device (its SM count read once per device and cached), at least one.
+// Returns the CUDA error of the query.
+inline cudaError_t repro_grid(int64_t work, int threads, int blocks_per_sm,
+                              unsigned* grid) {
+  constexpr int kMaxDevices = 64;
+  static int sms[kMaxDevices] = {0};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (sms[dev] == 0) {
+    int count = 0;
+    err = cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+    sms[dev] = count;
+  }
+  const int64_t cap = static_cast<int64_t>(sms[dev]) * blocks_per_sm;
+  const int64_t want = (work + threads - 1) / threads;
+  *grid = static_cast<unsigned>(want < 1 ? 1 : (want < cap ? want : cap));
+  return cudaSuccess;
+}
+
+// True when every pointer starts on a 16-byte boundary (float4 access).
+template <class... P>
+inline bool repro_aligned16(const P*... p) {
+  return ((reinterpret_cast<uintptr_t>(p) | ...) & 15) == 0;
+}
+
 // Eq. 3-4's grid step: max(u_max - u_min, 1e-20) / L, IEEE division.
 __device__ __forceinline__ float repro_quant_step(float u_min, float u_max,
                                                   float L) {

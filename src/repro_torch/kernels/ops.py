@@ -70,12 +70,18 @@ def prob_quantize_op(v: torch.Tensor, mask: torch.Tensor, u_min, u_max,
     return ref.quantize_ref(v, mask, u_min, u_max, n_levels, rand)
 
 
-def fused_sparsify_quantize_op(x, norms, thr, u_min, u_max, n_levels, rand):
-    if _on_cuda(x, norms, rand):
-        return fused_compress.fused_sparsify_quantize(
-            x, norms, thr, u_min, u_max, n_levels, rand)
-    return ref.fused_sparsify_quantize_ref(x, norms, thr, u_min, u_max,
-                                           n_levels, rand)
+def fused_sparsify_quantize_flat_op(vec: torch.Tensor, shapes,
+                                    norms: torch.Tensor, thr, u_min, u_max,
+                                    n_levels, rand: torch.Tensor
+                                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Eq. 2-4 over a flat update with leaves ``shapes`` and its norms
+    (K_total,) -> flat (q (N,), int32 levels (N,)): one kernel launch on
+    CUDA."""
+    if _on_cuda(vec, norms, rand):
+        return fused_compress.fused_sparsify_quantize_flat(
+            vec, shapes, norms, thr, u_min, u_max, n_levels, rand)
+    return ref.fused_sparsify_quantize_flat_ref(vec, shapes, norms, thr,
+                                                u_min, u_max, n_levels, rand)
 
 
 def aio_aggregate_op(u: torch.Tensor, m: torch.Tensor,

@@ -137,6 +137,26 @@ def fused_sparsify_quantize_ref(x: torch.Tensor, norms: torch.Tensor, thr,
     return q.reshape(x.shape), lvl.reshape(x.shape)
 
 
+def fused_sparsify_quantize_flat_ref(vec: torch.Tensor, shapes, norms,
+                                     thr, u_min, u_max, n_levels,
+                                     rand: torch.Tensor
+                                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The fused step over a flat update with leaves ``shapes``: each leaf
+    view of :func:`leaf_views` with its slice of ``norms`` (K_total,)
+    through :func:`fused_sparsify_quantize_ref`, the results laid back out
+    flat -> (q (N,), int32 levels (N,)): the plain version of
+    ``fused_compress.fused_sparsify_quantize_flat``."""
+    qs, lvls, k0 = [], [], 0
+    for x, r in zip(leaf_views(vec, shapes), leaf_views(rand, shapes)):
+        k = x.shape[0]
+        q, lvl = fused_sparsify_quantize_ref(x, norms[k0:k0 + k], thr, u_min,
+                                             u_max, n_levels, r)
+        qs.append(q.t().reshape(-1))
+        lvls.append(lvl.t().reshape(-1))
+        k0 += k
+    return torch.cat(qs), torch.cat(lvls)
+
+
 #: kernel name -> plain version; the keys are the reference's ORACLES keys
 ORACLES = {
     "aio_aggregate": aio_aggregate_ref,

@@ -7,8 +7,10 @@ segments, each a ``(K, ksize)`` float32 view with any strides over one
 base pointer: :func:`kernel_l2_flat` takes the whole flat update, one
 segment per leaf view of ``ref.leaf_views`` (each leaf's C-order buffer
 read as its transpose, strides ``(1, K)``), in one call;
-:func:`kernel_l2` takes a single view, a one-segment table.  ``threshold_apply`` takes one dense view.  The CPU
-route is ``kernels/ops.py``'s.
+:func:`kernel_l2` takes a single view, a one-segment table.  The fused
+compression kernel (``kernels/fused_compress.py``) reads the same tables.
+``threshold_apply`` takes one dense view.  The CPU route is
+``kernels/ops.py``'s.
 """
 from __future__ import annotations
 
@@ -21,7 +23,6 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.fused_compress import kernel_fastest
 from repro_torch.kernels.ref import leaf_views
 
 #: launches of the CUDA kernels: ``kernel_sumsq`` counts every call of the
@@ -44,8 +45,21 @@ _THR_ARGS = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_int, ctypes.c_float, ctypes.c_void_p)
 
 
+def kernel_fastest(t: torch.Tensor, kernel: str) -> bool:
+    """True for a dense (K, C) view whose kernel index varies fastest in
+    memory (the transpose of a C-order leaf), False for row-major; any
+    other layout raises, naming ``kernel``."""
+    if t.t().is_contiguous():
+        return True
+    if t.is_contiguous():
+        return False
+    raise ValueError(f"{kernel} takes a dense (K, ksize) view; got strides "
+                     f"{t.stride()} for shape {tuple(t.shape)}")
+
+
 class SegmentTable(NamedTuple):
-    """The norm kernel's work description, built on the host.
+    """The norm kernel's work description, built on the host; the fused
+    compression kernel reads the first six fields of its rows.
 
     ``rows`` holds one row per segment: ``(offset, K, C, sK, sC,
     out_base, tile_base, part_base, ktiles)``, element ``(k, c)`` of the

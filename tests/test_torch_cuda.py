@@ -5,11 +5,12 @@ imports no JAX, so it runs on a machine that has only PyTorch:
 
   python -m pytest -q -m gpu tests/test_torch_cuda.py
 
-Tolerances: level indices, masks, the threshold step and the
-aggregation (batched and streaming) exact (same float32 operations in the
-same order, no FMA contraction); quantized values rtol 1e-6; norms rtol
-1e-5 (the plain version sums in another order), and bitwise equal between
-two calls of the kernel (it sums in a fixed order).
+Tolerances: level indices, the kept support, masks, the threshold step
+and the aggregation (batched and streaming) exact (same float32
+operations in the same order, no FMA contraction); quantized values rtol
+1e-6; norms rtol 1e-5 (the plain version sums in another order), and
+bitwise equal between two calls of the kernel (it sums in a fixed
+order).
 """
 import numpy as np
 import pytest
@@ -98,6 +99,36 @@ def test_fused_kernel_takes_row_major_views(cuda):
     assert torch.equal(lvl, lr) and torch.equal(q, qr)
 
 
+#: leaves that start off a 16-byte boundary (offsets 7 and 21007), N % 4 = 1
+MISALIGNED_SHAPES = [(7,), (300, 70), (70,)]
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("shapes", [FMNIST_SHAPES, MISALIGNED_SHAPES])
+def test_flat_fused_kernel_matches_plain_version(cuda, shapes, offset):
+    """One launch over the whole update against the per-leaf plain version
+    laid out flat: levels and the kept support exact, values rtol 1e-6;
+    ``offset`` 1 starts the planes off a 16-byte boundary (the scalar
+    loop)."""
+    n = sum(int(np.prod(s)) for s in shapes)
+    g = torch.Generator(device=cuda).manual_seed(n + offset)
+    vec = (torch.randn(n + offset, generator=g, device=cuda) * 1e-2)[offset:]
+    rand = torch.rand(n + offset, generator=g, device=cuda)[offset:]
+    norms = sparsify.kernel_l2_flat(vec, shapes)
+    thr = float(norms.median())
+    for levels in (2.0, 64.0, 37.25):
+        args = (vec, shapes, norms, thr, 1e-4, float(vec.abs().max()),
+                levels, rand)
+        before = fused_compress.launches["fused_sparsify_quantize"]
+        q, lvl = fused_compress.fused_sparsify_quantize_flat(*args)
+        assert fused_compress.launches["fused_sparsify_quantize"] \
+            == before + 1
+        qr, lr = ref.fused_sparsify_quantize_flat_ref(*args)
+        assert torch.equal(lvl, lr)
+        assert torch.equal(q != 0, qr != 0)
+        torch.testing.assert_close(q, qr, rtol=1e-6, atol=0)
+
+
 def test_aio_kernel_matches_plain_version_at_main_path_shape(cuda):
     n = sum(int(np.prod(s)) for s in FMNIST_SHAPES)
     g = torch.Generator(device=cuda).manual_seed(1)
@@ -164,16 +195,19 @@ def test_absorb_and_merge_kernels_are_exact_and_in_place(cuda):
     *((k, 0) for k in range(1, 8)),
     (sum(int(np.prod(s)) for s in FMNIST_SHAPES), 1),
 ])
-def test_merge_kernel_exact_at_every_length_and_alignment(cuda, n, offset):
-    """The float4 loop with its N % 4 tail, and the scalar loop for a
-    plane that starts ``offset`` elements off its buffer (off a 16-byte
-    boundary for offset 1): bit for bit, in place."""
+@pytest.mark.parametrize("kernel", ["aio_merge", "aio_absorb"])
+def test_merge_kernel_exact_at_every_length_and_alignment(cuda, kernel, n,
+                                                          offset):
+    """The streaming pair's float4 loop with its N % 4 tail, and the
+    scalar loop for a plane that starts ``offset`` elements off its buffer
+    (off a 16-byte boundary for offset 1): bit for bit, in place."""
     g = torch.Generator(device=cuda).manual_seed(n + offset)
     planes = [torch.randn(n + offset, generator=g, device=cuda)[offset:]
               for _ in range(4)]
-    want = ref.aio_merge_ref(*planes)
+    extra = (0.3712,) if kernel == "aio_absorb" else ()
+    want = getattr(ref, f"{kernel}_ref")(*planes, *extra)
     ptrs = [t.data_ptr() for t in planes[:2]]
-    aio_agg.aio_merge(*planes)
+    getattr(aio_agg, kernel)(*planes, *extra)
     assert [t.data_ptr() for t in planes[:2]] == ptrs
     assert torch.equal(planes[0], want[0]) and torch.equal(planes[1], want[1])
 
@@ -209,6 +243,16 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         quantize.prob_quantize(v[::2], v[:32], 0.0, 1.0, 2.0, v[:32])
     with pytest.raises(ValueError):
         quantize.prob_quantize(v, v.cpu(), 0.0, 1.0, 2.0, v)
+    nk = torch.ones(8, device=cuda)
+    for vec, rand, norms, err in (
+            (v.cpu(), v.cpu(), nk.cpu(), ValueError),    # CPU planes
+            (v, v, nk.cpu(), ValueError),                # norms off the card
+            (v.double(), v, nk, TypeError),
+            (v, v[:60], nk, ValueError),                 # a short plane
+            (v, v, nk[:7], ValueError)):                 # short norms
+        with pytest.raises(err):
+            fused_compress.fused_sparsify_quantize_flat(
+                vec, [(8, 8)], norms, 0.5, 0.0, 1.0, 2.0, rand)
     for call in (aio_agg.aio_absorb, aio_agg.aio_merge):
         extra = (0.5,) if call is aio_agg.aio_absorb else ()
         with pytest.raises(ValueError):
@@ -221,8 +265,8 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
 
 def test_cuda_round_goes_through_every_kernel(cuda):
     """A flat round with the planner launches #1-#6, the norms once per
-    compressed update and planner probe; a hierarchical one #7 and #8 and
-    not #6."""
+    compressed update and planner probe and the fused step once per
+    compressed update; a hierarchical one #7 and #8 and not #6."""
     from repro_torch.sysmodel.population import FleetConfig
     from repro_torch.topology import TopologyConfig
     from repro_torch.train.fl_loop import FLRunConfig, run_fl
@@ -234,6 +278,7 @@ def test_cuda_round_goes_through_every_kernel(cuda):
     assert flat == set(counts) - {"aio_absorb", "aio_merge"}, counts
     updates = sum(r.n_clients + r.n_dropped for r in hist.rounds)
     assert counts["kernel_l2"] == counts["kernel_sumsq"] == updates + 1
+    assert counts["fused_sparsify_quantize"] == updates
     assert np.isfinite(hist.rounds[-1].test_loss)
     ops.reset_launch_counts()
     hist = run_fl(cfg, FleetConfig(n_devices=4, topology=TopologyConfig(

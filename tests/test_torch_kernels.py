@@ -227,6 +227,89 @@ def test_norms_match_reference_kernel_norms(shapes):
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5)
 
 
+def _emulate_fused_kernel_ids(table, n):
+    """The norm index ``csrc/fused_compress.cu`` gives each storage offset
+    of ``[0, n)``: the last segment whose offset is at or below it, then
+    ``j % K`` (kernel-fastest, sK == 1) or ``j / sK`` (row-major), as the C
+    entry derives them from the table's rows."""
+    rows = np.asarray(table.rows, np.int64)
+    p = np.arange(n, dtype=np.int64)
+    s = np.searchsorted(rows[:, 0], p, side="right") - 1
+    off, K, sK, out_base = rows[s, 0], rows[s, 1], rows[s, 3], rows[s, 5]
+    j = p - off
+    div = np.maximum(np.where(sK == 1, K, sK), 1)
+    return out_base + np.where(sK == 1, j % div, j // div)
+
+
+@pytest.mark.parametrize("shapes", [FMNIST_SHAPES, *SMALL_SHAPE_LISTS])
+def test_fused_table_maps_every_element_to_its_kernel(shapes):
+    """The flat fused call's table: the leaves' segments tile the update,
+    each element once, and the kernel's element map gives each element the
+    kernel id of ``compression.kernel_segments``."""
+    table = sparsify.flat_table(tuple(shapes))
+    n = sum(int(np.prod(s)) for s in shapes)
+    covered = np.zeros(n, np.int64)
+    for off, K, C, *_ in table.rows:
+        covered[off:off + K * C] += 1
+    assert (covered == 1).all() and table.n_elements == n
+    tree = {f"l{i:02d}": torch.zeros(s) for i, s in enumerate(shapes)}
+    seg, k_total = compression.kernel_segments(tree)
+    assert k_total == table.k_total
+    np.testing.assert_array_equal(_emulate_fused_kernel_ids(table, n), seg)
+
+
+@pytest.mark.parametrize("K,C", [(70, 300), (1, 9), (9, 1)])
+@pytest.mark.parametrize("fastest", [True, False])
+def test_fused_view_table_maps_storage_to_rows(K, C, fastest):
+    """A single dense view is a one-segment table: each storage offset
+    maps to its element's row, in either layout."""
+    table = sparsify._view_table(K, C, *((1, K) if fastest else (C, 1)))
+    rows = torch.arange(K)[:, None].expand(K, C)
+    storage = rows.t().reshape(-1) if fastest else rows.reshape(-1)
+    np.testing.assert_array_equal(_emulate_fused_kernel_ids(table, K * C),
+                                  storage.numpy())
+
+
+@pytest.mark.parametrize("levels", [2.0, 64.0, 37.25])
+@pytest.mark.parametrize("shapes", SMALL_SHAPE_LISTS)
+def test_flat_fused_matches_the_pallas_kernel_per_leaf(shapes, levels):
+    """The flat fused call's plain version and its CPU dispatch against the
+    JAX package's Pallas kernel (interpret mode) run on each leaf's
+    ``(K, ksize)`` view and laid back out flat: levels exact, values rtol
+    1e-6."""
+    n = sum(int(np.prod(s)) for s in shapes)
+    rng = _rng(n + 3)
+    vec = rng.standard_normal(n).astype(np.float32)
+    rand = rng.uniform(size=n).astype(np.float32)
+    norms = ref.kernel_l2_flat_ref(_t(vec), shapes).numpy()
+    thr = np.float32(np.median(norms))
+    seg, _ = compression.kernel_segments(
+        {f"l{i:02d}": torch.zeros(s) for i, s in enumerate(shapes)})
+    av = np.abs(vec) * (norms >= thr)[seg]
+    u_min, u_max = np.float32(av[av > 0].min()), np.float32(av.max())
+    want_q, want_l, off, k0 = [], [], 0, 0
+    for s in shapes:
+        K, C = compression.leaf_kernel_shape(s)
+        x = jnp.asarray(vec[off:off + K * C].reshape(C, K).T)
+        r = jnp.asarray(rand[off:off + K * C].reshape(C, K).T)
+        q, lvl = jax_fused.fused_sparsify_quantize(
+            x, jnp.asarray(norms[k0:k0 + K]), jnp.float32(thr),
+            jnp.float32(u_min), jnp.float32(u_max), jnp.float32(levels), r,
+            interpret=True)
+        want_q.append(np.asarray(q).T.reshape(-1))
+        want_l.append(np.asarray(lvl).T.reshape(-1))
+        off, k0 = off + K * C, k0 + K
+    args = (_t(vec), shapes, _t(norms), float(thr), float(u_min),
+            float(u_max), levels, _t(rand))
+    for fn in (ref.fused_sparsify_quantize_flat_ref,
+               ops.fused_sparsify_quantize_flat_op):
+        q, lvl = fn(*args)
+        assert q.shape == lvl.shape == (n,) and lvl.dtype == torch.int32
+        np.testing.assert_array_equal(lvl.numpy(), np.concatenate(want_l))
+        np.testing.assert_allclose(q.numpy(), np.concatenate(want_q),
+                                   rtol=1e-6)
+
+
 @pytest.mark.parametrize("K,C", [(64, 256), (37, 129)])
 def test_threshold_apply(K, C):
     x, _, norms, thr, _, _ = _quant_inputs(_rng(K), K, C)
@@ -295,14 +378,14 @@ def test_fused_sparsify_quantize(K, C, levels):
 
 
 def test_fused_op_keeps_the_transposed_layout_semantics():
-    """Through ops, the strided (K, ksize) view of a leaf gives what the
-    contiguous copy gives."""
+    """The strided (K, ksize) view of a leaf gives what the contiguous
+    copy gives."""
     x, rand, norms, thr, u_min, u_max = _quant_inputs(_rng(3), 24, 50)
     xt = _t(np.ascontiguousarray(x.T)).t()
     rt = _t(np.ascontiguousarray(rand.T)).t()
     args = (float(thr), float(u_min), float(u_max), 16.0)
-    a = ops.fused_sparsify_quantize_op(xt, _t(norms), *args, rt)
-    b = ops.fused_sparsify_quantize_op(_t(x), _t(norms), *args, _t(rand))
+    a = ref.fused_sparsify_quantize_ref(xt, _t(norms), *args, rt)
+    b = ref.fused_sparsify_quantize_ref(_t(x), _t(norms), *args, _t(rand))
     for u, v in zip(a, b):
         np.testing.assert_array_equal(u.numpy(), v.numpy())
 
@@ -406,6 +489,9 @@ def test_cpu_route_launches_no_kernel():
     v = torch.ones(32)
     ops.kernel_l2_op(x)
     ops.kernel_l2_flat_op(x.reshape(-1), [(4, 8)])
+    ops.fused_sparsify_quantize_flat_op(x.reshape(-1), [(4, 8)],
+                                        torch.ones(8), 0.5, 0.0, 1.0, 4.0,
+                                        x.reshape(-1))
     ops.threshold_apply_op(x, torch.ones(4), 0.5)
     ops.prob_quantize_op(v, v, 0.0, 1.0, 4.0, v)
     ops.aio_aggregate_op(x, x, torch.ones(4))
@@ -426,6 +512,9 @@ def test_operands_off_cpu_and_cuda_raise():
     lambda x: sparsify.kernel_l2_flat(x.reshape(-1), [(4, 8)]),
     lambda x: fused_compress.fused_sparsify_quantize(
         x, torch.ones(4), 0.0, 0.0, 1.0, 2.0, x),
+    lambda x: fused_compress.fused_sparsify_quantize_flat(
+        x.reshape(-1), [(4, 8)], torch.ones(8), 0.0, 0.0, 1.0, 2.0,
+        x.reshape(-1)),
     lambda x: aio_agg.aio_aggregate(x, x, torch.ones(4)),
     lambda x: sparsify.threshold_apply(x, torch.ones(4), 0.5),
     lambda x: quantize.prob_quantize(x[0], x[0], 0.0, 1.0, 2.0, x[0]),
