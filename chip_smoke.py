@@ -40,8 +40,8 @@ Phases, in order; any failure exits non-zero:
 5. Time each kernel's unit of work on the main path (one flat call per
    update for #1/#2 and #5, all 8 leaves for #3, one launch for the
    others), its plain version and, where one PyTorch call computes the
-   same function, that call (CUDA events around back-to-back calls, so
-   the host's launch cost is in the time), beside the least time the card
+   same function, that call (CUDA events around 20 back-to-back calls,
+   so the host's launch cost is in the time, the median of 7 runs), beside the least time the card
    could take (bytes moved over 3.35 TB/s, or float32 operations over
    67 TFLOP/s, whichever is larger); then each one's device-only time
    (replays of a CUDA graph of 20 calls; the profiler's summed device time
@@ -92,19 +92,25 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, iters: int = 50, warmup: int = 3) -> float:
+def cuda_ms(fn, iters: int = 20, runs: int = 7, warmup: int = 3) -> float:
+    """Time of one call of ``fn`` with the host's launch cost in: CUDA
+    events around ``iters`` back-to-back calls, the median of ``runs``
+    such runs, so that one stall of the shared host does not set it."""
     import torch
     for _ in range(warmup):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    times = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / iters)
+    return sorted(times)[runs // 2]
 
 
 def graph_ms(fn, reps: int = 20, replays: int = 10) -> float:
