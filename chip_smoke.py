@@ -35,20 +35,20 @@ Phases, in order; any failure exits non-zero:
        and ships 4 f32 partials; #8 launches once per extra reporting
        cell (9).
    In both, #1/#2 launch once per compressed update and planner probe
-   (37), #5 once per compressed update (36).  Losses must be finite and the final parameters finite CUDA
-   tensors of the model's shapes.
+   (37), #5 once per compressed update (36).  Losses must be finite and
+   the final parameters finite CUDA tensors of the model's shapes.
 5. Time each kernel's unit of work on the main path (one flat call per
    update for #1/#2 and #5, all 8 leaves for #3, one launch for the
    others), its plain version and, where one PyTorch call computes the
-   same function, that call (CUDA events around 20 back-to-back calls,
-   so the host's launch cost is in the time, the median of 7 runs), beside the least time the card
-   could take (bytes moved over 3.35 TB/s, or float32 operations over
-   67 TFLOP/s, whichever is larger); then each one's device-only time
-   (replays of a CUDA graph of 20 calls; the profiler's summed device time
-   where a plain version cannot be captured), after every back-to-back
-   time, since a profiler session raises the host cost of later launches.  Prints each unit's
-   footprint (the bytes of the distinct storages it reads and writes)
-   beside the 50 MB L2, and both main-path runs' host wall time.
+   same function, that call: CUDA events around 20 back-to-back calls,
+   so the host's launch cost is in the time, the median of 7 runs;
+   beside the least time the card could take (bytes moved over
+   3.35 TB/s, or float32 operations over 67 TFLOP/s, whichever is
+   larger).  Then each one's device-only time, from replays of a CUDA
+   graph of 20 calls (the plain versions take their scalars as 0-d
+   tensors on the card, so every one can be captured).  Prints each
+   unit's footprint (the bytes of the distinct storages it reads and
+   writes) beside the 50 MB L2, and both main-path runs' host wall time.
 
 The last lines are the card's name and power limit, one JSON object of
 kernels, and the result line.  Without a card, or without the rest of
@@ -138,29 +138,6 @@ def graph_ms(fn, reps: int = 20, replays: int = 10) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / (reps * replays)
-
-
-def profiled_ms(fn, reps: int = 20) -> float:
-    """Device-only time of one call of ``fn`` for callables a CUDA graph
-    cannot capture: the summed device time of the kernels, copies and
-    sets ``torch.profiler`` records over ``reps`` calls."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(getattr(e, "self_device_time_total", None)
-             or getattr(e, "self_cuda_time_total", 0.0)
-             for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA)
-    if us <= 0:
-        fail("the profiler recorded no device time")
-    return us / 1e3 / reps
 
 
 def bound_ms(n_bytes: float, n_flops: float) -> tuple[float, str]:
@@ -524,7 +501,7 @@ def main() -> None:
     def per_leaf(fn):
         return lambda: [fn(x) for x in views]
 
-    def threshold_all(fn, flat_out):
+    def threshold_all(fn, flat_out, t):
         outs = compression._leaf_views(flat_out, FMNIST_SHAPES) \
             if flat_out is not None else [None] * len(views)
 
@@ -532,8 +509,8 @@ def main() -> None:
             res, k0 = [], 0
             for x, out in zip(views, outs):
                 nk = norms[k0:k0 + x.shape[0]]
-                res.append(fn(x, nk, thr_f) if out is None
-                           else fn(x, nk, thr_f, out=out))
+                res.append(fn(x, nk, t) if out is None
+                           else fn(x, nk, t, out=out))
                 k0 += x.shape[0]
             return res
         return run
@@ -556,14 +533,19 @@ def main() -> None:
 
     num_a, den_a = num.clone(), den.clone()
     ones = torch.ones_like(msk)
+    # The plain versions take their scalars as 0-d tensors on the card
+    # (the same float32 values the kernels take as arguments): a Python
+    # scalar would cost each call a host-to-device copy, which a CUDA
+    # graph cannot capture.
+    scal_d = tuple(torch.tensor(v, dtype=torch.float32, device=dev)
+                   for v in scal)
+    qargs_d = (masked, mask, u_min, u_max, scal_d[3], rand)
+    w_d = torch.tensor(0.5, dtype=torch.float32, device=dev)
     # Each row: the main path's unit of work through the kernel, the
     # tensors it reads (its outputs are what it returns), its plain
     # version, the one PyTorch call (or per-leaf calls) that computes the
     # same function where there is one, the bytes the unit must move and
-    # the float32 operations it does.  "graph" names the callables that a
-    # CUDA graph can capture for the device-only time; the plain versions
-    # that turn a Python scalar into a device tensor (a host-to-device copy
-    # that synchronises) cannot be captured, and the profiler times them.
+    # the float32 operations it does.
     rows = [
         dict(name="kernel_sumsq", source="sparsify.cu",
              operands=(vec,),
@@ -571,7 +553,7 @@ def main() -> None:
              unit=lambda: sparsify.kernel_sumsq_flat(vec, FMNIST_SHAPES),
              plain=lambda: ref.kernel_sumsq_flat_ref(vec, FMNIST_SHAPES),
              library=per_leaf(lambda x: torch.einsum("kc,kc->k", x, x)),
-             library_name="8 x einsum('kc,kc->k')", plain_graph=True,
+             library_name="8 x einsum('kc,kc->k')",
              tolerance="rtol 1e-5, bitwise stable", nbytes=4 * n + 4 * K,
              nflops=2 * n),
         dict(name="kernel_l2", source="sparsify.cu",
@@ -580,7 +562,7 @@ def main() -> None:
              unit=lambda: sparsify.kernel_l2_flat(vec, FMNIST_SHAPES),
              plain=lambda: ref.kernel_l2_flat_ref(vec, FMNIST_SHAPES),
              library=per_leaf(lambda x: torch.linalg.vector_norm(x, dim=1)),
-             library_name="8 x linalg.vector_norm", plain_graph=True,
+             library_name="8 x linalg.vector_norm",
              tolerance="rtol 1e-5, bitwise stable", nbytes=4 * n + 4 * K,
              nflops=2 * n + K),
         dict(name="fused_sparsify_quantize", source="fused_compress.cu",
@@ -589,8 +571,8 @@ def main() -> None:
              unit=lambda: fused_compress.fused_sparsify_quantize_flat(
                  vec, FMNIST_SHAPES, norms, *scal, rand),
              plain=lambda: ref.fused_sparsify_quantize_flat_ref(
-                 vec, FMNIST_SHAPES, norms, *scal, rand),
-             library=None, library_name=None, plain_graph=False,
+                 vec, FMNIST_SHAPES, norms, *scal_d, rand),
+             library=None, library_name=None,
              tolerance="levels and support exact, values rtol 1e-6",
              nbytes=16 * n + 4 * K, nflops=12 * n),
         dict(name="aio_aggregate", source="aio_agg.cu",
@@ -598,34 +580,34 @@ def main() -> None:
              replaces="src/repro/kernels/aio_agg.py:53",
              unit=lambda: aio_agg.aio_aggregate(u, m, w),
              plain=lambda: ref.aio_aggregate_ref(u, m, w),
-             library=None, library_name=None, plain_graph=True,
+             library=None, library_name=None,
              tolerance="rtol 1e-6",
              nbytes=8 * N_DEVICES * n + 4 * N_DEVICES + 4 * n,
              nflops=4 * N_DEVICES * n + n),
         dict(name="threshold_apply", source="sparsify.cu",
              operands=(vec, norms),
              replaces="src/repro/kernels/sparsify.py:70",
-             unit=threshold_all(sparsify.threshold_apply, masked),
-             plain=threshold_all(ref.threshold_mask_ref, None),
-             library=None, library_name=None, plain_graph=False,
+             unit=threshold_all(sparsify.threshold_apply, masked, thr_f),
+             plain=threshold_all(ref.threshold_mask_ref, None, thr),
+             library=None, library_name=None,
              tolerance="exact", nbytes=8 * n + 8 * K, nflops=n),
         dict(name="prob_quantize", source="quantize.cu",
              operands=qargs[:2] + qargs[5:],
              replaces="src/repro/kernels/quantize.py:39",
              unit=lambda: quantize.prob_quantize(*qargs),
-             plain=lambda: ref.quantize_ref(*qargs),
-             library=None, library_name=None, plain_graph=False,
+             plain=lambda: ref.quantize_ref(*qargs_d),
+             library=None, library_name=None,
              tolerance="levels exact, values rtol 1e-6", nbytes=20 * n,
              nflops=12 * n),
         dict(name="aio_absorb", source="aio_agg.cu",
              operands=(num_a, den_a, upd, msk),
              replaces="src/repro/kernels/aio_agg.py:90",
              unit=lambda: aio_agg.aio_absorb(num_a, den_a, upd, msk, 0.5),
-             plain=lambda: ref.aio_absorb_ref(num_a, den_a, upd, msk, 0.5),
+             plain=lambda: ref.aio_absorb_ref(num_a, den_a, upd, msk, w_d),
              library=lambda: torch._foreach_addcmul_(
                  [num_a, den_a], [msk, msk], [upd, ones], value=0.5),
              library_name="_foreach_addcmul_ (rounds w*(m*u), not (w*m)*u)",
-             plain_graph=False, tolerance="exact, in place",
+             tolerance="exact, in place",
              nbytes=24 * n, nflops=4 * n),
         dict(name="aio_merge", source="aio_agg.cu",
              operands=(num_a, den_a, num_b, den_b),
@@ -634,13 +616,9 @@ def main() -> None:
              plain=lambda: ref.aio_merge_ref(num_a, den_a, num_b, den_b),
              library=lambda: torch._foreach_add_([num_a, den_a],
                                                  [num_b, den_b]),
-             library_name="_foreach_add_", plain_graph=True,
+             library_name="_foreach_add_",
              tolerance="exact, in place", nbytes=24 * n, nflops=2 * n),
     ]
-    # Every back-to-back time first: a torch.profiler session leaves each
-    # later launch in the process costing the host more, so the device-only
-    # pass, which profiles the plain versions a graph cannot capture, comes
-    # after all of them.
     kernels = []
     for r in rows:
         b, by = bound_ms(r["nbytes"], r["nflops"])
@@ -652,17 +630,11 @@ def main() -> None:
             max_abs_err=checks[r["name"]], ms=cuda_ms(r["unit"]),
             plain_ms=cuda_ms(r["plain"]), bound_ms=b, bound_by=by,
             library_ms=cuda_ms(lib) if lib else None,
+            device_ms=graph_ms(r["unit"]),
+            plain_device_ms=graph_ms(r["plain"]),
+            library_device_ms=graph_ms(lib) if lib else None,
             library_call=r["library_name"],
             tolerance=r["tolerance"]))
-    for r, k in zip(rows, kernels):
-        lib = r["library"]
-        k.update(
-            device_ms=graph_ms(r["unit"]),
-            plain_device_ms=graph_ms(r["plain"]) if r["plain_graph"]
-            else profiled_ms(r["plain"]),
-            library_device_ms=graph_ms(lib) if lib else None,
-            device_by=dict(kernel="graph", library="graph",
-                           plain="graph" if r["plain_graph"] else "profiler"))
     footprints = [footprint_mb(r) for r in rows]
     for k, mb in zip(kernels, footprints):
         warm = (f"footprint {mb:.1f} MB, "
@@ -672,8 +644,8 @@ def main() -> None:
             if k["device_ms"] < k["bound_ms"] else ""
         print(f"[time] {k['name']}: kernel {k['ms']:.6f} ms, device "
               f"{k['device_ms']:.6f} ms{below}; plain {k['plain_ms']:.6f} "
-              f"ms (device {k['plain_device_ms']:.6f}, "
-              f"{k['device_by']['plain']}); library {k['library_ms']} ms "
+              f"ms (device {k['plain_device_ms']:.6f}); library "
+              f"{k['library_ms']} ms "
               f"(device {k['library_device_ms']}, {k['library_call']}); "
               f"bound {k['bound_ms']:.6f} ms ({k['bound_by']}); "
               f"{k['launches']} launches on the main path; {warm}")
