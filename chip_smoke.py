@@ -19,7 +19,12 @@ Phases, in order; any failure exits non-zero:
    norms on a second call; dequantized values and the batched aggregate
    rtol 1e-6.  The fused step per leaf view and as the main path's one
    launch over the flat update, also on leaves that start off a 16-byte
-   boundary, on aligned and misaligned planes.
+   boundary, on aligned and misaligned planes.  The threshold step as
+   the planner's one launch over the flat update (masked vector and keep
+   vector exact) at the fmnist-cnn shapes and on those leaves, aligned
+   and misaligned, and per leaf view.  The quantize step over the flat
+   masked vector (levels exact, values rtol 1e-6, one launch) at full N,
+   at N = 1..7 and on planes one element off a 16-byte boundary.
 3. Agreement on small inputs: a 3-device flat run and a 4-device, 2-cell
    hierarchical run, each for 2 rounds on the card and on the CPU (plain
    versions), same seed, same uniforms.  Strategies, cells reporting and
@@ -35,11 +40,13 @@ Phases, in order; any failure exits non-zero:
        and ships 4 f32 partials; #8 launches once per extra reporting
        cell (9).
    In both, #1/#2 launch once per compressed update and planner probe
-   (37), #5 once per compressed update (36).  Losses must be finite and
-   the final parameters finite CUDA tensors of the model's shapes.
+   (37), #5 once per compressed update (36), and the planner's fit
+   launches #3 once per ``rho`` (8) and #4 once per ``(rho, L)`` (80).
+   Losses must be finite and the final parameters finite CUDA tensors of
+   the model's shapes.
 5. Time each kernel's unit of work on the main path (one flat call per
-   update for #1/#2 and #5, all 8 leaves for #3, one launch for the
-   others), its plain version and, where one PyTorch call computes the
+   update for #1/#2 and #5, one per planner ``rho`` for #3, one launch
+   for the others), its plain version and, where one PyTorch call computes the
    same function, that call: CUDA events around 20 back-to-back calls,
    so the host's launch cost is in the time, the median of 7 runs;
    beside the least time the card could take (bytes moved over
@@ -49,6 +56,10 @@ Phases, in order; any failure exits non-zero:
    tensors on the card, so every one can be captured).  Prints each
    unit's footprint (the bytes of the distinct storages it reads and
    writes) beside the 50 MB L2, and both main-path runs' host wall time.
+   Then one ``BetaPlanner.fit`` alone on a probe of the fmnist-cnn
+   shapes: its host wall time, the launches of #1-#4 it made, and the
+   device-only time of one ``entropy_bits`` call (the 65536-bin
+   histogram each of its 80 probes runs), from CUDA-graph replays.
 
 The last lines are the card's name and power limit, one JSON object of
 kernels, and the result line.  Without a card, or without the rest of
@@ -56,6 +67,7 @@ the repository beside this file, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import inspect
 import json
 import math
 import os
@@ -226,12 +238,7 @@ def main() -> None:
           flush=True)
     thr = compression.sparsify_threshold(norms, 0.8)
     thr_f = float(thr)
-    keep = (norms >= thr).float()
-    mask_views, k0 = [], 0
-    for x in views:
-        mask_views.append(keep[k0:k0 + x.shape[0], None].expand(x.shape))
-        k0 += x.shape[0]
-    mask = compression._from_views(mask_views)
+    mask = compression._element_mask((norms >= thr).float(), FMNIST_SHAPES)
     u_min, u_max = compression.masked_range(vec, mask)
     scal = (float(thr), float(u_min), float(u_max), 64.0)
     fused_err, k0 = 0.0, 0
@@ -283,29 +290,75 @@ def main() -> None:
           f"misaligned planes): levels and support exact, values rtol 1e-6",
           flush=True)
 
-    # threshold_apply per leaf into its slot of one flat buffer (the
-    # planner's call), then prob_quantize over the flat masked vector
-    masked = torch.empty(n, device=dev)
-    thr_err, k0 = 0.0, 0
-    for x, out in zip(views, compression._leaf_views(masked, FMNIST_SHAPES)):
-        nk = norms[k0:k0 + x.shape[0]]
-        got, kp = sparsify.threshold_apply(x, nk, thr_f, out=out)
-        want, want_kp = ref.threshold_mask_ref(x, nk, thr_f)
-        if got.data_ptr() != out.data_ptr():
-            fail("threshold_apply did not write into the given slot")
+    # threshold_apply: the planner's one launch over the flat update, at the
+    # fmnist-cnn shapes and on leaves off a 16-byte boundary on aligned and
+    # misaligned planes, then the single-view call on every leaf view; the
+    # masked vector and the keep vector exact
+    def check_threshold_flat(x, shapes, nk, t, label):
+        before = sparsify.launches["threshold_apply"]
+        got, kp = sparsify.threshold_apply_flat(x, shapes, nk, t)
+        if sparsify.launches["threshold_apply"] != before + 1:
+            fail(f"threshold_apply_flat ({label}) is not one launch")
+        want, want_kp = ref.threshold_apply_flat_ref(x, shapes, nk, t)
         if not (torch.equal(got, want) and torch.equal(kp, want_kp)):
-            fail("threshold_apply differs from its plain version")
+            fail(f"threshold_apply_flat ({label}) differs from its plain "
+                 f"version")
+        return float((got - want).abs().max())
+
+    thr_err = check_threshold_flat(vec, FMNIST_SHAPES, norms, thr_f,
+                                   "fmnist-cnn")
+    for off in (0, 1):
+        xs = torch.randn(n_mis + off, generator=gen, device=dev)[off:]
+        nk = sparsify.kernel_l2_flat(xs, MISALIGNED_SHAPES)
+        thr_err = max(thr_err, check_threshold_flat(
+            xs, MISALIGNED_SHAPES, nk, float(nk.median()),
+            f"leaves off 16 B, plane offset {off}"))
+    k0 = 0
+    for x in views:
+        nk = norms[k0:k0 + x.shape[0]]
+        got, kp = sparsify.threshold_apply(x, nk, thr_f)
+        want, want_kp = ref.threshold_mask_ref(x, nk, thr_f)
+        if got.stride() != x.stride() or not (torch.equal(got, want)
+                                              and torch.equal(kp, want_kp)):
+            fail("threshold_apply (one view) differs from its plain version")
         thr_err = max(thr_err, float((got - want).abs().max()))
         k0 += x.shape[0]
     checks["threshold_apply"] = thr_err
+    masked, _ = sparsify.threshold_apply_flat(vec, FMNIST_SHAPES, norms, thr_f)
+    print(f"[check] threshold_apply: one launch over the flat update "
+          f"(fmnist-cnn, and leaves {MISALIGNED_SHAPES} on aligned and "
+          f"misaligned planes) and per leaf view: exact", flush=True)
+
+    # prob_quantize over the flat masked vector (the planner's call), at
+    # N = 1..7 (the N % 4 tail alone and with a body) and on planes one
+    # element off a 16-byte boundary (the scalar loop)
+    def check_quantize(args, label):
+        before = quantize.launches["prob_quantize"]
+        q4, l4 = quantize.prob_quantize(*args)
+        if quantize.launches["prob_quantize"] != before + 1:
+            fail(f"prob_quantize ({label}) is not one launch")
+        q4r, l4r = ref.quantize_ref(*args)
+        if not torch.equal(l4, l4r):
+            fail(f"prob_quantize ({label}): level indices differ at "
+                 f"{int((l4 != l4r).sum())} elements")
+        torch.testing.assert_close(q4, q4r, rtol=1e-6, atol=0)
+        return float((q4 - q4r).abs().max())
+
     qargs = (masked, mask, float(u_min), float(u_max), 64.0, rand)
-    q4, l4 = quantize.prob_quantize(*qargs)
-    q4r, l4r = ref.quantize_ref(*qargs)
-    if not torch.equal(l4, l4r):
-        fail(f"prob_quantize: level indices differ at "
-             f"{int((l4 != l4r).sum())} elements")
-    torch.testing.assert_close(q4, q4r, rtol=1e-6, atol=0)
-    checks["prob_quantize"] = float((q4 - q4r).abs().max())
+    quant_err = check_quantize(qargs, f"N = {n}")
+    for k in range(1, 8):
+        v = torch.randn(k, generator=gen, device=dev) * 1e-2
+        m = (torch.rand(k, generator=gen, device=dev) > 0.3).float()
+        quant_err = max(quant_err, check_quantize(
+            (v, m, 1e-4, float(v.abs().max()), 37.25,
+             torch.rand(k, generator=gen, device=dev)), f"N = {k}"))
+    shifted = [torch.empty(n + 1, device=dev)[1:].copy_(t)
+               for t in (masked, mask, rand)]
+    quant_err = max(quant_err, check_quantize(
+        (shifted[0], shifted[1], *qargs[2:5], shifted[2]), "misaligned"))
+    checks["prob_quantize"] = quant_err
+    print(f"[check] prob_quantize at N = {n}, N = 1..7 and on misaligned "
+          f"planes: levels exact, values rtol 1e-6", flush=True)
 
     # the streaming pair, in place, bit for bit, at full N, at N = 1..7
     # (the N % 4 tail alone and with a body) and on a plane one element off
@@ -420,6 +473,9 @@ def main() -> None:
         "flat": {k for k in ops.launch_counts()
                  if k not in ("aio_absorb", "aio_merge")},
         "hier": {k for k in ops.launch_counts() if k != "aio_aggregate"}}
+    grids = inspect.signature(compression.BetaPlanner.fit).parameters
+    n_rho = len(grids["rho_grid"].default)
+    n_levels = len(grids["level_grid"].default)
     counts, walls = {}, {}
     for kind, fleet in paths.items():
         torch.cuda.synchronize()
@@ -465,6 +521,17 @@ def main() -> None:
                  f"one per compressed update, {n_updates}")
         print(f"[main] {kind}: fused_sparsify_quantize launched {n_updates} "
               f"times, once per compressed update", flush=True)
+        # the planner's fit: #3 once per rho, #4 once per (rho, L)
+        if (counts[kind]["threshold_apply"], counts[kind]["prob_quantize"]) \
+                != (n_rho, n_rho * n_levels):
+            fail(f"{kind}: threshold_apply launched "
+                 f"{counts[kind]['threshold_apply']} and prob_quantize "
+                 f"{counts[kind]['prob_quantize']} times, expected one per "
+                 f"planner rho ({n_rho}) and one per (rho, L) "
+                 f"({n_rho * n_levels})")
+        print(f"[main] {kind}: threshold_apply launched {n_rho} times, once "
+              f"per planner rho; prob_quantize {n_rho * n_levels} times, "
+              f"once per (rho, L)", flush=True)
         if not all(r.test_loss is not None and math.isfinite(r.test_loss)
                    for r in hist.rounds):
             fail(f"{kind}: a round's test loss is not finite")
@@ -500,20 +567,6 @@ def main() -> None:
     # ---------------------------------------------------------------- 5
     def per_leaf(fn):
         return lambda: [fn(x) for x in views]
-
-    def threshold_all(fn, flat_out, t):
-        outs = compression._leaf_views(flat_out, FMNIST_SHAPES) \
-            if flat_out is not None else [None] * len(views)
-
-        def run():
-            res, k0 = [], 0
-            for x, out in zip(views, outs):
-                nk = norms[k0:k0 + x.shape[0]]
-                res.append(fn(x, nk, t) if out is None
-                           else fn(x, nk, t, out=out))
-                k0 += x.shape[0]
-            return res
-        return run
 
     def tensors_in(obj):
         if isinstance(obj, torch.Tensor):
@@ -587,8 +640,10 @@ def main() -> None:
         dict(name="threshold_apply", source="sparsify.cu",
              operands=(vec, norms),
              replaces="src/repro/kernels/sparsify.py:70",
-             unit=threshold_all(sparsify.threshold_apply, masked, thr_f),
-             plain=threshold_all(ref.threshold_mask_ref, None, thr),
+             unit=lambda: sparsify.threshold_apply_flat(
+                 vec, FMNIST_SHAPES, norms, thr_f),
+             plain=lambda: ref.threshold_apply_flat_ref(
+                 vec, FMNIST_SHAPES, norms, thr),
              library=None, library_name=None,
              tolerance="exact", nbytes=8 * n + 8 * K, nflops=n),
         dict(name="prob_quantize", source="quantize.cu",
@@ -652,6 +707,35 @@ def main() -> None:
 
     print(f"[time] host wall time of the 3-round main-path runs: flat "
           f"{walls['flat']:.3f} s, hier {walls['hier']:.3f} s", flush=True)
+
+    # the beta planner's fit alone, on a probe of the fmnist-cnn shapes (the
+    # kernels built and warm from phase 4): host wall time, the launches of
+    # #1-#4 it made, and the device-only time of one entropy_bits call (its
+    # 65536-bin index_add_ histogram) from CUDA-graph replays, once per
+    # (rho, L) probe
+    probe, off = {}, 0
+    for i, shape in enumerate(FMNIST_SHAPES):
+        probe[f"l{i:02d}"] = vec[off:off + math.prod(shape)].view(shape)
+        off += math.prod(shape)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    compression.BetaPlanner.fit(probe, rand)
+    torch.cuda.synchronize()
+    fit_ms = (time.perf_counter() - t0) * 1e3
+    fit_launches = {k: v for k, v in ops.launch_counts().items()
+                    if k in ("kernel_sumsq", "kernel_l2", "threshold_apply",
+                             "prob_quantize")}
+    _, l64 = quantize.prob_quantize(*qargs)
+    hist_ms = graph_ms(lambda: compression.entropy_bits(
+        l64, mask, compression.MAX_LEVELS))
+    n_probes = n_rho * n_levels
+    print(f"[fit] BetaPlanner.fit on the fmnist-cnn probe ({n_rho} rho x "
+          f"{n_levels} L): {fit_ms:.3f} ms of host wall time; launches "
+          f"{json.dumps(fit_launches)}; entropy_bits {hist_ms:.6f} ms of "
+          f"device time a call (CUDA graph), x {n_probes} probes = "
+          f"{hist_ms * n_probes:.3f} ms, {hist_ms * n_probes / fit_ms:.4f} "
+          f"of the fit", flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

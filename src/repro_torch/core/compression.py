@@ -18,9 +18,9 @@ and steps 1-2 through the ``fused_sparsify_quantize`` kernel, one call
 each over every leaf of the flat update (``kernels/ops.py`` picks the
 plain versions for CPU tensors).
 :meth:`BetaPlanner.fit` keeps the reference's structure instead: step 1
-once per ``rho`` (``threshold_apply``, one launch per leaf) and step 2
-once per ``(rho, L)`` over the flat masked vector (``prob_quantize``, one
-launch).  The threshold (a sort of the K norms)
+once per ``rho`` over every leaf of the flat update (``threshold_apply``,
+one launch) and step 2 once per ``(rho, L)`` over the flat masked vector
+(``prob_quantize``, one launch).  The threshold (a sort of the K norms)
 and the masked ``u_min``/``u_max`` are plain reductions, as in the
 reference.  :func:`sparsify_mask` and :func:`prob_quantize` keep the
 reference's composition over the flat vector; the tests hold the kernel
@@ -73,6 +73,17 @@ def kernel_segments(tree: PyTree) -> tuple[np.ndarray, int]:
 def _from_views(views: list[torch.Tensor]) -> torch.Tensor:
     """Inverse of :func:`_leaf_views`: back to one flat vector."""
     return torch.cat([v.t().reshape(-1) for v in views])
+
+
+def _element_mask(keep: torch.Tensor, shapes: list) -> torch.Tensor:
+    """The flat elementwise {0,1} mask of a keep vector (K_total,): each
+    leaf's kernel flags broadcast over its ``(K, ksize)`` view."""
+    views, k0 = [], 0
+    for shape in shapes:
+        k, ksize = leaf_kernel_shape(shape)
+        views.append(keep[k0:k0 + k, None].expand(k, ksize))
+        k0 += k
+    return _from_views(views)
 
 
 # ------------------------------------------------------------- sparsification
@@ -239,13 +250,7 @@ def _sparsify_quantize(vec: torch.Tensor, shapes: list, norms: torch.Tensor,
     ``fused_sparsify_quantize`` call over every leaf, then the size
     model."""
     thr = sparsify_threshold(norms, rho)
-    keep = (norms >= thr).to(F32)
-    mask_views, k0 = [], 0
-    for shape in shapes:
-        k, ksize = leaf_kernel_shape(shape)
-        mask_views.append(keep[k0:k0 + k, None].expand(k, ksize))
-        k0 += k
-    mask = _from_views(mask_views)
+    mask = _element_mask((norms >= thr).to(F32), shapes)
     u_min, u_max = masked_range(vec, mask)
     # one host sync: the scalars ride into the kernel as arguments
     thr_f, u_min_f, u_max_f = torch.stack([thr, u_min, u_max]).tolist()
@@ -302,19 +307,11 @@ class BetaPlanner:
         n = vec.numel()
         records = []
         for rho in rho_grid:
-            # Eq. 2 once per rho: one threshold_apply per leaf writes its
-            # slot of the flat masked vector
+            # Eq. 2 once per rho: one threshold_apply call over every leaf
             thr = float(sparsify_threshold(norms, rho))
-            masked = torch.empty_like(vec)
-            mask_views, k0 = [], 0
-            for x, out in zip(_leaf_views(vec, shapes),
-                              _leaf_views(masked, shapes)):
-                k = x.shape[0]
-                _, keep = ops.threshold_apply_op(x, norms[k0:k0 + k], thr,
-                                                 out=out)
-                mask_views.append(keep[:, None].expand(x.shape))
-                k0 += k
-            mask = _from_views(mask_views)
+            masked, keep = ops.threshold_apply_flat_op(vec, shapes, norms,
+                                                       thr)
+            mask = _element_mask(keep, shapes)
             u_min, u_max = masked_range(masked, mask)
             u_min_f, u_max_f = torch.stack([u_min, u_max]).tolist()
             # Eq. 3-4 once per (rho, L) over the flat vector

@@ -49,6 +49,62 @@ inline bool repro_aligned16(const P*... p) {
   return ((reinterpret_cast<uintptr_t>(p) | ...) & 15) == 0;
 }
 
+// The norm kernel's table of segments (sparsify.SegmentTable) as the
+// element-wise kernels read it.  The host rows hold REPRO_ROW_FIELDS int64
+// each: offset, K, C, sK, sC, out_base, tile_base, part_base, ktiles.  A
+// segment is a dense (K, C) view over storage offsets [offset, offset + K*C)
+// from the base pointers: kernel-fastest (sK = 1, element j of the segment
+// is kernel j % K: a C-order leaf read as its transpose) or row-major
+// (sK = C, kernel j / C).  Its K norms sit at norms[out_base ...].  The
+// table rides into a kernel by value, as a __grid_constant__ parameter.
+constexpr int REPRO_MAX_SEGMENTS = 64;
+constexpr int REPRO_ROW_FIELDS = 9;
+
+struct ReproLaneSegment {
+  uint32_t offset;    // first storage offset
+  uint32_t div;       // kernel j % div (rem) or j / div, j = p - offset
+  uint32_t rem;
+  uint32_t out_base;  // first norm
+};
+
+struct ReproLaneTable {
+  ReproLaneSegment seg[REPRO_MAX_SEGMENTS];
+  int32_t n;
+};
+
+// Fills `t` from `n_seg` host rows over n storage offsets; returns
+// cudaErrorInvalidValue past the table's cap or the kernels' 32-bit
+// offsets, else 0.
+inline int repro_lane_table(const int64_t* rows, int n_seg, int64_t n,
+                            ReproLaneTable* t) {
+  if (n_seg < 1 || n_seg > REPRO_MAX_SEGMENTS || n < 0 || n > 0x7fffffff)
+    return static_cast<int>(cudaErrorInvalidValue);
+  t->n = n_seg;
+  for (int i = 0; i < n_seg; ++i) {
+    const int64_t* r = rows + static_cast<int64_t>(i) * REPRO_ROW_FIELDS;
+    const int64_t K = r[1], sK = r[3];
+    ReproLaneSegment& g = t->seg[i];
+    g.offset = static_cast<uint32_t>(r[0]);
+    g.rem = sK == 1;
+    const int64_t div = g.rem ? K : sK;
+    g.div = static_cast<uint32_t>(div < 1 ? 1 : div);   // empty segments
+    g.out_base = static_cast<uint32_t>(r[5]);
+  }
+  return 0;
+}
+
+// The norm index of storage offset p; s is the thread's segment, which
+// only moves forward as its offsets grow (empty segments share the next
+// one's offset and are passed over).  Leaf offsets need not be 16-byte
+// aligned, so each lane of a float4 step looks its own kernel up.
+__device__ __forceinline__ uint32_t repro_kernel_of(const ReproLaneTable& t,
+                                                    uint32_t p, int& s) {
+  while (s + 1 < t.n && p >= t.seg[s + 1].offset) ++s;
+  const ReproLaneSegment& g = t.seg[s];
+  const uint32_t j = p - g.offset;
+  return g.out_base + (g.rem ? j % g.div : j / g.div);
+}
+
 // Eq. 3-4's grid step: max(u_max - u_min, 1e-20) / L, IEEE division.
 __device__ __forceinline__ float repro_quant_step(float u_min, float u_max,
                                                   float L) {

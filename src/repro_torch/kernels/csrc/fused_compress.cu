@@ -35,9 +35,10 @@
 // start at 0, 32, 832, 896, 52096, 52608, 1658240, 1658250), so a float4
 // step can straddle two leaves: every lane finds its own segment, by a scan
 // that only moves forward as the thread's offsets grow, and its own kernel
-// id.  When x, rand, q and lvl all start on 16-byte boundaries each thread
-// moves float4s (int4 for lvl) and the first block does the n % 4 tail with
-// scalar accesses; otherwise the scalar loop runs.
+// id (the lane table and repro_kernel_of of common.cuh, which sparsify.cu's
+// threshold step reads too).  When x, rand, q and lvl all start on 16-byte
+// boundaries each thread moves float4s (int4 for lvl) and the first block
+// does the n % 4 tail with scalar accesses; otherwise the scalar loop runs.
 // Exactness: built without --use_fast_math, so '/' is IEEE division and
 // floorf is exact; the level index must equal the reference's bit for bit.
 // v = x * keep and the Eq. 3-4 step (shared with quantize.cu through
@@ -50,37 +51,10 @@ namespace {
 
 constexpr int THREADS = 256;
 constexpr int BLOCKS_PER_SM = 8;   // 2048 threads: a full H100 SM
-constexpr int MAX_SEGMENTS = 64;
-// int64 fields per host row (sparsify.cu's layout; this kernel reads the
-// first six): offset, K, C, sK, sC, out_base, tile_base, part_base, ktiles
-constexpr int ROW_FIELDS = 9;
-
-struct Segment {
-  uint32_t offset;    // first storage offset
-  uint32_t div;       // kernel j % div (rem) or j / div, j = p - offset
-  uint32_t rem;
-  uint32_t out_base;  // first norm
-};
-
-struct Table {
-  Segment seg[MAX_SEGMENTS];
-  int32_t n;
-};
 
 struct Scalars {
   float thr, u_min, u_max, L;
 };
-
-// The norm index of storage offset p; s is the thread's segment, which
-// only moves forward (empty segments share the next one's offset and are
-// passed over).
-__device__ __forceinline__ uint32_t kernel_of(const Table& t, uint32_t p,
-                                              int& s) {
-  while (s + 1 < t.n && p >= t.seg[s + 1].offset) ++s;
-  const Segment& g = t.seg[s];
-  const uint32_t j = p - g.offset;
-  return g.out_base + (g.rem ? j % g.div : j / g.div);
-}
 
 __device__ __forceinline__ void compress(float x, float r, float norm,
                                          const Scalars& c, float step,
@@ -98,7 +72,7 @@ fused_vec4_kernel(const float* __restrict__ x,
                   const float* __restrict__ rand,
                   const float* __restrict__ norms, float* __restrict__ q,
                   int32_t* __restrict__ lvl, uint32_t n, Scalars c,
-                  const __grid_constant__ Table t) {
+                  const __grid_constant__ ReproLaneTable t) {
   const uint32_t n4 = n / 4;
   const float4* x4 = reinterpret_cast<const float4*>(x);
   const float4* r4 = reinterpret_cast<const float4*>(rand);
@@ -113,21 +87,21 @@ fused_vec4_kernel(const float* __restrict__ x,
     const uint32_t p = 4 * i;
     float4 qv;
     int4 lv;
-    compress(xv.x, rv.x, norms[kernel_of(t, p, s)], c, step, qv.x,
-             lv.x);
-    compress(xv.y, rv.y, norms[kernel_of(t, p + 1, s)], c, step, qv.y,
-             lv.y);
-    compress(xv.z, rv.z, norms[kernel_of(t, p + 2, s)], c, step, qv.z,
-             lv.z);
-    compress(xv.w, rv.w, norms[kernel_of(t, p + 3, s)], c, step, qv.w,
-             lv.w);
+    compress(xv.x, rv.x, norms[repro_kernel_of(t, p, s)], c, step,
+             qv.x, lv.x);
+    compress(xv.y, rv.y, norms[repro_kernel_of(t, p + 1, s)], c, step,
+             qv.y, lv.y);
+    compress(xv.z, rv.z, norms[repro_kernel_of(t, p + 2, s)], c, step,
+             qv.z, lv.z);
+    compress(xv.w, rv.w, norms[repro_kernel_of(t, p + 3, s)], c, step,
+             qv.w, lv.w);
     q4[i] = qv;
     l4[i] = lv;
   }
   const uint32_t p = 4 * n4 + threadIdx.x;
   if (blockIdx.x == 0 && p < n)
-    compress(x[p], rand[p], norms[kernel_of(t, p, s)], c, step, q[p],
-             lvl[p]);
+    compress(x[p], rand[p], norms[repro_kernel_of(t, p, s)], c, step,
+             q[p], lvl[p]);
 }
 
 __global__ void __launch_bounds__(THREADS)
@@ -135,38 +109,27 @@ fused_scalar_kernel(const float* __restrict__ x,
                     const float* __restrict__ rand,
                     const float* __restrict__ norms, float* __restrict__ q,
                     int32_t* __restrict__ lvl, uint32_t n, Scalars c,
-                    const __grid_constant__ Table t) {
+                    const __grid_constant__ ReproLaneTable t) {
   const float step = repro_quant_step(c.u_min, c.u_max, c.L);
   int s = 0;
   for (uint32_t p = blockIdx.x * THREADS + threadIdx.x; p < n;
        p += gridDim.x * THREADS)
-    compress(x[p], rand[p], norms[kernel_of(t, p, s)], c, step, q[p],
-             lvl[p]);
+    compress(x[p], rand[p], norms[repro_kernel_of(t, p, s)], c, step,
+             q[p], lvl[p]);
 }
 
 }  // namespace
 
 // x, rand: the inputs at storage offsets [0, n); q, lvl: the outputs, same
-// offsets; norms: the table's k_total norms; rows: n_seg x ROW_FIELDS
-// int64.  One launch on `stream`.
+// offsets; norms: the table's k_total norms; rows: n_seg x
+// REPRO_ROW_FIELDS int64 (common.cuh).  One launch on `stream`.
 extern "C" int fused_sparsify_quantize_f32(
     const float* x, const float* rand, const float* norms, float* q,
     int32_t* lvl, const int64_t* rows, int n_seg, int64_t n, float thr,
     float u_min, float u_max, float L, cudaStream_t stream) {
-  if (n_seg < 1 || n_seg > MAX_SEGMENTS || n < 0 || n > 0x7fffffff)
-    return static_cast<int>(cudaErrorInvalidValue);
-  Table t;
-  t.n = n_seg;
-  for (int i = 0; i < n_seg; ++i) {
-    const int64_t* r = rows + static_cast<int64_t>(i) * ROW_FIELDS;
-    const int64_t K = r[1], sK = r[3];
-    Segment& g = t.seg[i];
-    g.offset = static_cast<uint32_t>(r[0]);
-    g.rem = sK == 1;
-    const int64_t div = g.rem ? K : sK;
-    g.div = static_cast<uint32_t>(div < 1 ? 1 : div);   // empty segments
-    g.out_base = static_cast<uint32_t>(r[5]);
-  }
+  ReproLaneTable t;
+  const int bad = repro_lane_table(rows, n_seg, n, &t);
+  if (bad) return bad;
   const Scalars c{thr, u_min, u_max, L};
   const bool vec4 = repro_aligned16(x, rand, q, lvl);
   unsigned grid = 0;

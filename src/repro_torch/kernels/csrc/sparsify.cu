@@ -3,7 +3,8 @@
 //
 // Replaces: repro/kernels/sparsify.py:kernel_sumsq (pl.pallas_call at :47)
 // and kernel_l2 (:58, sqrt of the former), as one kernel with an optional
-// sqrt epilogue; and threshold_apply (:70, pl.pallas_call at :83), below.
+// sqrt epilogue; and threshold_apply (:70, pl.pallas_call at :83), below,
+// over the same table.
 //
 // Norms, redesigned for the H100.  Input: a table of segments over one base
 // pointer, each a (K, C) float32 view with element strides (sK, sC) whose
@@ -44,11 +45,10 @@ constexpr int ROWS = 32;      // kernels per tile (threadIdx.x)
 constexpr int SLICES = 8;     // threads per kernel in a tile (threadIdx.y)
 constexpr int CHUNK = 256;    // columns per tile
 constexpr int COMBINE = 256;  // combine_kernel: one thread per kernel
-constexpr int THREADS = 256;  // threshold_kernel: one thread per element
-constexpr int MAX_SEGMENTS = 64;
-// int64 fields per segment row of the host table, in this order:
-// offset, K, C, sK, sC, out_base, tile_base, part_base, ktiles
-constexpr int ROW_FIELDS = 9;
+constexpr int THREADS = 256;  // threshold kernels: grid-stride loops
+constexpr int BLOCKS_PER_SM = 8;
+// The host table's rows (common.cuh): REPRO_ROW_FIELDS int64 each, in this
+// order: offset, K, C, sK, sC, out_base, tile_base, part_base, ktiles
 
 struct Segment {
   int64_t offset;     // element offset of (0, 0) from the base pointer
@@ -62,7 +62,7 @@ struct Segment {
 };
 
 struct Table {
-  Segment seg[MAX_SEGMENTS];
+  Segment seg[REPRO_MAX_SEGMENTS];
   int32_t n;
 };
 
@@ -124,61 +124,128 @@ combine_kernel(const float* __restrict__ part, float* __restrict__ out,
   out[i] = take_sqrt ? sqrtf(s) : s;
 }
 
-// threshold_apply: out = x * (norms[k] >= thr) for a dense (K, C) view x,
-// and keep[k] = (norms[k] >= thr) as float32 (K,).
+// threshold_apply: out = x * (norms[k] >= thr) per element, and keep[k] =
+// (norms[k] >= thr) as float32, over the table's segments (the lane table
+// of common.cuh: storage offsets [0, n) from the base pointers x and out,
+// k_total norms and keep flags).
 //
 // Bound on an H100 (3.35 TB/s): bytes.  8 B per element (read x, write
 // out) plus 8 B per kernel (read norms, write keep): 13.3 MB for the
-// fmnist-cnn update, about 4.0 us.
+// fmnist-cnn update (N = 1,663,370, K = 622), about 4.0 us.
 //
-// Design: as fused_compress.cu, x is kernel-fastest (strides (1, K), the
-// main path's transposed view of a C-order leaf) or row-major (strides
-// (C, 1)); one thread per storage offset, the kernel id offset % K or
-// offset / C, and out in x's own layout, so the leaves' outputs written
-// into one flat buffer are the flat masked vector.  The first K threads
-// also write keep, one element each.  x * keep is __fmul_rn, as the plain
-// version's product rounds.
+// Design, for the H100, as fused_compress.cu's: the step is element-wise,
+// so one launch takes the whole flat update (the beta planner's Eq. 2 step,
+// once per rho) in a grid-stride loop over storage offsets on a grid sized
+// from the SM count; the 10- to 512-element leaves share blocks with the
+// rest instead of each costing a launch.  Every lane finds its own leaf and
+// kernel id (repro_kernel_of), since leaf offsets are not 16-byte aligned.
+// When x and out start on 16-byte boundaries each thread moves float4s and
+// the first block does the n % 4 tail; otherwise the scalar loop runs.  A
+// second grid-stride loop writes keep.  x * keep is __fmul_rn, as the
+// plain version's product rounds.  A single dense view is a one-segment
+// table.
+__device__ __forceinline__ float masked(float x, const float* norms,
+                                        uint32_t k, float thr) {
+  return __fmul_rn(x, norms[k] >= thr ? 1.0f : 0.0f);
+}
+
+__device__ __forceinline__ void write_keep(const float* __restrict__ norms,
+                                           float* __restrict__ keep,
+                                           uint32_t k_total, float thr) {
+  for (uint32_t i = blockIdx.x * THREADS + threadIdx.x; i < k_total;
+       i += gridDim.x * THREADS)
+    keep[i] = norms[i] >= thr ? 1.0f : 0.0f;
+}
+
 __global__ void __launch_bounds__(THREADS)
-threshold_kernel(const float* __restrict__ x, const float* __restrict__ norms,
-                 float* __restrict__ out, float* __restrict__ keep,
-                 uint32_t n, uint32_t K, uint32_t C, int kernel_fastest,
-                 float thr) {
-  const uint32_t o = blockIdx.x * THREADS + threadIdx.x;
-  if (o >= n) return;
-  const uint32_t k = kernel_fastest ? o % K : o / C;
-  out[o] = __fmul_rn(x[o], norms[k] >= thr ? 1.0f : 0.0f);
-  if (o < K) keep[o] = norms[o] >= thr ? 1.0f : 0.0f;
+threshold_vec4_kernel(const float* __restrict__ x,
+                      const float* __restrict__ norms,
+                      float* __restrict__ out, float* __restrict__ keep,
+                      uint32_t n, uint32_t k_total, float thr,
+                      const __grid_constant__ ReproLaneTable t) {
+  const uint32_t n4 = n / 4;
+  const float4* x4 = reinterpret_cast<const float4*>(x);
+  float4* o4 = reinterpret_cast<float4*>(out);
+  int s = 0;
+  for (uint32_t i = blockIdx.x * THREADS + threadIdx.x; i < n4;
+       i += gridDim.x * THREADS) {
+    const float4 xv = x4[i];
+    const uint32_t p = 4 * i;
+    float4 ov;
+    ov.x = masked(xv.x, norms, repro_kernel_of(t, p, s), thr);
+    ov.y = masked(xv.y, norms, repro_kernel_of(t, p + 1, s), thr);
+    ov.z = masked(xv.z, norms, repro_kernel_of(t, p + 2, s), thr);
+    ov.w = masked(xv.w, norms, repro_kernel_of(t, p + 3, s), thr);
+    o4[i] = ov;
+  }
+  const uint32_t p = 4 * n4 + threadIdx.x;
+  if (blockIdx.x == 0 && p < n)
+    out[p] = masked(x[p], norms, repro_kernel_of(t, p, s), thr);
+  write_keep(norms, keep, k_total, thr);
+}
+
+__global__ void __launch_bounds__(THREADS)
+threshold_scalar_kernel(const float* __restrict__ x,
+                        const float* __restrict__ norms,
+                        float* __restrict__ out, float* __restrict__ keep,
+                        uint32_t n, uint32_t k_total, float thr,
+                        const __grid_constant__ ReproLaneTable t) {
+  int s = 0;
+  for (uint32_t p = blockIdx.x * THREADS + threadIdx.x; p < n;
+       p += gridDim.x * THREADS)
+    out[p] = masked(x[p], norms, repro_kernel_of(t, p, s), thr);
+  write_keep(norms, keep, k_total, thr);
 }
 
 }  // namespace
 
-extern "C" int threshold_apply_f32(const float* x, const float* norms,
-                                   float* out, float* keep, int64_t n,
-                                   int64_t K, int64_t C, int kernel_fastest,
-                                   float thr, cudaStream_t stream) {
-  const unsigned grid = static_cast<unsigned>((n + THREADS - 1) / THREADS);
-  threshold_kernel<<<grid, THREADS, 0, stream>>>(
-      x, norms, out, keep, static_cast<uint32_t>(n),
-      static_cast<uint32_t>(K), static_cast<uint32_t>(C), kernel_fastest,
-      thr);
+// x, out: the input and output at storage offsets [0, n); norms, keep:
+// k_total floats each; rows: n_seg x REPRO_ROW_FIELDS int64.  One launch
+// on `stream`.
+extern "C" int threshold_apply_segments_f32(const float* x,
+                                            const float* norms, float* out,
+                                            float* keep, const int64_t* rows,
+                                            int n_seg, int64_t n,
+                                            int64_t k_total, float thr,
+                                            cudaStream_t stream) {
+  ReproLaneTable t;
+  const int bad = repro_lane_table(rows, n_seg, n, &t);
+  if (bad) return bad;
+  if (k_total < 0 || k_total > 0x7fffffff)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool vec4 = repro_aligned16(x, out);
+  const int64_t work = vec4 ? n / 4 : n;
+  unsigned grid = 0;
+  const cudaError_t err = repro_grid(work > k_total ? work : k_total, THREADS,
+                                     BLOCKS_PER_SM, &grid);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (vec4)
+    threshold_vec4_kernel<<<grid, THREADS, 0, stream>>>(
+        x, norms, out, keep, static_cast<uint32_t>(n),
+        static_cast<uint32_t>(k_total), thr, t);
+  else
+    threshold_scalar_kernel<<<grid, THREADS, 0, stream>>>(
+        x, norms, out, keep, static_cast<uint32_t>(n),
+        static_cast<uint32_t>(k_total), thr, t);
   return repro_launch_status();
 }
 
-// x: the base pointer; rows: n_seg x ROW_FIELDS int64 (see above); part:
-// scratch of one float per (chunk, kernel) of every segment; out: k_total
-// floats.  Two launches on one stream: the tiles, then the combine.
+// x: the base pointer; rows: n_seg x REPRO_ROW_FIELDS int64 (see above);
+// part: scratch of one float per (chunk, kernel) of every segment; out:
+// k_total floats.  Two launches on one stream: the tiles, then the
+// combine.
 extern "C" int kernel_sumsq_segments_f32(const float* x, float* out,
                                          float* part, const int64_t* rows,
                                          int n_seg, int64_t n_tiles,
                                          int64_t k_total, int take_sqrt,
                                          cudaStream_t stream) {
-  if (n_seg < 1 || n_seg > MAX_SEGMENTS || n_tiles < 0 ||
+  if (n_seg < 1 || n_seg > REPRO_MAX_SEGMENTS || n_tiles < 0 ||
       n_tiles > 0x7fffffff)
     return static_cast<int>(cudaErrorInvalidValue);
   Table t;
   t.n = n_seg;
   for (int i = 0; i < n_seg; ++i) {
-    const int64_t* r = rows + static_cast<int64_t>(i) * ROW_FIELDS;
+    const int64_t* r = rows + static_cast<int64_t>(i) * REPRO_ROW_FIELDS;
     Segment& g = t.seg[i];
     g.offset = r[0];
     g.K = static_cast<int32_t>(r[1]);

@@ -7,8 +7,6 @@ to the other, and no switch besides the device the data lies on.
 """
 from __future__ import annotations
 
-from typing import Optional
-
 import torch
 
 from repro_torch.kernels import (aio_agg, fused_compress, quantize, ref,
@@ -48,18 +46,23 @@ def kernel_l2_flat_op(vec: torch.Tensor, shapes) -> torch.Tensor:
     return ref.kernel_l2_flat_ref(vec, shapes)
 
 
-def threshold_apply_op(x: torch.Tensor, norms: torch.Tensor, thr,
-                       out: Optional[torch.Tensor] = None
+def threshold_apply_op(x: torch.Tensor, norms: torch.Tensor, thr
                        ) -> tuple[torch.Tensor, torch.Tensor]:
     """Eq. 2 on one (K, ksize) leaf view: (x with the rows below ``thr``
-    zeroed, laid out like x and written into ``out`` when given; the
-    float32 keep vector (K,))."""
+    zeroed, laid out like x; the float32 keep vector (K,))."""
     if _on_cuda(x, norms):
-        return sparsify.threshold_apply(x, norms, thr, out)
-    xm, keep = ref.threshold_mask_ref(x, norms, thr)
-    if out is None:
-        return xm, keep
-    return out.copy_(xm), keep
+        return sparsify.threshold_apply(x, norms, thr)
+    return ref.threshold_mask_ref(x, norms, thr)
+
+
+def threshold_apply_flat_op(vec: torch.Tensor, shapes, norms: torch.Tensor,
+                            thr) -> tuple[torch.Tensor, torch.Tensor]:
+    """Eq. 2 over a flat update with leaves ``shapes`` and its norms
+    (K_total,) -> (the flat masked vector (N,), the float32 keep vector
+    (K_total,)): one kernel launch on CUDA."""
+    if _on_cuda(vec, norms):
+        return sparsify.threshold_apply_flat(vec, shapes, norms, thr)
+    return ref.threshold_apply_flat_ref(vec, shapes, norms, thr)
 
 
 def prob_quantize_op(v: torch.Tensor, mask: torch.Tensor, u_min, u_max,

@@ -69,6 +69,22 @@ def threshold_mask_ref(x: torch.Tensor, norms: torch.Tensor, thr
     return x * keep[:, None], keep
 
 
+def threshold_apply_flat_ref(vec: torch.Tensor, shapes, norms, thr
+                             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Eq. 2 over a flat update with leaves ``shapes``: each leaf view of
+    :func:`leaf_views` with its slice of ``norms`` (K_total,) through
+    :func:`threshold_mask_ref`, laid back out flat -> (masked (N,), keep
+    (K_total,)): the plain version of ``sparsify.threshold_apply_flat``."""
+    outs, keeps, k0 = [], [], 0
+    for x in leaf_views(vec, shapes):
+        k = x.shape[0]
+        xm, keep = threshold_mask_ref(x, norms[k0:k0 + k], thr)
+        outs.append(xm.t().reshape(-1))
+        keeps.append(keep)
+        k0 += k
+    return torch.cat(outs), torch.cat(keeps)
+
+
 def quantize_ref(v: torch.Tensor, mask: torch.Tensor, u_min, u_max,
                  n_levels, rand: torch.Tensor
                  ) -> tuple[torch.Tensor, torch.Tensor]:

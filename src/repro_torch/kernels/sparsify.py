@@ -7,17 +7,20 @@ segments, each a ``(K, ksize)`` float32 view with any strides over one
 base pointer: :func:`kernel_l2_flat` takes the whole flat update, one
 segment per leaf view of ``ref.leaf_views`` (each leaf's C-order buffer
 read as its transpose, strides ``(1, K)``), in one call;
-:func:`kernel_l2` takes a single view, a one-segment table.  The fused
-compression kernel (``kernels/fused_compress.py``) reads the same tables.
-``threshold_apply`` takes one dense view.  The CPU route is
-``kernels/ops.py``'s.
+:func:`kernel_l2` takes a single view, a one-segment table.  The threshold
+step reads the same tables: :func:`threshold_apply_flat`, the beta
+planner's call, takes the whole flat update in one launch and returns the
+flat masked vector and the keep vector; :func:`threshold_apply` takes a
+single dense view, a one-segment table, through the same C entry.  The
+fused compression kernel (``kernels/fused_compress.py``) reads the same
+tables too.  The CPU route is ``kernels/ops.py``'s.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
 import math
-from typing import NamedTuple, Optional
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -26,7 +29,8 @@ from repro_torch.kernels import build
 from repro_torch.kernels.ref import leaf_views
 
 #: launches of the CUDA kernels: ``kernel_sumsq`` counts every call of the
-#: norm kernel's C entry, ``kernel_l2`` those with the sqrt epilogue
+#: norm kernel's C entry, ``kernel_l2`` those with the sqrt epilogue,
+#: ``threshold_apply`` every launch of the threshold step
 launches = {"kernel_sumsq": 0, "kernel_l2": 0, "threshold_apply": 0}
 
 #: the most segments one norm call takes (the kernel's table is passed by
@@ -39,10 +43,10 @@ _SUMSQ = build.Entry("sparsify", "kernel_sumsq_segments_f32",
                      (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                       ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
                       ctypes.c_int64, ctypes.c_int))
-_THR_SYMBOL = "threshold_apply_f32"
-_THR_ARGS = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-             ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
-             ctypes.c_int, ctypes.c_float, ctypes.c_void_p)
+_THRESHOLD = build.Entry("sparsify", "threshold_apply_segments_f32",
+                        (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                         ctypes.c_int64, ctypes.c_int64, ctypes.c_float))
 
 
 def kernel_fastest(t: torch.Tensor, kernel: str) -> bool:
@@ -173,49 +177,64 @@ def kernel_l2_flat(vec: torch.Tensor, shapes) -> torch.Tensor:
     return _flat_norms(vec, shapes, take_sqrt=True)
 
 
-def threshold_apply(x: torch.Tensor, norms: torch.Tensor, thr: float,
-                    out: Optional[torch.Tensor] = None
+def _threshold(index: int, table: SegmentTable, x: torch.Tensor,
+               norms: torch.Tensor, out: torch.Tensor, keep: torch.Tensor,
+               thr: float) -> None:
+    """One launch over ``table``'s storage offsets from ``x`` and ``out``."""
+    n = table.n_elements
+    if n >= 2 ** 31:
+        raise ValueError(f"threshold_apply: {n} elements exceed the kernel's "
+                         f"32-bit indexing")
+    if n == 0 and table.k_total == 0:
+        return
+    _THRESHOLD.launch(index, x.data_ptr(), norms.data_ptr(), out.data_ptr(),
+                      keep.data_ptr(), table.blob, len(table.rows), n,
+                      table.k_total, float(thr))
+    launches["threshold_apply"] += 1
+
+
+def threshold_apply_flat(vec: torch.Tensor, shapes, norms: torch.Tensor,
+                         thr: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """vec: the contiguous float32 (N,) CUDA vector of an update whose
+    leaves have ``shapes``; norms: every leaf's kernel norms, concatenated
+    (K_total,), as :func:`kernel_l2_flat` gives them; thr a float32 value.
+    Returns (vec with every kernel below ``thr`` zeroed, flat (N,); the
+    float32 keep vector (K_total,)), from one launch."""
+    table = flat_table(tuple(shapes))
+    index = build.f32_vectors("threshold_apply", table.n_elements, vec)
+    if build.f32_vectors("threshold_apply", table.k_total, norms) != index:
+        raise ValueError(f"threshold_apply: norms must lie on {vec.device}; "
+                         f"got {norms.device}")
+    out = torch.empty_like(vec)
+    keep = torch.empty_like(norms)
+    _threshold(index, table, vec, norms, out, keep, thr)
+    return out, keep
+
+
+def threshold_apply(x: torch.Tensor, norms: torch.Tensor, thr: float
                     ) -> tuple[torch.Tensor, torch.Tensor]:
     """x: dense (K, ksize) float32 CUDA view; norms (K,); thr a float32
     value.  Returns (x * (norms >= thr) per row, laid out like x; the
-    float32 keep vector (K,)).  ``out``, when given, is a view with x's
-    shape and strides that receives the first result (the main path
-    hands each leaf its slot of one flat buffer)."""
-    for name, t in (("x", x), ("norms", norms)):
-        if t.device.type != "cuda" or t.device != x.device:
-            raise ValueError(f"threshold_apply: {name} must be on "
-                             f"{x.device} (CUDA); got {t.device}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"threshold_apply: {name} must be float32; "
-                            f"got {t.dtype}")
+    float32 keep vector (K,))."""
+    index = x.get_device()
+    if index < 0:
+        raise ValueError(f"threshold_apply launches on CUDA tensors; got "
+                         f"{x.device}")
+    if x.dtype != torch.float32:
+        raise TypeError(f"threshold_apply takes float32; got {x.dtype}")
     if x.dim() != 2:
         raise ValueError(f"threshold_apply takes a (K, ksize) view; got "
                          f"shape {tuple(x.shape)}")
     K, C = x.shape
-    if norms.shape != (K,) or not norms.is_contiguous():
-        raise ValueError(f"threshold_apply: norms must be a contiguous "
-                         f"({K},) vector; got {tuple(norms.shape)}")
+    if build.f32_vectors("threshold_apply", K, norms) != index:
+        raise ValueError(f"threshold_apply: norms must lie on {x.device}; "
+                         f"got {norms.device}")
+    # the kernel reads a dense view by its layout alone: element j of the
+    # storage is kernel j % K (kernel-fastest) or j / C (row-major)
     fastest = kernel_fastest(x, "threshold_apply")
-    if out is None:
-        out = torch.empty_strided(x.shape, x.stride(), dtype=torch.float32,
-                                  device=x.device)
-    elif (out.device != x.device or out.dtype != torch.float32
-          or out.shape != x.shape or out.stride() != x.stride()):
-        raise ValueError(f"threshold_apply: out must be a float32 view on "
-                         f"{x.device} with x's shape {tuple(x.shape)} and "
-                         f"strides {x.stride()}")
-    keep = torch.empty(K, dtype=torch.float32, device=x.device)
-    n = x.numel()
-    if n >= 2 ** 31:
-        raise ValueError(f"threshold_apply: {n} elements exceed the "
-                         f"kernel's 32-bit indexing")
-    if n == 0:
-        return out, keep
-    fn = build.function("sparsify", _THR_SYMBOL, _THR_ARGS)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = fn(x.data_ptr(), norms.data_ptr(), out.data_ptr(),
-                  keep.data_ptr(), n, K, C, int(fastest), float(thr), stream)
-    build.check("sparsify", _THR_SYMBOL, code)
-    launches["threshold_apply"] += 1
+    table = _view_table(K, C, *((1, K) if fastest else (C, 1)))
+    out = torch.empty_strided(x.shape, x.stride(), dtype=torch.float32,
+                              device=x.device)
+    keep = torch.empty_like(norms)
+    _threshold(index, table, x, norms, out, keep, thr)
     return out, keep

@@ -6,18 +6,19 @@ imports no JAX, so it runs on a machine that has only PyTorch:
   python -m pytest -q -m gpu tests/test_torch_cuda.py
 
 Tolerances: level indices, the kept support, masks, the threshold step
-and the aggregation (batched and streaming) exact (same float32
-operations in the same order, no FMA contraction); quantized values rtol
-1e-6; norms rtol 1e-5 (the plain version sums in another order), and
-bitwise equal between two calls of the kernel (it sums in a fixed
-order).
+(flat and per view, masked values and keep flags) and the aggregation
+(batched and streaming) exact (same float32 operations in the same
+order, no FMA contraction); quantized values rtol 1e-6; norms rtol 1e-5
+(the plain version sums in another order), and bitwise equal between two
+calls of the kernel (it sums in a fixed order).
 """
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.core.compression import _leaf_views  # noqa: E402
+from repro_torch.core.compression import (_element_mask,  # noqa: E402
+                                          _leaf_views)
 from repro_torch.kernels import (aio_agg, fused_compress, ops,  # noqa: E402
                                  quantize, ref, sparsify)
 
@@ -142,28 +143,90 @@ def test_aio_kernel_matches_plain_version_at_main_path_shape(cuda):
 
 
 def test_threshold_and_quantize_kernels_match_plain_versions(cuda):
-    """#3 per leaf into one flat buffer, then #4 over the flat vector, as
-    the beta planner runs them."""
-    views, _ = _leaf_views_on(cuda, seed=12)
-    n = sum(x.numel() for x in views)
-    rand = torch.rand(n, generator=torch.Generator(device=cuda).manual_seed(2),
-                      device=cuda)
-    norms = [sparsify.kernel_l2(x) for x in views]
-    thr = float(torch.cat(norms).median())
-    flat = torch.empty(n, device=cuda)
-    masks = []
-    for x, nk, out in zip(views, norms, _leaf_views(flat, FMNIST_SHAPES)):
-        got, keep = sparsify.threshold_apply(x, nk, thr, out=out)
-        want, want_keep = ref.threshold_mask_ref(x, nk, thr)
-        assert got.data_ptr() == out.data_ptr()
-        assert torch.equal(got, want) and torch.equal(keep, want_keep)
-        masks.append(keep[:, None].expand(x.shape).t().reshape(-1))
-    mask = torch.cat(masks)
+    """#3 over the whole flat update in one launch, then #4 over the flat
+    masked vector, as the beta planner runs them."""
+    n = sum(int(np.prod(s)) for s in FMNIST_SHAPES)
+    g = torch.Generator(device=cuda).manual_seed(12)
+    vec = torch.randn(n, generator=g, device=cuda) * 1e-2
+    rand = torch.rand(n, generator=g, device=cuda)
+    norms = sparsify.kernel_l2_flat(vec, FMNIST_SHAPES)
+    thr = float(norms.median())
+    before = sparsify.launches["threshold_apply"]
+    flat, keep = sparsify.threshold_apply_flat(vec, FMNIST_SHAPES, norms, thr)
+    assert sparsify.launches["threshold_apply"] == before + 1
+    want, want_keep = ref.threshold_apply_flat_ref(vec, FMNIST_SHAPES, norms,
+                                                   thr)
+    assert torch.equal(flat, want) and torch.equal(keep, want_keep)
+    mask = _element_mask(keep, FMNIST_SHAPES)
     av = flat.abs()[mask > 0]
     for levels in (2.0, 256.0, 37.25):
         args = (flat, mask, float(av[av > 0].min()), float(av.max()),
                 levels, rand)
         q, lvl = quantize.prob_quantize(*args)
+        qr, lr = ref.quantize_ref(*args)
+        assert torch.equal(lvl, lr)
+        torch.testing.assert_close(q, qr, rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("shapes", [FMNIST_SHAPES, MISALIGNED_SHAPES])
+def test_flat_threshold_kernel_matches_plain_version(cuda, shapes, offset):
+    """One launch over the whole update against the per-leaf plain version
+    laid out flat, exactly (masked vector and keep); ``offset`` 1 starts
+    the planes off a 16-byte boundary (the scalar loop).  A dead kernel
+    (norm 0) is dropped at the median and kept at a threshold of 0."""
+    n = sum(int(np.prod(s)) for s in shapes)
+    g = torch.Generator(device=cuda).manual_seed(n + offset)
+    vec = (torch.randn(n + offset, generator=g, device=cuda) * 1e-2)[offset:]
+    K, C = ref.leaf_kernel_shape(shapes[-1])
+    vec[n - K * C:].view(C, K)[:, 0] = 0.0
+    norms = sparsify.kernel_l2_flat(vec, shapes)
+    for thr in (float(norms.median()), 0.0):
+        before = sparsify.launches["threshold_apply"]
+        got, keep = sparsify.threshold_apply_flat(vec, shapes, norms, thr)
+        assert sparsify.launches["threshold_apply"] == before + 1
+        want, want_keep = ref.threshold_apply_flat_ref(vec, shapes, norms,
+                                                       thr)
+        assert torch.equal(got, want) and torch.equal(keep, want_keep)
+
+
+@pytest.mark.parametrize("layout", ["kernel_fastest", "row_major"])
+def test_threshold_kernel_takes_a_single_view(cuda, layout):
+    """The single-view call, a one-segment table through the same C entry:
+    exact, laid out like its view."""
+    g = torch.Generator(device=cuda).manual_seed(4)
+    x = torch.randn(77, 300, generator=g, device=cuda)
+    if layout == "kernel_fastest":
+        x = x.t()
+    norms = sparsify.kernel_l2(x)
+    got, keep = sparsify.threshold_apply(x, norms, float(norms.median()))
+    want, want_keep = ref.threshold_mask_ref(x, norms, float(norms.median()))
+    assert got.stride() == x.stride()
+    assert torch.equal(got, want) and torch.equal(keep, want_keep)
+
+
+@pytest.mark.parametrize("n,offset", [
+    (sum(int(np.prod(s)) for s in FMNIST_SHAPES), 0),
+    *((k, 0) for k in range(1, 8)),
+    (sum(int(np.prod(s)) for s in FMNIST_SHAPES), 1),
+])
+def test_quantize_kernel_exact_at_every_length_and_alignment(cuda, n,
+                                                             offset):
+    """#4's float4 loop with its N % 4 tail, and the scalar loop for
+    planes that start ``offset`` elements off their buffers: levels
+    exact, values rtol 1e-6, one launch."""
+    g = torch.Generator(device=cuda).manual_seed(n + offset)
+    v = (torch.randn(n + offset, generator=g, device=cuda) * 1e-2)[offset:]
+    mask = (torch.rand(n + offset, generator=g, device=cuda)
+            > 0.3).float()[offset:]
+    rand = torch.rand(n + offset, generator=g, device=cuda)[offset:]
+    av = (v.abs() * mask)
+    u_min = float(av[av > 0].min()) if bool((av > 0).any()) else 0.0
+    for levels in (2.0, 64.0, 37.25):
+        args = (v, mask, u_min, float(av.max()), levels, rand)
+        before = quantize.launches["prob_quantize"]
+        q, lvl = quantize.prob_quantize(*args)
+        assert quantize.launches["prob_quantize"] == before + 1
         qr, lr = ref.quantize_ref(*args)
         assert torch.equal(lvl, lr)
         torch.testing.assert_close(q, qr, rtol=1e-6, atol=0)
@@ -235,8 +298,9 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError):
         sparsify.threshold_apply(x[:, ::2], torch.ones(4, device=cuda), 0.5)
     with pytest.raises(ValueError):
-        sparsify.threshold_apply(x, torch.ones(4, device=cuda), 0.5,
-                                 out=torch.empty(8, 4, device=cuda).t())
+        sparsify.threshold_apply(x, torch.ones(4, device=cuda).cpu(), 0.5)
+    with pytest.raises(TypeError):
+        sparsify.threshold_apply(x.double(), torch.ones(4, device=cuda), 0.5)
     with pytest.raises(TypeError):
         quantize.prob_quantize(v.double(), v, 0.0, 1.0, 2.0, v)
     with pytest.raises(ValueError):
@@ -253,6 +317,15 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         with pytest.raises(err):
             fused_compress.fused_sparsify_quantize_flat(
                 vec, [(8, 8)], norms, 0.5, 0.0, 1.0, 2.0, rand)
+    for vec, norms, err in (
+            (v.cpu(), nk.cpu(), ValueError),             # CPU planes
+            (v, nk.cpu(), ValueError),                   # norms off the card
+            (v.double(), nk, TypeError),
+            (v[:60], nk, ValueError),                    # a short plane
+            (torch.ones(128, device=cuda)[::2], nk, ValueError),
+            (v, nk[:7], ValueError)):                    # short norms
+        with pytest.raises(err):
+            sparsify.threshold_apply_flat(vec, [(8, 8)], norms, 0.5)
     for call in (aio_agg.aio_absorb, aio_agg.aio_merge):
         extra = (0.5,) if call is aio_agg.aio_absorb else ()
         with pytest.raises(ValueError):
@@ -265,8 +338,9 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
 
 def test_cuda_round_goes_through_every_kernel(cuda):
     """A flat round with the planner launches #1-#6, the norms once per
-    compressed update and planner probe and the fused step once per
-    compressed update; a hierarchical one #7 and #8 and not #6."""
+    compressed update and planner probe, the fused step once per
+    compressed update, #3 once per planner rho (8) and #4 once per
+    (rho, L) (80); a hierarchical one #7 and #8 and not #6."""
     from repro_torch.sysmodel.population import FleetConfig
     from repro_torch.topology import TopologyConfig
     from repro_torch.train.fl_loop import FLRunConfig, run_fl
@@ -279,6 +353,8 @@ def test_cuda_round_goes_through_every_kernel(cuda):
     updates = sum(r.n_clients + r.n_dropped for r in hist.rounds)
     assert counts["kernel_l2"] == counts["kernel_sumsq"] == updates + 1
     assert counts["fused_sparsify_quantize"] == updates
+    assert counts["threshold_apply"] == 8
+    assert counts["prob_quantize"] == 80
     assert np.isfinite(hist.rounds[-1].test_loss)
     ops.reset_launch_counts()
     hist = run_fl(cfg, FleetConfig(n_devices=4, topology=TopologyConfig(

@@ -321,16 +321,59 @@ def test_threshold_apply(K, C):
     for xx, mm in ((xr, mr), (xp, mp)):
         np.testing.assert_array_equal(xo.numpy(), np.asarray(xx))
         np.testing.assert_array_equal(mo.numpy(), np.asarray(mm))
-    # the op on the main path's transposed leaf view, into a slot of a
-    # flat buffer: the same values, written in place
-    flat = torch.zeros(K * C + 5)
-    out = flat[5:].view(C, K).t()
+    # the op on the main path's transposed leaf view: the same values, laid
+    # out like the view
     xt = _t(np.ascontiguousarray(x.T)).t()
-    got, keep = ops.threshold_apply_op(xt, _t(norms), float(thr), out=out)
-    assert got.data_ptr() == out.data_ptr()
-    np.testing.assert_array_equal(out.numpy(), xo.numpy())
+    got, keep = ops.threshold_apply_op(xt, _t(norms), float(thr))
+    np.testing.assert_array_equal(got.numpy(), xo.numpy())
     np.testing.assert_array_equal(keep.numpy(), mo.numpy())
-    assert not flat[:5].any()
+    # the planner's flat call on a one-leaf update whose C-order (C, K)
+    # buffer is that view: the masked view laid out flat
+    got, keep = ops.threshold_apply_flat_op(xt.t().reshape(-1), [(C, K)],
+                                            _t(norms), float(thr))
+    np.testing.assert_array_equal(got.numpy(), xo.numpy().T.reshape(-1))
+    np.testing.assert_array_equal(keep.numpy(), mo.numpy())
+
+
+@pytest.mark.parametrize("thr_at", ["median", "zero"])
+@pytest.mark.parametrize("shapes,dead", [
+    ([(6,), (3, 3, 2, 6), (17,), (24, 10)], False),
+    ([(5, 5, 1, 32), (32,), (40, 33), (1,)], False),
+    ([(7,), (300, 70), (70,)], False),
+    ([(6,), (3, 3, 2, 6), (17,), (24, 10)], True),
+])
+def test_flat_threshold_matches_the_pallas_kernel_per_leaf(shapes, dead,
+                                                           thr_at):
+    """The planner's flat threshold call (CPU dispatch) and its plain
+    version against the JAX package's Pallas ``threshold_apply``
+    (interpret mode) run on each leaf's ``(K, ksize)`` view, leaf by leaf,
+    exactly: masked values and keep flags.  ``dead`` zeroes one kernel of
+    the last leaf (norm 0: dropped at the median, kept at a threshold of
+    0, where it stays 0)."""
+    n = sum(int(np.prod(s)) for s in shapes)
+    vec = _rng(n + 4).standard_normal(n).astype(np.float32)
+    if dead:
+        K, C = compression.leaf_kernel_shape(shapes[-1])
+        vec[n - K * C:].reshape(C, K)[:, 3] = 0.0
+    norms = ref.kernel_l2_flat_ref(_t(vec), shapes).numpy()
+    assert (norms == 0).any() == dead
+    thr = np.float32(np.median(norms) if thr_at == "median" else 0.0)
+    want_x, want_keep, off, k0 = [], [], 0, 0
+    for s in shapes:
+        K, C = compression.leaf_kernel_shape(s)
+        xm, keep = jax_sparsify.threshold_apply(
+            jnp.asarray(vec[off:off + K * C].reshape(C, K).T),
+            jnp.asarray(norms[k0:k0 + K]), jnp.float32(thr), interpret=True)
+        want_x.append(np.asarray(xm).T.reshape(-1))
+        want_keep.append(np.asarray(keep))
+        off, k0 = off + K * C, k0 + K
+    for fn in (ops.threshold_apply_flat_op, ref.threshold_apply_flat_ref):
+        got, keep = fn(_t(vec), shapes, _t(norms), float(thr))
+        assert got.shape == (n,) and keep.shape == (k0,)
+        assert keep.dtype == torch.float32
+        np.testing.assert_array_equal(got.numpy(), np.concatenate(want_x))
+        np.testing.assert_array_equal(keep.numpy(),
+                                      np.concatenate(want_keep))
 
 
 @pytest.mark.parametrize("N", [512, 5000])
@@ -460,9 +503,9 @@ def test_aio_absorb_and_merge_against_pallas_and_in_place(N):
 
 
 def test_planner_on_threshold_and_quantize_matches_reference():
-    """BetaPlanner.fit runs #3 once per (rho, leaf) and #4 once per
-    (rho, L); its map equals the reference's on a second probe (the
-    module test holds the first)."""
+    """BetaPlanner.fit runs #3 once per rho, over every leaf in one call,
+    and #4 once per (rho, L); its map equals the reference's on a second
+    probe (the module test holds the first)."""
     from repro.core import compression as jcomp
     rng = _rng(31)
     shapes = {"conv": (3, 3, 2, 6), "b": (6,), "dense": (24, 10)}
@@ -493,6 +536,7 @@ def test_cpu_route_launches_no_kernel():
                                         torch.ones(8), 0.5, 0.0, 1.0, 4.0,
                                         x.reshape(-1))
     ops.threshold_apply_op(x, torch.ones(4), 0.5)
+    ops.threshold_apply_flat_op(x.reshape(-1), [(4, 8)], torch.ones(8), 0.5)
     ops.prob_quantize_op(v, v, 0.0, 1.0, 4.0, v)
     ops.aio_aggregate_op(x, x, torch.ones(4))
     ops.aio_absorb_op(v.clone(), v.clone(), v, v, 0.5)
@@ -517,6 +561,8 @@ def test_operands_off_cpu_and_cuda_raise():
         x.reshape(-1)),
     lambda x: aio_agg.aio_aggregate(x, x, torch.ones(4)),
     lambda x: sparsify.threshold_apply(x, torch.ones(4), 0.5),
+    lambda x: sparsify.threshold_apply_flat(x.reshape(-1), [(4, 8)],
+                                            torch.ones(8), 0.5),
     lambda x: quantize.prob_quantize(x[0], x[0], 0.0, 1.0, 2.0, x[0]),
     lambda x: aio_agg.aio_absorb(x[0], x[0], x[0], x[0], 0.5),
     lambda x: aio_agg.aio_merge(x[0], x[0], x[0], x[0]),
