@@ -13,9 +13,9 @@ _ARCH_MODULES = {
 
 def get_config(arch: str) -> ArchConfig:
     if arch not in _ARCH_MODULES:
-        raise KeyError(f"unknown arch {arch!r}; the port knows "
-                       f"{sorted(_ARCH_MODULES)} (the LM families arrive "
-                       f"with the pod path, ROADMAP queue 1)")
+        raise NotImplementedError(
+            f"arch {arch!r}: the port runs {sorted(_ARCH_MODULES)}; the LM "
+            f"families arrive with ROADMAP queue 1, 'Pod path'")
     mod = importlib.import_module(
         f"repro_torch.configs.{_ARCH_MODULES[arch]}")
     return mod.CONFIG

@@ -39,18 +39,32 @@ PyTree = Any
 F32 = torch.float32
 
 
+def sqrt_f32(x: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded float32 square root, as the reference's: the
+    CPU build's float32 ``torch.sqrt`` is one ulp off for about one input
+    in five.  Taken in float64, whose rounding to float32 is exact for a
+    square root."""
+    return torch.sqrt(x.double()).to(F32)
+
+
 def divergence_factor(alpha, beta) -> torch.Tensor:
     """(1 - alpha(2-alpha)sqrt(beta)) — the Lemma-1 contraction factor."""
     alpha = torch.as_tensor(alpha, dtype=F32)
     beta = torch.as_tensor(beta, dtype=F32)
-    return 1.0 - alpha * (2.0 - alpha) * torch.sqrt(beta)
+    return 1.0 - alpha * (2.0 - alpha) * sqrt_f32(beta)
 
 
 def optimal_coefficients(alphas, betas) -> torch.Tensor:
-    """Theorem 1 (Eq. 13): p* minimizing the global divergence bound."""
+    """Theorem 1 (Eq. 13): p* minimizing the global divergence bound.
+
+    The normalizing sum runs left to right in float32, the order of the
+    reference's reduction for cohorts of up to 32 updates."""
     d = divergence_factor(alphas, betas)
     inv = 1.0 / torch.clamp(d.square(), min=1e-12)
-    return inv / inv.sum()
+    total = inv[0]
+    for x in inv[1:]:
+        total = total + x
+    return inv / total
 
 
 def fedavg_coefficients(data_sizes) -> torch.Tensor:

@@ -41,6 +41,7 @@ from typing import Any, NamedTuple, Optional
 import numpy as np
 import torch
 
+from repro_torch.core.aggregation import sqrt_f32
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import leaf_kernel_shape
 from repro_torch.kernels.ref import leaf_views as _leaf_views
@@ -219,14 +220,14 @@ class CompressedUpdate(NamedTuple):
 
 def analytic_rho(beta) -> float:
     """Appendix A: sparsity rho = 1 - sqrt(beta), in float32."""
-    return float(1.0 - torch.sqrt(torch.as_tensor(beta, dtype=F32)))
+    return float(1.0 - sqrt_f32(torch.as_tensor(beta, dtype=F32)))
 
 
 def analytic_levels(beta, bit_width: int = 32, cap: int = MAX_LEVELS
                     ) -> float:
     """Appendix A: L = 2**(bit_width*sqrt(beta)) in float32, clipped to
     [2, cap]; not rounded to an integer, as in the reference."""
-    L = torch.exp2(bit_width * torch.sqrt(torch.as_tensor(beta, dtype=F32)))
+    L = torch.exp2(bit_width * sqrt_f32(torch.as_tensor(beta, dtype=F32)))
     return float(torch.clamp(L, 2.0, float(cap)))
 
 

@@ -1,9 +1,14 @@
-"""FL training entry point: the paper's synchronous AnycostFL round, on a
-flat fleet or a client -> edge -> cloud hierarchy.
+"""FL training entry point: the paper's synchronous round for AnycostFL
+and the Table I baselines, on a flat fleet or a client -> edge -> cloud
+hierarchy.
 
   PYTHONPATH=src python -m repro_torch.launch.train --mode fl \\
       --method anycostfl --rounds 40 --devices 12 [--device cpu] \\
+      [--arch vgg9-cifar] [--non-iid] \\
       [--topology hier --cells 4 --backhaul-codec int8 --backhaul-ef]
+
+``--method`` is one of ``train/fl_loop.METHODS``; ``--arch`` names one of
+the paper's two models (an LM family raises ``NotImplementedError``).
 
 Runs on the CUDA card unless ``--device cpu`` is given, and prints the
 reference launcher's final JSON fields.
@@ -16,7 +21,7 @@ import json
 from repro_torch.orchestrator.policies import OrchestratorConfig
 from repro_torch.sysmodel.population import FleetConfig
 from repro_torch.topology import BackhaulConfig, TopologyConfig
-from repro_torch.train.fl_loop import FLRunConfig, run_fl
+from repro_torch.train.fl_loop import METHODS, FLRunConfig, run_fl
 
 
 def _topology_config(args):
@@ -42,9 +47,14 @@ def _topology_config(args):
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--mode", default="fl", choices=["fl"])
-    ap.add_argument("--method", default="anycostfl", choices=["anycostfl"])
+    ap.add_argument("--arch", default="fmnist-cnn",
+                    help="fmnist-cnn or vgg9-cifar (the LM families "
+                         "arrive with the pod path)")
+    ap.add_argument("--method", default="anycostfl", choices=METHODS)
     ap.add_argument("--rounds", type=int, default=30)
     ap.add_argument("--devices", type=int, default=12)
+    ap.add_argument("--non-iid", action="store_true",
+                    help="Dirichlet(0.5) label partition instead of iid")
     ap.add_argument("--n-train", type=int, default=1536)
     ap.add_argument("--n-test", type=int, default=384)
     ap.add_argument("--eval-every", type=int, default=5)
@@ -90,8 +100,9 @@ def main(argv=None):
                     help="hierarchical aggregation route: the streaming "
                          "edge fold, or the batched (I, N) Eq. 5")
     args = ap.parse_args(argv)
-    run_cfg = FLRunConfig(method=args.method, rounds=args.rounds,
-                          seed=args.seed, n_train=args.n_train,
+    run_cfg = FLRunConfig(arch=args.arch, method=args.method,
+                          rounds=args.rounds, seed=args.seed,
+                          iid=not args.non_iid, n_train=args.n_train,
                           n_test=args.n_test, eval_every=args.eval_every)
     fleet = FleetConfig(n_devices=args.devices,
                         topology=_topology_config(args))
@@ -99,7 +110,8 @@ def main(argv=None):
                   device=args.device, verbose=True)
     tta = {f"acc>={th:.2f}": hist.time_to_acc(th)
            for th in (0.3, 0.5, 0.7, 0.9) if hist.best_acc >= th}
-    print(json.dumps({"method": args.method, "policy": "sync",
+    print(json.dumps({"arch": args.arch, "method": args.method,
+                      "policy": "sync",
                       "availability": "always", "selection": "uniform",
                       "topology": args.topology,
                       "cells": args.cells if args.topology == "hier" else 1,

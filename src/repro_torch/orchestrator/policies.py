@@ -5,17 +5,19 @@ edge) barriers on every dispatched client and the round lasts
 ``max_i (T_cmp_i + T_com_i)``.  ``semisync`` and ``fedbuff`` are named so
 that a config asking for them fails loudly; they arrive with ROADMAP
 queue 1's 'Semisync and fedbuff' item.  The flat round normalizes its
-coefficients (:func:`base_weights`); the hierarchical edge fold absorbs
-each update with its :func:`unnormalized_weight`.
+coefficients (:func:`base_weights`, by method and ``use_aio``); the
+hierarchical edge fold absorbs each update with its
+:func:`unnormalized_weight`.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 
 from repro_torch.core import aggregation
+from repro_torch.train.baselines import fedhq_weights
 
 POLICIES = ("sync", "semisync", "fedbuff")
 # aggregation route of hierarchical round merges
@@ -49,23 +51,37 @@ class OrchestratorConfig:
                 "ported; ROADMAP queue 1, 'Pod path', brings it")
 
 
-def base_weights(updates: Sequence) -> torch.Tensor:
+def base_weights(method: str, use_aio: bool, updates: Sequence,
+                 fedhq_L: Sequence[int]) -> torch.Tensor:
     """The synchronous loop's aggregation coefficients: AnycostFL's
-    Theorem-1 weights (the baselines' FedAvg weights arrive with ROADMAP
-    queue 1's 'Baselines' item)."""
-    return aggregation.optimal_coefficients(
-        [u.alpha for u in updates],
-        [max(u.beta_target, 1e-6) for u in updates])
+    Theorem-1 weights, FedHQ's noise-bound weights (``fedhq_L``: each
+    update's level count, read for FedHQ only), else FedAvg's
+    sample-count weights (the other baselines and the w/o-AIO
+    ablation)."""
+    if method == "anycostfl" and use_aio:
+        return aggregation.optimal_coefficients(
+            [u.alpha for u in updates],
+            [max(u.beta_target, 1e-6) for u in updates])
+    if method == "fedhq":
+        return fedhq_weights(list(fedhq_L))
+    return aggregation.fedavg_coefficients([u.n_samples for u in updates])
 
 
-def unnormalized_weight(update) -> float:
-    """One update's Theorem-1 coefficient without the cohort sum, as the
-    streaming AIO monoid needs it: ``1 / max(d^2, 1e-12)`` with d the
+def unnormalized_weight(method: str, use_aio: bool, update,
+                        fedhq_level: Optional[int] = None) -> float:
+    """One update's :func:`base_weights` coefficient without the cohort
+    sum, as the streaming AIO monoid needs it (Eq. 5's ratio cancels the
+    normalization).  Theorem 1: ``1 / max(d^2, 1e-12)`` with d the
     float32 divergence factor, the rest in Python floats as in the
     reference."""
-    d = float(aggregation.divergence_factor(update.alpha,
-                                            max(update.beta_target, 1e-6)))
-    return 1.0 / max(d * d, 1e-12)
+    if method == "anycostfl" and use_aio:
+        d = float(aggregation.divergence_factor(
+            update.alpha, max(update.beta_target, 1e-6)))
+        return 1.0 / max(d * d, 1e-12)
+    if method == "fedhq":
+        L = int(fedhq_level)
+        return 1.0 / (1.0 + 1.0 / (4.0 * L * L))
+    return float(update.n_samples)
 
 
 def apply_scales(weights: torch.Tensor,

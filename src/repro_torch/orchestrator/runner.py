@@ -1,8 +1,15 @@
 """FL runner over the discrete-event engine: the synchronous round on a
-static fleet, flat or hierarchical.
+static fleet, flat or hierarchical, for every method of
+``train/fl_loop.METHODS``.
 
 ``train/fl_loop.run_fl`` builds a :class:`Simulation` and runs
-:func:`_run_round_based` with the sync policy.
+:func:`_run_round_based` with the sync policy.  ``anycostfl`` solves
+Problem (P4) per device and compresses with FGC; ``use_ems``,
+``use_fgc`` and ``use_aio`` switch off one component each (Fig. 5a).
+The baselines (``stc``, ``qsgd``, ``uveqfed``, ``heterofl``, ``fedhq``,
+``fedavg``) take their strategy and compressor from
+``train/baselines.BaselinePolicy`` and never sit a round out; the
+weights follow the method (``policies.base_weights``).
 
 **Hierarchical topologies** (``FleetConfig.topology`` of kind ``hier``):
 devices are partitioned into cells, each with its own wireless
@@ -54,10 +61,12 @@ from repro_torch.topology.codec import (decode_partial, encode_partial,
                                         payload_bits)
 from repro_torch.topology.edge import (CodecErrorFeedback, EdgeAggregator,
                                        cloud_merge, finalize_apply)
-from repro_torch.train.fl_loop import (FLRunConfig, History,
+from repro_torch.train.baselines import BaselinePolicy
+from repro_torch.train.fl_loop import (METHODS, FLRunConfig, History,
                                        _device_batches, _make_eval,
                                        flops_per_sample)
-from repro_torch.utils.pytree import tree_leaves, tree_size, tree_sub
+from repro_torch.utils.pytree import (tree_leaves, tree_map, tree_size,
+                                      tree_sub)
 
 PyTree = Any
 #: n -> (n,) float32 uniforms in [0, 1) on the run's device
@@ -111,6 +120,7 @@ class PendingUpdate:
     completes_at: float = 0.0
     # filled by Simulation.materialize
     update: Optional[ClientUpdate] = None
+    fedhq_level: Optional[int] = None
     t_cmp: float = 0.0
     t_com: float = 0.0
     energy: float = 0.0
@@ -128,10 +138,9 @@ class Simulation:
     def __init__(self, run_cfg: FLRunConfig,
                  fleet_cfg: Optional[FleetConfig] = None, *,
                  device="cuda", uniforms: Optional[UniformSource] = None):
-        if run_cfg.method != "anycostfl":
-            raise NotImplementedError(
-                f"method {run_cfg.method!r}: the baselines arrive with "
-                f"ROADMAP queue 1 'Baselines'")
+        if run_cfg.method not in METHODS:
+            raise ValueError(f"unknown method {run_cfg.method!r}; expected "
+                             f"one of {METHODS}")
         self.device = resolve_device(device)
         self.run_cfg = run_cfg
         # setup order mirrors the reference: the numpy stream position
@@ -164,6 +173,12 @@ class Simulation:
                                     batch_size=run_cfg.batch_size,
                                     alpha_buckets=run_cfg.alpha_buckets)
         self.server = AnycostServer(self.model, self.spec)
+        self.baseline = None
+        if run_cfg.method != "anycostfl":
+            self.baseline = BaselinePolicy(run_cfg.method)
+        # HeteroFL's width tier per device: compute-capability terciles
+        self.tiers = np.argsort(np.argsort(-self.fleet.eps_hw)) * 3 \
+            // fleet_cfg.n_devices
         self.planner = None
         self.ev = _make_eval(self.model, test_x, test_y)
         self.uniforms = uniforms if uniforms is not None \
@@ -185,6 +200,8 @@ class Simulation:
     # ------------------------------------------------------------ round body
 
     def sort_params(self, params: PyTree) -> PyTree:
+        if not self.run_cfg.use_ems:
+            return shrinking._deepcopy_dicts(params)
         if self.codec_ef is None:
             return self.server.sort(params)
         # EF residuals live in the sorted coordinate frame: keep the
@@ -196,9 +213,13 @@ class Simulation:
         return sorted_p
 
     def ensure_planner(self, sorted_params: PyTree) -> None:
-        """Fit the server-side beta planner on a probe update (§III-C.3)."""
+        """Fit the server-side beta planner on a probe update (§III-C.3):
+        AnycostFL only, and with ``use_fgc=False`` too, as in the
+        reference, so the numpy stream and the uniform source advance
+        alike."""
         rc = self.run_cfg
-        if self.planner is None and rc.use_planner:
+        if self.planner is None and rc.method == "anycostfl" \
+                and rc.use_planner:
             draw = self.uniforms.planner_stream()
             probe_idx = self.rng.permutation(rc.n_train)[:16]
             probe_batches = {
@@ -215,12 +236,22 @@ class Simulation:
                 ) -> Optional[PendingUpdate]:
         """Strategy + minibatch draw for device i (consumes the streams in
         the reference's order). Returns None when no (alpha, beta, f)
-        satisfies the budgets (the device sits this round out)."""
+        satisfies the budgets (the device sits this round out); a
+        baseline always runs, at its realized cost."""
         rc = self.run_cfg
-        strat = schedule.solve(env)
-        if not strat.feasible:
-            return None
-        alpha = bucket_alpha(strat.alpha, rc.alpha_buckets)
+        if self.baseline is None:
+            strat = schedule.solve(env)
+            if not strat.feasible:
+                return None
+            if not rc.use_ems:
+                strat = dataclasses.replace(strat, alpha=1.0)
+            if not rc.use_fgc:
+                strat = dataclasses.replace(strat, beta=1.0)
+            alpha = bucket_alpha(strat.alpha, rc.alpha_buckets)
+        else:
+            strat = self.baseline.strategy(env, tier=int(self.tiers[i]))
+            alpha = bucket_alpha(strat.alpha, rc.alpha_buckets) \
+                if rc.method == "heterofl" else 1.0
         draw = self.uniforms.device_stream()
         batches = _device_batches(self.rng, self.train.x, self.train.y,
                                   self.parts[i], rc.batch_size, rc.tau,
@@ -238,11 +269,35 @@ class Simulation:
                     sorted_params: PyTree) -> PendingUpdate:
         """Decode the trained sub-model into a ClientUpdate + realized costs
         (Eq. 6-9), with the reference's float-op order."""
+        rc = self.run_cfg
         env, strat = p.env, p.strat
-        upd = self.client.finish_round(
-            sorted_params, p.alpha, trained, strat, p.n_steps,
-            p.draw(self._n_params), planner=self.planner,
-            w_per_sample=self.W)
+        if self.baseline is None:
+            upd = self.client.finish_round(
+                sorted_params, p.alpha, trained, strat, p.n_steps,
+                p.draw(self._n_params),
+                planner=self.planner if rc.use_fgc else None,
+                w_per_sample=self.W)
+            if not rc.use_fgc:
+                # transmit the raw (width-masked) update
+                upd = dataclasses.replace(
+                    upd, bits=32.0 * strat.alpha * self._n_params,
+                    beta_realized=1.0)
+        else:
+            sub = shrinking.shrink(sorted_params, p.alpha, self.spec)
+            full_update, wmask = shrinking.expand_update(
+                tree_sub(sub, trained), sorted_params, p.alpha, self.spec)
+            comp = self.baseline.compress(full_update, env, p.draw)
+            mask = tree_map(lambda a, b: a * b, wmask, comp.mask)
+            vals = tree_map(lambda v, m: v * m, comp.values, mask)
+            n_samp = p.n_steps * rc.batch_size
+            bits = float(comp.bits)
+            upd = ClientUpdate(
+                values=vals, mask=mask, alpha=p.alpha,
+                beta_target=strat.beta, beta_realized=bits / self.S_bits,
+                bits=bits, n_samples=n_samp,
+                flops=p.alpha * self.W * n_samp)
+            if rc.method == "fedhq":
+                p.fedhq_level = self.baseline.fedhq_levels(env)
         p.update = upd
         # realized costs (Eq. 6-9) with the *realized* wire size
         t_com = upd.bits / env.rate
@@ -307,7 +362,7 @@ def _hier_round_merge(sim: Simulation, policy: SyncPolicy,
     Returns ``(accepted, new_params or None, lat, ship_energy,
     backhaul_bits, n_cells_reporting, lat_parts)``; ``lat_parts`` splits
     ``lat`` into (train, uplink, backhaul) along the critical cell."""
-    topo, fleet = sim.topo, sim.fleet
+    topo, fleet, rc = sim.topo, sim.fleet, sim.run_cfg
     cell_dl = topo.cell_deadline_s
     route = sim.agg_route
     accepted_all, parts, ships, route_pairs = [], [], [], []
@@ -332,7 +387,8 @@ def _hier_round_merge(sim: Simulation, policy: SyncPolicy,
             else:
                 lat_k = min(lat_k, cell_dl)
         if acc_k:
-            w_uns = [unnormalized_weight(p.update) * s
+            w_uns = [unnormalized_weight(rc.method, rc.use_aio, p.update,
+                                         p.fedhq_level) * s
                      for p, s in zip(acc_k, scales_k)]
             if route == "streaming":
                 edge = EdgeAggregator(k, sorted_params)
@@ -445,8 +501,9 @@ def _run_round_based(sim: Simulation, policy: SyncPolicy,
             lat_parts = (lt, lat - lt, 0.0)
             t_wall += lat
             if accepted:
-                w = apply_scales(base_weights([p.update for p in accepted]),
-                                 scales)
+                w = apply_scales(base_weights(
+                    rc.method, rc.use_aio, [p.update for p in accepted],
+                    [p.fedhq_level for p in accepted]), scales)
                 params = sim.aggregate(sorted_params, accepted, w)
 
         log = hist.log_round(

@@ -1,11 +1,15 @@
 """Multi-round federated training loop (paper §V experiments).
 
-Runs AnycostFL over the simulated heterogeneous fleet with real numerics
-on synthetic class-conditional data.  Tracks the Table-I columns: rounds,
-energy (J), latency (s), compute (FLOPs), communication (bits), test
-accuracy.  The round loop itself lives in ``orchestrator/runner.py``;
-this module keeps the public entry point (``run_fl``, the synchronous
-policy) and the config/log dataclasses and helpers shared with it.
+Runs AnycostFL and the paper's comparison methods (:data:`METHODS`: STC,
+QSGD, UVeQFed, HeteroFL, FedHQ and FedAvg, ``train/baselines.py``) over
+the simulated heterogeneous fleet with real numerics on synthetic
+class-conditional data; ``use_ems``/``use_fgc``/``use_aio`` switch off
+one AnycostFL component each (the Fig. 5a ablations).  Tracks the
+Table-I columns: rounds, energy (J), latency (s), compute (FLOPs),
+communication (bits), test accuracy.  The round loop itself lives in
+``orchestrator/runner.py``; this module keeps the public entry point
+(``run_fl``, the synchronous policy) and the config/log dataclasses and
+helpers shared with it.
 """
 from __future__ import annotations
 
@@ -22,6 +26,9 @@ from repro_torch.sysmodel.population import FleetConfig
 
 PyTree = Any
 
+METHODS = ("anycostfl", "stc", "qsgd", "uveqfed", "heterofl", "fedhq",
+           "fedavg")
+
 
 @dataclasses.dataclass
 class FLRunConfig:
@@ -37,6 +44,10 @@ class FLRunConfig:
     n_train: int = 2048
     n_test: int = 512
     eval_every: int = 5
+    # ablations (Fig. 5a)
+    use_ems: bool = True
+    use_fgc: bool = True
+    use_aio: bool = True
     alpha_buckets: tuple = DEFAULT_ALPHA_BUCKETS
     use_planner: bool = True
 

@@ -364,3 +364,100 @@ def test_cuda_round_goes_through_every_kernel(cuda):
     assert counts["aio_merge"] == hist.rounds[0].n_cells_reporting - 1 == 1
     assert counts["aio_aggregate"] == 0
     assert np.isfinite(hist.rounds[-1].test_loss)
+
+
+def _fmnist_update(device, seed):
+    """An update of the fmnist-cnn leaves (sorted-key order) and one
+    uniform per element, from numpy, on ``device``."""
+    n = sum(int(np.prod(s)) for s in FMNIST_SHAPES)
+    rng = np.random.default_rng(seed)
+    vec = torch.tensor(rng.standard_normal(n).astype(np.float32) * 1e-2,
+                       device=device)
+    rand = torch.tensor(rng.uniform(size=n).astype(np.float32),
+                        device=device)
+    tree, off = {}, 0
+    for i, s in enumerate(FMNIST_SHAPES):
+        k = int(np.prod(s))
+        tree[f"l{i:02d}"] = vec[off:off + k].view(s)
+        off += k
+    return tree, rand
+
+
+@pytest.mark.parametrize("method,n_levels", [
+    ("qsgd", 16), ("fedhq", 2), ("fedhq", 181), ("fedhq", 65536)])
+def test_quantizing_baselines_on_the_card_match_the_cpu_route(
+        cuda, method, n_levels):
+    """QSGD (top-k mask at 1/16) and FedHQ (every element, up to 65536
+    levels) quantize with one prob_quantize launch on the card: the same
+    mask and level indices as the CPU route, values rtol 1e-6, bits rtol
+    1e-5 (the entropy histogram sums in another order)."""
+    from repro_torch.train import baselines
+    out = {}
+    for device in ("cpu", cuda):
+        tree, rand = _fmnist_update(device, seed=n_levels)
+        vec = torch.cat([t.reshape(-1) for t in tree.values()])
+        mask = baselines._topk_mask(vec, 1.0 / 16.0) if method == "qsgd" \
+            else torch.ones_like(vec)
+        before = quantize.launches["prob_quantize"]
+        q = baselines._quantize(vec, mask, n_levels, rand)
+        launched = quantize.launches["prob_quantize"] - before
+        comp = baselines.qsgd_compress(tree, 1.0 / 16.0, n_levels, rand) \
+            if method == "qsgd" else baselines.fedhq_compress(tree, n_levels,
+                                                              rand)
+        out[str(device)] = (launched, mask.cpu(), q.levels.cpu(),
+                            q.values.cpu(), comp)
+    (n_cpu, m_cpu, l_cpu, v_cpu, c_cpu), (n_gpu, m_gpu, l_gpu, v_gpu,
+                                          c_gpu) = out["cpu"], out["cuda"]
+    assert (n_cpu, n_gpu) == (0, 1)
+    assert torch.equal(m_gpu, m_cpu)
+    assert torch.equal(l_gpu, l_cpu)
+    assert int(l_gpu.max()) <= n_levels
+    torch.testing.assert_close(v_gpu, v_cpu, rtol=1e-6, atol=0)
+    for a, b in zip(c_gpu.values.values(), c_cpu.values.values()):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-6, atol=0)
+    np.testing.assert_allclose(float(c_gpu.bits), float(c_cpu.bits),
+                               rtol=1e-5)
+
+
+def test_uveqfed_on_the_card_matches_the_cpu_route(cuda):
+    """UVeQFed's dithered quantizer in plain PyTorch: the same mask, level
+    indices and bits on the card as on the CPU, values rtol 1e-6."""
+    from repro_torch.train import baselines
+    comps, levels = [], []
+    for device in ("cpu", cuda):
+        tree, rand = _fmnist_update(device, seed=4)
+        comps.append(baselines.uveqfed_compress(tree, 1.0 / 16.0, 16, rand))
+        vec = torch.cat([t.reshape(-1) for t in tree.values()])
+        levels.append(baselines.dither_quantize(
+            vec, baselines._topk_mask(vec, 1.0 / 16.0), 16, rand)[1].cpu())
+    assert torch.equal(levels[1], levels[0])
+    for a, b in zip(comps[1].mask.values(), comps[0].mask.values()):
+        assert torch.equal(a.cpu(), b)
+    for a, b in zip(comps[1].values.values(), comps[0].values.values()):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-6, atol=0)
+    np.testing.assert_allclose(float(comps[1].bits), float(comps[0].bits),
+                               rtol=1e-5)
+
+
+@pytest.mark.parametrize("method", ["stc", "qsgd", "uveqfed", "heterofl",
+                                    "fedhq", "fedavg"])
+def test_flat_baseline_round_launches_quantize_and_aggregate(cuda, method):
+    """A flat baseline round: #6 once per round, #4 once per QSGD or FedHQ
+    update, and no planner or FGC kernel."""
+    from repro_torch.sysmodel.population import FleetConfig
+    from repro_torch.train.fl_loop import FLRunConfig, run_fl
+    ops.reset_launch_counts()
+    hist = run_fl(FLRunConfig(method=method, rounds=1, n_train=128,
+                              n_test=32, eval_every=1, seed=3),
+                  FleetConfig(n_devices=3), device="cuda")
+    counts = ops.launch_counts()
+    n_upd = hist.rounds[0].n_clients
+    assert n_upd == 3
+    assert counts["aio_aggregate"] == 1
+    assert counts["prob_quantize"] == (n_upd if method in ("qsgd", "fedhq")
+                                       else 0)
+    assert not any(counts[k] for k in ("kernel_sumsq", "kernel_l2",
+                                       "threshold_apply",
+                                       "fused_sparsify_quantize",
+                                       "aio_absorb", "aio_merge")), counts
+    assert np.isfinite(hist.rounds[-1].test_loss)

@@ -151,8 +151,9 @@ def test_sync_run_final_params_match(runs):
 
 def test_port_imports_neither_jax_nor_the_reference():
     """In a fresh interpreter where ``jax`` and ``repro`` cannot be
-    imported, every module of the port imports and one flat and one
-    hierarchical CPU round run."""
+    imported, every module of the port imports (the baselines, gains,
+    codec and energy modules among them) and a flat AnycostFL round, a
+    flat QSGD round and a hierarchical CPU round run."""
     code = textwrap.dedent("""
         import importlib, pkgutil, sys
         sys.modules["jax"] = None
@@ -160,6 +161,9 @@ def test_port_imports_neither_jax_nor_the_reference():
         import repro_torch
         for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
             importlib.import_module(m.name)
+        from repro_torch.core import codec, gains
+        from repro_torch.sysmodel import energy
+        from repro_torch.train import baselines
         import torch
         torch.set_num_threads(1)
         from repro_torch.sysmodel.population import FleetConfig
@@ -168,6 +172,10 @@ def test_port_imports_neither_jax_nor_the_reference():
                                   eval_every=1, seed=1, use_planner=False),
                       FleetConfig(n_devices=2), device="cpu")
         assert hist.rounds[0].test_loss == hist.rounds[0].test_loss
+        hist = run_fl(FLRunConfig(method="qsgd", rounds=1, n_train=64,
+                                  n_test=32, eval_every=1, seed=1),
+                      FleetConfig(n_devices=2), device="cpu")
+        assert hist.rounds[0].comm_bits > 0
         from repro_torch.topology import TopologyConfig
         hist = run_fl(FLRunConfig(rounds=1, n_train=64, n_test=32,
                                   eval_every=1, seed=1, use_planner=False),
@@ -212,9 +220,24 @@ def test_cli_runs_on_the_cpu_and_prints_the_final_json(capsys):
         launch_train.main(["--device", "cpu", "--async-mode", "fedbuff"])
 
 
+def test_cli_runs_a_baseline_on_non_iid_data(capsys):
+    launch_train.main(["--mode", "fl", "--method", "qsgd", "--non-iid",
+                       "--device", "cpu", "--rounds", "1", "--devices", "2",
+                       "--n-train", "64", "--n-test", "32",
+                       "--eval-every", "1", "--seed", "2"])
+    out = capsys.readouterr().out
+    blob = json.loads(out[out.index("{"):])
+    assert blob["arch"] == "fmnist-cnn" and blob["method"] == "qsgd"
+    assert blob["rows"]["n_clients"] == 2
+    # QSGD keeps 1/16 of the coordinates: far below the raw 32 bits each
+    assert 0 < blob["rows"]["mean_beta"] < 0.1
+    with pytest.raises(NotImplementedError, match="Pod path"):
+        launch_train.main(["--device", "cpu", "--arch", "qwen2-7b"])
+
+
 def test_outside_the_slice_raises():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         policies.OrchestratorConfig(policy="fedbuff")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         runner.Simulation(dataclasses.replace(
-            FLRunConfig(**TINY), method="fedavg"), device="cpu")
+            FLRunConfig(**TINY), arch="qwen2-7b"), device="cpu")
