@@ -245,10 +245,14 @@ def table1_phase(card: str, checks_at: dict, n_rho: int,
                       seed=0)
     flat = FleetConfig(n_devices=N_DEVICES)
 
+    def masked_range(v, m):
+        return tuple(float(x) for x in compression.masked_range(v, m))
+
     def drive(label, run_cfg, fleet, hier=False, must=None):
-        """One run_fl with the counters zeroed before and read after; the
-        counts must be the derived ones (and ``must``), every kernel the
-        path runs must have launched, the losses must be finite."""
+        """One run_fl with the counters zeroed before and read after; every
+        round must aggregate updates, so every kernel of the path
+        launches; the counts must be the derived ones (and ``must``), the
+        losses finite."""
         torch.cuda.synchronize()
         ops.reset_launch_counts()
         t0 = time.perf_counter()
@@ -256,6 +260,8 @@ def table1_phase(card: str, checks_at: dict, n_rho: int,
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         got = ops.launch_counts()
+        if not all(r.n_clients > 0 for r in hist.rounds):
+            fail(f"{label}: a round aggregated no update")
         want = expected_launches(run_cfg, hist, n_rho, n_levels, hier)
         want.update(must or {})
         if got != want:
@@ -316,9 +322,6 @@ def table1_phase(card: str, checks_at: dict, n_rho: int,
                                    atol=0)
         if not torch.equal(got, kernel(vec, shapes)):
             fail(f"{name} (vgg9-cifar): two flat calls on one input differ")
-    def masked_range(v, m):
-        return tuple(float(x) for x in compression.masked_range(v, m))
-
     norms = sparsify.kernel_l2_flat(vec, shapes)
     thr = float(compression.sparsify_threshold(norms, 0.8))
     keep_mask = compression._element_mask((norms >= thr).float(), shapes)
@@ -336,8 +339,6 @@ def table1_phase(card: str, checks_at: dict, n_rho: int,
     vhist = drive("vgg9-cifar anycostfl",
                   dataclasses.replace(cfg, arch="vgg9-cifar"),
                   FleetConfig(n_devices=N_DEVICES, **VGG9_BUDGETS))
-    if not all(r.n_clients > 0 for r in vhist.rounds):
-        fail("vgg9-cifar: a round had no feasible device")
     if [tuple(t.shape) for t in tree_leaves(vhist.final_params)] != shapes:
         fail("vgg9-cifar: final parameter shapes differ from the model's")
     # (d) #4 on the baselines' operands: a top-k mask at 1/16 (QSGD) and

@@ -41,9 +41,9 @@ F32 = torch.float32
 
 def sqrt_f32(x: torch.Tensor) -> torch.Tensor:
     """The correctly rounded float32 square root, as the reference's: the
-    CPU build's float32 ``torch.sqrt`` is one ulp off for about one input
-    in five.  Taken in float64, whose rounding to float32 is exact for a
-    square root."""
+    CPU build's float32 ``torch.sqrt`` is one ulp off for some inputs
+    (0.0667 among them).  Taken in float64, whose rounding to float32 is
+    exact for a square root."""
     return torch.sqrt(x.double()).to(F32)
 
 

@@ -4,19 +4,18 @@ port, against live reference runs.
 Each case runs the reference's TINY config (``tests/test_orchestrator.py``:
 2 rounds, n_train 128, 3 devices, fmnist-cnn at full width) in the JAX
 package and in the port, the port starting from the reference's initial
-parameters and replaying the reference's JAX key chain as its uniform
-source (as ``tests/test_torch_fl.py`` does), and starting each round
-from the reference's round-start (sorted) parameters (as
+parameters, replaying the reference's JAX key chain as its uniform
+source (as ``tests/test_torch_fl.py`` does) and starting each round from
+the reference's round-start (sorted) parameters (as
 ``tests/test_torch_topology.py`` does: a level index flipped in one
-round would otherwise move every later round's update): the six
-comparison methods
-(with the beta planner switched on, which the reference fits for
-AnycostFL only, so a port that fitted it would draw from the key chain
-out of step), the three ablations, one non-iid AnycostFL run, FedHQ on a
-4-device 2-cell hierarchy, and one round of AnycostFL on vgg9-cifar
-(2 devices, n_train 64; the fleet's budgets scaled with the model's
-per-sample work, 12.6 times fmnist-cnn's, since on the default budgets
-no device finds a feasible strategy).
+round would otherwise move every later round's update).  The cases: the
+six comparison methods (with the beta planner switched on, which the
+reference fits for AnycostFL only, so a port that fitted it would draw
+from the key chain out of step), the three ablations, one non-iid
+AnycostFL run, FedHQ on a 4-device 2-cell hierarchy, and one round of
+AnycostFL on vgg9-cifar (2 devices, n_train 64; the fleet's budgets
+scaled with the model's per-sample work, 12.6 times fmnist-cnn's, since
+on the default budgets no device finds a feasible strategy).
 
 Tolerances: strategies, widths, tiers, FedHQ level counts, data draws and
 the numpy stream exact; bits, costs and losses rtol 1e-5 (float32 sums
@@ -25,12 +24,12 @@ of two latencies, within 1e-5 of the latency); accuracy within 0.02;
 each round's new parameters within 1e-3 of the round's update norm (a
 level index can flip where a float32 sum lands on a grid boundary).  The
 top-k methods (STC, QSGD, UVeQFed) keep an element by its own magnitude,
-so the float32 difference of the local training (about 3e-6 of the
-update) can also swap an element at the top-k boundary, which moves an
-aggregated coordinate covered by one device by a whole kept value: for
-them the 1e-3 holds outside the ``TOPK_SWAPS`` most distant coordinates
-of each round.  The compressors themselves agree exactly on the same
-inputs (``tests/test_torch_baselines.py``).
+so the float32 difference of the local training can also swap an
+element at the top-k boundary, which moves an aggregated coordinate
+covered by one device by a whole kept value: for them the 1e-3 holds
+outside the ``TOPK_SWAPS`` most distant coordinates of each round.  The
+compressors themselves agree exactly on the same inputs
+(``tests/test_torch_baselines.py``).
 """
 import dataclasses
 
