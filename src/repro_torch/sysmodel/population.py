@@ -21,6 +21,11 @@ from repro_torch.sysmodel.wireless import (WirelessConfig, achievable_rate,
                                            drop_positions)
 from repro_torch.topology.cells import TopologyConfig, assign_cells
 
+#: vgg9-cifar's fleet budgets (``FleetConfig(**VGG9_BUDGETS)``): T_max and
+#: E_max scaled about as its work a sample is (12.6 times fmnist-cnn's);
+#: on the default budgets no device finds a feasible AnycostFL strategy
+VGG9_BUDGETS = dict(T_max=120.0, E_max_range=(30.0, 90.0))
+
 
 @dataclasses.dataclass
 class FleetConfig:

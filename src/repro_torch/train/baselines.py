@@ -55,7 +55,7 @@ def _topk_mask(vec: torch.Tensor, keep_frac: float) -> torch.Tensor:
     """Elementwise top-k by magnitude, ``k = max(int(keep_frac * N), 1)``:
     the threshold is the exact k-th largest ``|v|``, ties kept.  Taken
     by a sort: on an H100, ``torch.kthvalue`` takes about 45 times as
-    long at the fmnist-cnn size (``scripts/time_baseline_compress.py``)."""
+    long at the fmnist-cnn size."""
     k = max(int(keep_frac * vec.numel()), 1)
     av = vec.abs()
     return (av >= torch.sort(av).values[-k]).to(vec.dtype)

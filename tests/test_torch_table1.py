@@ -48,7 +48,8 @@ from repro.train.fl_loop import FLRunConfig as JRunConfig  # noqa: E402
 from repro.utils.pytree import flatten_to_vector  # noqa: E402
 from repro_torch import bridge, topology  # noqa: E402
 from repro_torch.orchestrator import policies, runner  # noqa: E402
-from repro_torch.sysmodel.population import FleetConfig  # noqa: E402
+from repro_torch.sysmodel.population import (VGG9_BUDGETS,  # noqa: E402
+                                             FleetConfig)
 from repro_torch.train.fl_loop import METHODS, FLRunConfig  # noqa: E402
 from test_torch_fl import JaxKeyChain  # noqa: E402
 
@@ -56,11 +57,8 @@ torch.set_num_threads(1)
 
 TINY = dict(rounds=2, n_train=128, n_test=64, eval_every=1, lr=0.1,
             batch_size=32, seed=3, use_planner=False)
-BASELINES = ("stc", "qsgd", "uveqfed", "heterofl", "fedhq", "fedavg")
+BASELINES = METHODS[1:]
 TOPK_SWAPS = 4
-#: vgg9-cifar's fleet budgets: T_max and E_max scaled about as its
-#: per-sample work is (12.6x fmnist-cnn's)
-VGG9_BUDGETS = dict(T_max=120.0, E_max_range=(30.0, 90.0))
 #: case -> (run config overrides, fleet keywords, hierarchical cells)
 CASES = {
     **{m: (dict(method=m, use_planner=True), dict(n_devices=3), None)
