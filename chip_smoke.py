@@ -35,7 +35,10 @@ Phases, in order; any failure exits non-zero:
    may differ in a few elements at the threshold (``TOPK_FIRST_SWAPS``,
    ``TOPK_FIRST_NEAR``), and from the first round in which they differ
    the loss is held at ``TOPK_LOSS_RTOL`` (a swapped element moves an
-   aggregated coordinate by a whole kept value).
+   aggregated coordinate by a whole kept value).  Then a 3-device
+   fedbuff run (``buffer_size=2``, 30 simulated seconds) on both: the
+   event trace, every merge's clients and staleness, the stale drops and
+   the peak in-flight count exact; bits, energy and losses rtol 1e-3.
 4. The main paths, each with every launch counter zeroed just before and
    read just after, fmnist-cnn at full width, 12 devices, 3 rounds,
    n_train 1536, the beta planner on, eval every round:
@@ -90,6 +93,24 @@ Phases, in order; any failure exits non-zero:
        UVeQFed's quantizer on the card against the CPU, the same;
    (e) FedHQ on ``TopologyConfig(kind="hier", n_cells=4)``: #7 36, #8 9,
        #4 36, #6 none.
+7. The client pool and the asynchronous policies through
+   ``run_orchestrated``, fmnist-cnn at full width, 12 devices, n_train
+   1536, the planner on, each run with every launch counter zeroed just
+   before and read just after and held to the counts
+   ``expected_launches`` derives; each prints its host wall time:
+   (a) sync with ``use_pool=True`` and ``use_pool=False``, 3 rounds:
+       phase 4a's counts in both; the pooled run's test loss within rtol
+       1e-3 of the sequential run's (batched convolutions sum in another
+       order) in every round, from the first round whose EMS channel
+       sort differs between the two runs within ``POOL_LOSS_RTOL``;
+   (b) semisync, 3 rounds, ``drop`` and ``downweight``, the deadline at
+       the median of (a)'s round-0 client durations, so it binds: every
+       round accepts and drops exactly the devices (a) trained (the
+       numpy stream, hence the fleet's strategies, do not depend on the
+       policy); ``drop`` drops at least one update; #6 once per round
+       with accepted updates;
+   (c) fedbuff, ``buffer_size`` 8, 3 merges, no staleness cap: #5 and #7
+       24 launches each, the norm call 25, #3 8, #4 80, #6 and #8 none.
 
 The last lines are the card's name and power limit, one JSON object of
 kernels, and the result line.  Without a card, or without the rest of
@@ -131,6 +152,13 @@ N_CELLS = 4
 TOPK_FIRST_SWAPS = 8
 TOPK_FIRST_NEAR = 5e-2
 TOPK_LOSS_RTOL = 4e-3
+#: phase 7a, the pooled sync run against the sequential one: the test
+#: loss is held at rtol 1e-3 while every round's EMS channel sort is the
+#: same in both runs, and at POOL_LOSS_RTOL from the first round whose
+#: sort differs (a vmapped convolution sums in another order, and the
+#: sort can turn that into another sub-model for a device); set from the
+#: readings of scripts/pool_sequential_agreement.py (10 seeds)
+POOL_LOSS_RTOL = 4e-3
 
 
 def fail(msg: str) -> None:
@@ -312,15 +340,17 @@ def theorem1_weights(dev):
 
 
 def expected_launches(cfg, hist, n_rho: int, n_levels: int,
-                      hier: bool) -> dict[str, int]:
-    """Each kernel's launches in one ``run_fl``, derived from the code
-    paths: AnycostFL fits the planner (one norm call, #3 once per rho, #4
-    once per (rho, L)) and compresses every update with FGC (one norm
-    call and one #5 each, with ``use_fgc=False`` too, whose wire size
-    alone is the raw update's); QSGD and FedHQ quantize each update with
-    one #4; a flat round aggregates with one #6, a hierarchical one
+                      hier: bool, fedbuff: bool = False) -> dict[str, int]:
+    """Each kernel's launches in one run, derived from the code paths:
+    AnycostFL fits the planner (one norm call, #3 once per rho, #4 once
+    per (rho, L)) and compresses every update with FGC (one norm call and
+    one #5 each, with ``use_fgc=False`` too, whose wire size alone is the
+    raw update's); QSGD and FedHQ quantize each update with one #4; a
+    flat round compresses every trained update, accepted or dropped, and
+    aggregates with one #6 when it accepted any; a hierarchical one
     absorbs each accepted update (#7) and merges each extra reporting
-    cell (#8)."""
+    cell (#8); a fedbuff merge compresses and absorbs (#7) each buffered
+    update and never stacks the buffer (no #6)."""
     from repro_torch.kernels import ops
     n_upd = sum(r.n_clients + r.n_dropped for r in hist.rounds)
     anycost = cfg.method == "anycostfl"
@@ -331,13 +361,53 @@ def expected_launches(cfg, hist, n_rho: int, n_levels: int,
     want["threshold_apply"] = n_rho * planner
     want["prob_quantize"] = n_rho * n_levels * planner \
         + n_upd * (cfg.method in ("qsgd", "fedhq"))
-    if hier:
+    if hier or fedbuff:
         want["aio_absorb"] = sum(r.n_clients for r in hist.rounds)
         want["aio_merge"] = sum(max(r.n_cells_reporting - 1, 0)
                                 for r in hist.rounds)
     else:
         want["aio_aggregate"] = sum(r.n_clients > 0 for r in hist.rounds)
     return want
+
+
+def drive_run(label: str, run_cfg, fleet, n_rho: int, n_levels: int, *,
+              orch=None, hier: bool = False, must: dict = None):
+    """One ``run_fl`` on the card under ``orch`` (None: sync) with every
+    launch counter zeroed just before and read just after.  Every round
+    (fedbuff: merge) must aggregate updates, so every kernel of the path
+    launches; the counts must be the ones ``expected_launches`` derives,
+    which must agree with ``must``; the losses must be finite and the
+    final parameters finite CUDA tensors.  Returns the history, the
+    launches and the host wall seconds."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.train.fl_loop import run_fl
+    from repro_torch.utils.pytree import tree_leaves
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    hist = run_fl(run_cfg, fleet, orch, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = ops.launch_counts()
+    if not all(r.n_clients > 0 for r in hist.rounds):
+        fail(f"{label}: a round aggregated no update")
+    want = expected_launches(run_cfg, hist, n_rho, n_levels, hier,
+                             fedbuff=orch is not None
+                             and orch.policy == "fedbuff")
+    if must and any(want[k] != v for k, v in must.items()):
+        fail(f"{label}: expected_launches derived {json.dumps(want)}, "
+             f"which disagrees with {json.dumps(must)}")
+    if got != want:
+        fail(f"{label}: launched {json.dumps(got)}, expected "
+             f"{json.dumps(want)}")
+    if not all(r.test_loss is not None and math.isfinite(r.test_loss)
+               for r in hist.rounds):
+        fail(f"{label}: a round's test loss is not finite")
+    if not all(bool(torch.isfinite(t).all()) and t.device.type == "cuda"
+               for t in tree_leaves(hist.final_params)):
+        fail(f"{label}: final parameters are not finite CUDA tensors")
+    return hist, got, wall
 
 
 def table1_phase(card: str, checks_at: dict, n_rho: int,
@@ -350,12 +420,12 @@ def table1_phase(card: str, checks_at: dict, n_rho: int,
     import torch
     from repro_torch.configs import get_config
     from repro_torch.core import compression
-    from repro_torch.kernels import ops, quantize, ref, sparsify
+    from repro_torch.kernels import quantize, ref, sparsify
     from repro_torch.models.registry import build_model
     from repro_torch.sysmodel.population import VGG9_BUDGETS, FleetConfig
     from repro_torch.topology import TopologyConfig
     from repro_torch.train import baselines
-    from repro_torch.train.fl_loop import METHODS, FLRunConfig, run_fl
+    from repro_torch.train.fl_loop import METHODS, FLRunConfig
     from repro_torch.utils.pytree import tree_leaves
 
     dev = torch.device("cuda")
@@ -367,30 +437,8 @@ def table1_phase(card: str, checks_at: dict, n_rho: int,
         return tuple(float(x) for x in compression.masked_range(v, m))
 
     def drive(label, run_cfg, fleet, hier=False, must=None):
-        """One run_fl with the counters zeroed before and read after; every
-        round must aggregate updates, so every kernel of the path
-        launches; the counts must be the derived ones (and ``must``), the
-        losses finite."""
-        torch.cuda.synchronize()
-        ops.reset_launch_counts()
-        t0 = time.perf_counter()
-        hist = run_fl(run_cfg, fleet, device="cuda")
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        got = ops.launch_counts()
-        if not all(r.n_clients > 0 for r in hist.rounds):
-            fail(f"{label}: a round aggregated no update")
-        want = expected_launches(run_cfg, hist, n_rho, n_levels, hier)
-        want.update(must or {})
-        if got != want:
-            fail(f"{label}: launched {json.dumps(got)}, expected "
-                 f"{json.dumps(want)}")
-        if not all(r.test_loss is not None and math.isfinite(r.test_loss)
-                   for r in hist.rounds):
-            fail(f"{label}: a round's test loss is not finite")
-        if not all(bool(torch.isfinite(t).all()) and t.device.type == "cuda"
-                   for t in tree_leaves(hist.final_params)):
-            fail(f"{label}: final parameters are not finite CUDA tensors")
+        hist, got, wall = drive_run(label, run_cfg, fleet, n_rho, n_levels,
+                                    hier=hier, must=must)
         row = hist.to_rows()[-1]
         print(f"[table1] {label}: {wall:.3f} s host wall time; best_acc "
               f"{hist.best_acc:.4f}; cumulative energy "
@@ -501,6 +549,130 @@ def table1_phase(card: str, checks_at: dict, n_rho: int,
                     prob_quantize=n_upd, aio_aggregate=0))
 
 
+@contextlib.contextmanager
+def recording_rounds(durations: list, perms: list):
+    """Append each materialized client's ``T_cmp + T_com`` to
+    ``durations`` and each round's EMS channel-sort permutations to
+    ``perms``, in the order the runner takes them."""
+    from repro_torch.core import shrinking
+    from repro_torch.orchestrator import runner
+    sort, mat = runner.Simulation.sort_params, runner.Simulation.materialize
+
+    def sort_params(self, params):
+        _, pr = shrinking.sort_channels(params, self.spec, return_perms=True)
+        perms.append([p.tolist() for p in pr])
+        return sort(self, params)
+
+    def materialize(self, p, *a, **k):
+        p = mat(self, p, *a, **k)
+        durations.append(p.duration)
+        return p
+
+    runner.Simulation.sort_params = sort_params
+    runner.Simulation.materialize = materialize
+    try:
+        yield
+    finally:
+        runner.Simulation.sort_params = sort
+        runner.Simulation.materialize = mat
+
+
+def async_phase(n_rho: int, n_levels: int) -> dict:
+    """Phase 7: the client pool, semisync and fedbuff through ``run_fl``
+    (``run_orchestrated``) on the card, each run held by
+    :func:`drive_run`.  Returns each run's launches."""
+    import statistics
+
+    from repro_torch.orchestrator.policies import OrchestratorConfig
+    from repro_torch.sysmodel.population import FleetConfig
+    from repro_torch.train.fl_loop import FLRunConfig
+    from repro_torch.utils.pytree import tree_leaves
+
+    cfg = FLRunConfig(rounds=3, n_train=1536, n_test=384, eval_every=1,
+                      seed=0, use_planner=True)
+    fleet = FleetConfig(n_devices=N_DEVICES)
+    launched = {}
+
+    def drive(label, orch, must=None):
+        hist, got, wall = drive_run(label, cfg, fleet, n_rho, n_levels,
+                                    orch=orch, must=must)
+        launched[label] = got
+        if [tuple(t.shape) for t in tree_leaves(hist.final_params)] \
+                != FMNIST_SHAPES:
+            fail(f"{label}: final parameter shapes differ from the model's")
+        print(f"[async] {label}: {wall:.3f} s host wall time; rounds "
+              f"(n_clients, n_dropped, mean_staleness, latency_s, "
+              f"test_loss) "
+              f"{[(r.n_clients, r.n_dropped, r.mean_staleness, round(r.latency_s, 4), r.test_loss) for r in hist.rounds]}; "
+              f"launches {json.dumps({k: v for k, v in got.items() if v})}",
+              flush=True)
+        return hist, wall
+
+    print(f"[async] fmnist-cnn at full width, {N_DEVICES} devices, "
+          f"n_train {cfg.n_train}, planner on, flat fleet", flush=True)
+    # (a) sync, pooled and sequential; the loss held at rtol 1e-3 until a
+    # round's channel sort differs between them
+    durations, perms, pool_perms = [], [], []
+    with recording_rounds(durations, perms):
+        seq, seq_wall = drive("sync sequential",
+                              OrchestratorConfig(use_pool=False))
+    with recording_rounds([], pool_perms):
+        pooled, pool_wall = drive("sync pooled",
+                                  OrchestratorConfig(use_pool=True))
+    if [r.n_clients for r in seq.rounds] != \
+            [r.n_clients for r in pooled.rounds]:
+        fail("sync pooled: the rounds trained other devices than the "
+             "sequential run's")
+    swapped = False
+    for t, (c, g) in enumerate(zip(seq.rounds, pooled.rounds)):
+        swapped = swapped or perms[t] != pool_perms[t]
+        rtol = POOL_LOSS_RTOL if swapped else 1e-3
+        if not abs(c.test_loss - g.test_loss) <= rtol * abs(c.test_loss):
+            fail(f"sync pooled: round {t}'s test loss {g.test_loss} vs the "
+                 f"sequential run's {c.test_loss} (rtol {rtol})")
+    first = next((t for t, (a, b) in enumerate(zip(perms, pool_perms))
+                  if a != b), None)
+    print(f"[async] sync, 3 rounds: pooled {pool_wall:.3f} s, sequential "
+          f"{seq_wall:.3f} s of host wall time; test loss "
+          f"{[r.test_loss for r in pooled.rounds]} vs "
+          f"{[r.test_loss for r in seq.rounds]}; channel sorts "
+          f"{'the same in every round' if first is None else f'differ from round {first}'}",
+          flush=True)
+    # (b) semisync at a binding deadline
+    live = [r.n_clients for r in seq.rounds]
+    deadline = statistics.median(durations[:live[0]])
+    for mode in ("drop", "downweight"):
+        hist, _ = drive(f"semisync {mode}", OrchestratorConfig(
+            policy="semisync", deadline_s=deadline, straggler_mode=mode))
+        for r, n in zip(hist.rounds, live):
+            if r.n_clients + r.n_dropped != n:
+                fail(f"semisync {mode} round {r.round}: {r.n_clients} "
+                     f"accepted + {r.n_dropped} dropped, {n} trained")
+        dropped = sum(r.n_dropped for r in hist.rounds)
+        if (mode == "drop") != (dropped > 0):
+            fail(f"semisync {mode}: {dropped} updates dropped at the "
+                 f"{deadline:.4f} s deadline")
+    print(f"[async] semisync deadline {deadline:.6f} s (median of round "
+          f"0's {live[0]} client durations)", flush=True)
+    # (c) fedbuff: 3 merges of 8 buffered updates
+    k, merges = 8, cfg.rounds
+    hist, _ = drive("fedbuff", OrchestratorConfig(policy="fedbuff",
+                                                  buffer_size=k),
+                    must=dict(fused_sparsify_quantize=merges * k,
+                              aio_absorb=merges * k,
+                              kernel_l2=merges * k + 1,
+                              threshold_apply=n_rho,
+                              prob_quantize=n_rho * n_levels,
+                              aio_aggregate=0, aio_merge=0))
+    if [r.n_clients for r in hist.rounds] != [k] * merges:
+        fail(f"fedbuff: merges of {[r.n_clients for r in hist.rounds]} "
+             f"updates, expected {merges} of {k}")
+    print(f"[async] fedbuff: {merges} merges of {k}, peak in flight "
+          f"{hist.peak_inflight}, staleness per merge "
+          f"{[r.mean_staleness for r in hist.rounds]}", flush=True)
+    return launched
+
+
 def main() -> None:
     try:
         import torch
@@ -513,6 +685,8 @@ def main() -> None:
         from repro_torch.core import compression
         from repro_torch.kernels import (aio_agg, build, fused_compress,
                                          ops, quantize, ref, sparsify)
+        from repro_torch.orchestrator.policies import OrchestratorConfig
+        from repro_torch.orchestrator.runner import run_orchestrated
         from repro_torch.sysmodel.population import FleetConfig
         from repro_torch.topology import TopologyConfig, payload_bits
         from repro_torch.train.fl_loop import FLRunConfig, run_fl
@@ -801,6 +975,37 @@ def main() -> None:
               f"{[r.n_cells_reporting for r in logs['cuda']]}; top-k "
               f"differences per round {json.dumps(diffs)}", flush=True)
 
+    # the small fedbuff run: the timeline reads planned costs only, so the
+    # trace, the staleness and the in-flight peak are exact
+    fb = {where: run_orchestrated(
+        small, flat3, OrchestratorConfig(policy="fedbuff", buffer_size=2,
+                                         max_wallclock_s=30.0),
+        device=where, uniforms=CpuDrawnUniforms(7, where))
+        for where in ("cpu", "cuda")}
+    if fb["cpu"].trace != fb["cuda"].trace \
+            or fb["cpu"].peak_inflight != fb["cuda"].peak_inflight:
+        fail("small fedbuff run: the event trace or the in-flight peak "
+             "differs between the card and the CPU")
+    if len(fb["cpu"].rounds) < 2:
+        fail(f"small fedbuff run: {len(fb['cpu'].rounds)} merges")
+    for c, g in zip(fb["cpu"].rounds, fb["cuda"].rounds):
+        if (c.n_clients, c.mean_staleness, c.max_staleness,
+                c.n_stale_dropped) != (g.n_clients, g.mean_staleness,
+                                       g.max_staleness, g.n_stale_dropped):
+            fail(f"small fedbuff run: merge {c.round}'s clients or "
+                 f"staleness differ between the card and the CPU")
+        for f in ("comm_bits", "energy_j", "test_loss"):
+            a, b = getattr(c, f), getattr(g, f)
+            if not abs(a - b) <= 1e-3 * abs(a):
+                fail(f"small fedbuff run: {f} {b} on the card vs {a} on "
+                     f"the CPU in merge {c.round} (rtol 1e-3)")
+    print(f"[agree] fedbuff 3-device run (buffer 2, 30 s), card vs CPU: "
+          f"{len(fb['cuda'].trace)} events, trace exact; staleness "
+          f"{[r.mean_staleness for r in fb['cuda'].rounds]}; peak in "
+          f"flight {fb['cuda'].peak_inflight}; test_loss "
+          f"{[r.test_loss for r in fb['cuda'].rounds]} vs "
+          f"{[r.test_loss for r in fb['cpu'].rounds]}", flush=True)
+
     # ---------------------------------------------------------------- 4
     cfg = FLRunConfig(rounds=3, n_train=1536, n_test=384, eval_every=1,
                       seed=0, use_planner=True)
@@ -1079,6 +1284,14 @@ def main() -> None:
         fused=check_fused_flat, threshold=check_threshold_flat,
         quantize=check_quantize, aggregate=check_aggregate), n_rho=n_rho,
         n_levels=n_levels)
+
+    # ---------------------------------------------------------------- 7
+    by_path = {"4a flat": counts["flat"], "4b hier": counts["hier"],
+               **{f"7 {k}": v for k, v in async_phase(n_rho,
+                                                      n_levels).items()}}
+    for k in kernels:
+        k["launches_by_path"] = {path: c[k["name"]]
+                                 for path, c in by_path.items()}
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

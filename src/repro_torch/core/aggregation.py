@@ -54,17 +54,21 @@ def divergence_factor(alpha, beta) -> torch.Tensor:
     return 1.0 - alpha * (2.0 - alpha) * sqrt_f32(beta)
 
 
-def optimal_coefficients(alphas, betas) -> torch.Tensor:
-    """Theorem 1 (Eq. 13): p* minimizing the global divergence bound.
+def sum_left_to_right(x: torch.Tensor) -> torch.Tensor:
+    """The float32 sum of a short vector taken left to right, the order of
+    the reference's reduction for cohorts of up to 32 updates."""
+    total = x[0]
+    for v in x[1:]:
+        total = total + v
+    return total
 
-    The normalizing sum runs left to right in float32, the order of the
-    reference's reduction for cohorts of up to 32 updates."""
+
+def optimal_coefficients(alphas, betas) -> torch.Tensor:
+    """Theorem 1 (Eq. 13): p* minimizing the global divergence bound,
+    normalized by :func:`sum_left_to_right`."""
     d = divergence_factor(alphas, betas)
     inv = 1.0 / torch.clamp(d.square(), min=1e-12)
-    total = inv[0]
-    for x in inv[1:]:
-        total = total + x
-    return inv / total
+    return inv / sum_left_to_right(inv)
 
 
 def fedavg_coefficients(data_sizes) -> torch.Tensor:

@@ -73,6 +73,26 @@ class AnycostClient:
                                        for a, g in zip(leaves, grads)])
         return p
 
+    def _local_steps_batched(self, params: PyTree, batches: dict, *,
+                             shared: bool) -> PyTree:
+        """:meth:`_local_steps` on every lane of a leading axis at once:
+        ``batches[k]: (lanes, steps, B, ...)``; ``params`` either one tree
+        that every lane starts from (``shared=True``, ``in_dims=None``)
+        or stacked ``(lanes, ...)`` (``in_dims=0``).  Each step is one
+        ``torch.func.vmap`` of ``torch.func.grad`` and the same update
+        ``p - lr * grad``; the returned leaves are stacked per lane.  The
+        convolutions sum in another order than one client's alone, so a
+        lane agrees with :meth:`_local_steps` up to float32 rounding."""
+        model, lr = self.model, self.lr
+        grad = torch.func.grad(lambda q, batch: loss_fn(model, q, batch))
+        p, in_dims = params, None if shared else 0
+        for s in range(batches["images"].shape[1]):
+            batch = {k: v[:, s] for k, v in batches.items()}
+            g = torch.func.vmap(grad, in_dims=(in_dims, 0))(p, batch)
+            p = tree_map(lambda a, b: a - lr * b.to(a.dtype), p, g)
+            in_dims = 0
+        return p
+
     def finish_plan(self, beta: float,
                     planner: Optional[compression.BetaPlanner] = None
                     ) -> tuple[float, float]:
@@ -116,6 +136,20 @@ class AnycostClient:
             values=values, mask=mask, alpha=alpha, beta_target=beta,
             beta_realized=bits / (32.0 * n), bits=bits,
             n_samples=n_samples, flops=alpha * w_per_sample * n_samples)
+
+    def finish_round_fast(self, alpha: float, trained: PyTree,
+                          strategy: Strategy, n_steps: int,
+                          rand: torch.Tensor, *, sub: PyTree,
+                          planner: Optional[compression.BetaPlanner] = None,
+                          w_per_sample: float = 0.0) -> ClientUpdate:
+        """The client pool's finish, from the pool's already shrunk
+        ``sub``.  The reference jits its fast finish, which is equal to
+        its eager one up to fusion; the port runs eagerly either way, and
+        with ``sub`` given :meth:`finish_round` reads no global model
+        (``expand_update`` takes only shapes), so the two coincide."""
+        return self.finish_round(None, alpha, trained, strategy, n_steps,
+                                 rand, planner=planner,
+                                 w_per_sample=w_per_sample, sub=sub)
 
 
 class AnycostServer:

@@ -1,10 +1,12 @@
-"""FL training entry point: the paper's synchronous round for AnycostFL
-and the Table I baselines, on a flat fleet or a client -> edge -> cloud
-hierarchy.
+"""FL training entry point: AnycostFL and the Table I baselines under the
+sync, semisync or fedbuff policy, on a flat fleet or (round-based
+policies) a client -> edge -> cloud hierarchy.
 
   PYTHONPATH=src python -m repro_torch.launch.train --mode fl \\
       --method anycostfl --rounds 40 --devices 12 [--device cpu] \\
       [--arch vgg9-cifar] [--non-iid] \\
+      [--async-mode semisync --deadline 8 --straggler-mode downweight] \\
+      [--async-mode fedbuff --buffer-size 8 --max-wallclock 300] \\
       [--topology hier --cells 4 --backhaul-codec int8 --backhaul-ef]
 
 ``--method`` is one of ``train/fl_loop.METHODS``; ``--arch`` names one of
@@ -18,10 +20,11 @@ from __future__ import annotations
 import argparse
 import json
 
-from repro_torch.orchestrator.policies import OrchestratorConfig
+from repro_torch.orchestrator.policies import POLICIES, OrchestratorConfig
+from repro_torch.orchestrator.runner import run_orchestrated
 from repro_torch.sysmodel.population import FleetConfig
 from repro_torch.topology import BackhaulConfig, TopologyConfig
-from repro_torch.train.fl_loop import METHODS, FLRunConfig, run_fl
+from repro_torch.train.fl_loop import METHODS, FLRunConfig
 
 
 def _topology_config(args):
@@ -60,6 +63,33 @@ def main(argv=None):
     ap.add_argument("--eval-every", type=int, default=5)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    # ---- arrival policy
+    ap.add_argument("--async-mode", default="sync", choices=POLICIES)
+    ap.add_argument("--max-wallclock", type=float, default=None,
+                    help="stop after this many *simulated* seconds "
+                         "(fedbuff: overrides --rounds)")
+    ap.add_argument("--deadline", type=float, default=None,
+                    help="semisync cutoff in seconds (default: fleet T_max)")
+    ap.add_argument("--buffer-size", type=int, default=8,
+                    help="fedbuff: updates per server merge")
+    ap.add_argument("--staleness-exp", type=float, default=0.5,
+                    help="fedbuff: weight *= (1+staleness)^-exp")
+    ap.add_argument("--straggler-mode", default="drop",
+                    choices=["drop", "downweight"])
+    ap.add_argument("--staleness-cap", type=int, default=None,
+                    help="fedbuff admission: reject updates staler than "
+                         "this many server versions")
+    ap.add_argument("--staleness-mode", default="drop",
+                    choices=["drop", "requeue"],
+                    help="what to do with a cap-rejected update: discard "
+                         "it, or retrain its minibatches on the current "
+                         "model")
+    ap.add_argument("--max-inflight", type=int, default=None,
+                    help="fedbuff: cap concurrent dispatched clients "
+                         "(participation throttle; waiters join a FIFO)")
+    ap.add_argument("--no-pool", action="store_true",
+                    help="train each client in turn instead of one "
+                         "vmapped call per width bucket")
     # ---- hierarchical multi-cell topology
     ap.add_argument("--topology", default="flat", choices=["flat", "hier"],
                     help="flat = the paper's single cell; hier = "
@@ -106,12 +136,21 @@ def main(argv=None):
                           n_test=args.n_test, eval_every=args.eval_every)
     fleet = FleetConfig(n_devices=args.devices,
                         topology=_topology_config(args))
-    hist = run_fl(run_cfg, fleet, OrchestratorConfig(agg_route=args.agg_route),
-                  device=args.device, verbose=True)
+    orch = OrchestratorConfig(
+        policy=args.async_mode, max_wallclock_s=args.max_wallclock,
+        deadline_s=args.deadline, buffer_size=args.buffer_size,
+        staleness_exponent=args.staleness_exp,
+        staleness_cap=args.staleness_cap,
+        staleness_mode=args.staleness_mode,
+        straggler_mode=args.straggler_mode,
+        max_inflight=args.max_inflight, agg_route=args.agg_route,
+        use_pool=False if args.no_pool else None)
+    hist = run_orchestrated(run_cfg, fleet, orch, device=args.device,
+                            verbose=True)
     tta = {f"acc>={th:.2f}": hist.time_to_acc(th)
            for th in (0.3, 0.5, 0.7, 0.9) if hist.best_acc >= th}
     print(json.dumps({"arch": args.arch, "method": args.method,
-                      "policy": "sync",
+                      "policy": args.async_mode,
                       "availability": "always", "selection": "uniform",
                       "topology": args.topology,
                       "cells": args.cells if args.topology == "hier" else 1,

@@ -1,31 +1,56 @@
-"""FL runner over the discrete-event engine: the synchronous round on a
-static fleet, flat or hierarchical, for every method of
-``train/fl_loop.METHODS``.
+"""FL runner over the discrete-event engine: the ``sync``, ``semisync``
+and ``fedbuff`` policies on a static fleet, flat or hierarchical, for
+every method of ``train/fl_loop.METHODS``.
 
-``train/fl_loop.run_fl`` builds a :class:`Simulation` and runs
-:func:`_run_round_based` with the sync policy.  ``anycostfl`` solves
-Problem (P4) per device and compresses with FGC; ``use_ems``,
-``use_fgc`` and ``use_aio`` switch off one component each (Fig. 5a).
-The baselines (``stc``, ``qsgd``, ``uveqfed``, ``heterofl``, ``fedhq``,
-``fedavg``) take their strategy and compressor from
-``train/baselines.BaselinePolicy`` and never sit a round out; the
-weights follow the method (``policies.base_weights``).
+``run_orchestrated`` builds a :class:`Simulation` and the policy
+(``policies.make_policy``).  ``anycostfl`` solves Problem (P4) per
+device and compresses with FGC; ``use_ems``, ``use_fgc`` and ``use_aio``
+switch off one component each (Fig. 5a).  The baselines (``stc``,
+``qsgd``, ``uveqfed``, ``heterofl``, ``fedhq``, ``fedavg``) take their
+strategy and compressor from ``train/baselines.BaselinePolicy`` and
+never sit a round out; the weights follow the method
+(``policies.base_weights``).
 
-**Hierarchical topologies** (``FleetConfig.topology`` of kind ``hier``):
-devices are partitioned into cells, each with its own wireless
-environment; each cell's edge applies the arrival policy to its own
-arrivals, folds the accepted updates into one O(N) streaming partial
-with *unnormalized* coefficients (``aio_absorb``, in place), and ships it
-over the modelled backhaul, through the wire codec; the cloud merges the
-partials (EDGE_MERGE events, ``aio_merge`` in place) and finalizes Eq. 5
-once (:func:`_hier_round_merge`).  ``OrchestratorConfig.agg_route``
-``batched`` aggregates the same accepted updates with the flat Eq. 5
-(``aio_aggregate``) instead, charging the same backhaul costs.  The numpy generator is
-consumed in the reference's order (``repro/orchestrator/runner.py``):
-setup (task data, partition, fleet), then per round the channel draws,
+Timeline semantics:
+
+* **sync / semisync** (round-based, :func:`_run_round_based`): every
+  device is dispatched at the round start and arrives ``T_cmp + T_com``
+  later (Eq. 6-9, the realized strategy); the policy decides the round
+  barrier and which arrivals aggregate.  With the client pool on (the
+  default under semisync) the round's devices train in one vmapped call
+  per width bucket (``orchestrator/client_pool.py``).
+* **fedbuff** (stream-based, :func:`_run_fedbuff`): devices run free;
+  each arrival enters the server buffer with staleness = (server version
+  now) - (version at dispatch) and the device re-dispatches at once on a
+  fresh channel draw.  Every ``K`` arrivals the server merges with the
+  AIO rule under staleness-discounted unnormalized weights, streaming
+  each update into one ``(num, den)`` accumulator (``aio_absorb`` once
+  per update) and never stacking the buffer.  Local training is
+  deferred to the merge, so the buffer trains as one batch
+  (``ClientPool.train_stacked``); the event times use each device's
+  *planned* wire size, the energy and bits its realized ones.  EMS
+  channel sorting is frozen at t=0: cross-version element-wise merges
+  need one coordinate frame.  ``--max-inflight`` caps the dispatched
+  flights; waiters join a FIFO.
+
+**Hierarchical topologies** (``FleetConfig.topology`` of kind ``hier``,
+round-based policies only): devices are partitioned into cells, each
+with its own wireless environment; each cell's edge applies the arrival
+policy to its own arrivals, folds the accepted updates into one O(N)
+streaming partial with *unnormalized* coefficients (``aio_absorb``, in
+place), and ships it over the modelled backhaul, through the wire codec;
+the cloud merges the partials (EDGE_MERGE events, ``aio_merge`` in
+place) and finalizes Eq. 5 once (:func:`_hier_round_merge`).
+``OrchestratorConfig.agg_route`` ``batched`` aggregates the same
+accepted updates with the flat Eq. 5 (``aio_aggregate``) instead,
+charging the same backhaul costs.
+
+The numpy generator is consumed in the reference's order
+(``repro/orchestrator/runner.py``): setup (task data, partition,
+fleet), then per round (per dispatch under fedbuff) the channel draws,
 the planner's probe permutation (first round only) and each device's
-minibatch draws, so one seed gives the reference's data, fleet, channels
-and strategies.
+minibatch draws, so one seed gives the reference's data, fleet,
+channels, strategies and event timeline.
 
 Randomness the reference draws from its JAX key chain (the planner's
 probe quantization and each device's quantization uniforms) comes from
@@ -37,6 +62,7 @@ key chain.
 from __future__ import annotations
 
 import dataclasses
+from collections import deque
 from typing import Any, Callable, Optional, Protocol
 
 import numpy as np
@@ -52,9 +78,11 @@ from repro_torch.device import resolve_device
 from repro_torch.models import cnn as cnn_mod
 from repro_torch.models.registry import build_model
 from repro_torch.orchestrator import events as ev_mod
-from repro_torch.orchestrator.policies import (OrchestratorConfig,
-                                               SyncPolicy, apply_scales,
-                                               base_weights,
+from repro_torch.orchestrator.client_pool import ClientPool, TrainJob
+from repro_torch.orchestrator.policies import (STALE_REQUEUE,
+                                               OrchestratorConfig,
+                                               apply_scales, base_weights,
+                                               make_policy, staleness_scales,
                                                unnormalized_weight)
 from repro_torch.sysmodel.population import FleetConfig, make_fleet
 from repro_torch.topology.codec import (decode_partial, encode_partial,
@@ -69,7 +97,9 @@ from repro_torch.utils.pytree import (tree_leaves, tree_map, tree_size,
                                       tree_sub)
 
 PyTree = Any
-#: n -> (n,) float32 uniforms in [0, 1) on the run's device
+#: n -> (n,) float32 uniforms in [0, 1) on the run's device; a draw
+#: gives the same numbers each time it is called with the same n, as a
+#: JAX key does (fedbuff's requeue retrains with the rejected flight's)
 Draw = Callable[[int], torch.Tensor]
 
 
@@ -85,7 +115,7 @@ class UniformSource(Protocol):
 
 class TorchUniforms:
     """The default uniform source: a seeded ``torch.Generator`` on the
-    run's device hands each split a child generator of its own."""
+    run's device hands each split a child seed of its own."""
 
     def __init__(self, seed: int, device):
         self.device = torch.device(device)
@@ -94,8 +124,10 @@ class TorchUniforms:
     def _child(self) -> Draw:
         seed = int(torch.randint(0, 2 ** 62, (1,), generator=self._gen,
                                  device=self.device))
-        gen = torch.Generator(device=self.device).manual_seed(seed)
-        return lambda n: torch.rand(n, generator=gen, device=self.device)
+        dev = self.device
+        return lambda n: torch.rand(
+            n, generator=torch.Generator(device=dev).manual_seed(seed),
+            device=dev)
 
     def planner_stream(self) -> Draw:
         return self._child()
@@ -114,10 +146,12 @@ class PendingUpdate:
     batches: dict
     draw: Draw                   # the round's quantization uniforms
     n_steps: int
+    version: int = 0             # server version at dispatch (fedbuff)
     cell: int = 0                # serving cell at dispatch: the update
                                  # merges at the edge that dispatched it
     dispatched_at: float = 0.0
     completes_at: float = 0.0
+    staleness: int = 0
     # filled by Simulation.materialize
     update: Optional[ClientUpdate] = None
     fedhq_level: Optional[int] = None
@@ -183,6 +217,9 @@ class Simulation:
         self.ev = _make_eval(self.model, test_x, test_y)
         self.uniforms = uniforms if uniforms is not None \
             else TorchUniforms(run_cfg.seed + 1, self.device)
+        self.pool = ClientPool(self.client)
+        # (t, client_id, headroom_j) per successful dispatch
+        self.dispatch_log: list[tuple] = []
 
         # hierarchical topology (None -> the paper's flat single cell)
         topo = fleet_cfg.topology
@@ -196,6 +233,11 @@ class Simulation:
             self.codec_ef = CodecErrorFeedback()
         # set from OrchestratorConfig.agg_route by run_orchestrated
         self.agg_route = "streaming"
+
+    def effective_T_max(self, t_wall: float) -> float:
+        """The deadline handed to the Problem-(P4) solver: the fleet's
+        ``T_max`` (a static fleet has no battery to adapt it to)."""
+        return self.fleet_cfg.T_max
 
     # ------------------------------------------------------------ round body
 
@@ -266,17 +308,27 @@ class Simulation:
         return self.client._local_steps(sub, p.batches)
 
     def materialize(self, p: PendingUpdate, trained: PyTree,
-                    sorted_params: PyTree) -> PendingUpdate:
+                    sorted_params: PyTree, *, fast: bool = False,
+                    sub: Optional[PyTree] = None) -> PendingUpdate:
         """Decode the trained sub-model into a ClientUpdate + realized costs
-        (Eq. 6-9), with the reference's float-op order."""
+        (Eq. 6-9), with the reference's float-op order.  ``fast`` is the
+        client pool's finish (``AnycostClient.finish_round_fast``) from
+        its shrunk ``sub``; it computes what the default path does."""
         rc = self.run_cfg
         env, strat = p.env, p.strat
         if self.baseline is None:
-            upd = self.client.finish_round(
-                sorted_params, p.alpha, trained, strat, p.n_steps,
-                p.draw(self._n_params),
-                planner=self.planner if rc.use_fgc else None,
-                w_per_sample=self.W)
+            rand = p.draw(self._n_params)
+            planner = self.planner if rc.use_fgc else None
+            if fast:
+                if sub is None:
+                    sub = self.shrink_fast(sorted_params, p.alpha)
+                upd = self.client.finish_round_fast(
+                    p.alpha, trained, strat, p.n_steps, rand, sub=sub,
+                    planner=planner, w_per_sample=self.W)
+            else:
+                upd = self.client.finish_round(
+                    sorted_params, p.alpha, trained, strat, p.n_steps, rand,
+                    planner=planner, w_per_sample=self.W, sub=sub)
             if not rc.use_fgc:
                 # transmit the raw (width-masked) update
                 upd = dataclasses.replace(
@@ -310,8 +362,16 @@ class Simulation:
         p.energy = e_cmp + e_com
         return p
 
+    def shrink_fast(self, sorted_params: PyTree, alpha: float) -> PyTree:
+        """The EMS slice on the client pool's path: the reference jits it
+        once per width bucket; here it is plain ``shrinking.shrink``."""
+        return shrinking.shrink(sorted_params, alpha, self.spec)
+
     def aggregate(self, sorted_params: PyTree, accepted: list[PendingUpdate],
-                  weights: torch.Tensor) -> PyTree:
+                  weights: torch.Tensor, *, fast: bool = False) -> PyTree:
+        """Eq. 5 and the server step.  ``fast`` names the reference's
+        jitted merge, which computes the same; with no jit here, both are
+        this one call."""
         return self.server.aggregate(sorted_params,
                                      [p.update for p in accepted],
                                      weights=weights)
@@ -347,7 +407,7 @@ class Simulation:
 
 # ---------------------------------------------------------------- round mode
 
-def _hier_round_merge(sim: Simulation, policy: SyncPolicy,
+def _hier_round_merge(sim: Simulation, policy,
                       live: list[PendingUpdate], sorted_params: PyTree,
                       queue: ev_mod.EventQueue, t_wall: float):
     """One hierarchical round tail: per-cell accept -> edge absorb ->
@@ -445,27 +505,44 @@ def _hier_round_merge(sim: Simulation, policy: SyncPolicy,
             lat_parts)
 
 
-def _run_round_based(sim: Simulation, policy: SyncPolicy,
-                     orch: OrchestratorConfig, verbose: bool) -> History:
+def _run_round_based(sim: Simulation, policy, orch: OrchestratorConfig,
+                     verbose: bool) -> History:
     rc = sim.run_cfg
-    queue = ev_mod.EventQueue()
+    use_pool = orch.use_pool if orch.use_pool is not None \
+        else policy.pool_default
+    queue = ev_mod.EventQueue(trace_limit=orch.event_trace_limit)
     hist = History(rc, [])
     params = sim.params
     t_wall = 0.0
-    T_max = sim.fleet_cfg.T_max
 
     for t in range(rc.rounds):
         envs = sim.fleet.round_envs(sim.rng, sim.W, sim.S_bits)
         sorted_params = sim.sort_params(params)
         sim.ensure_planner(sorted_params)
+        t_max_eff = sim.effective_T_max(t_wall)
         live = [p for p in (sim.prepare(i, env) for i, env in enumerate(envs))
                 if p is not None]
-        trained = [sim.train_one(p, sorted_params) for p in live]
+        for p in live:
+            sim.dispatch_log.append((t_wall, p.client_id, p.env.E_max))
+
+        subs: dict = {}
+        if use_pool and rc.method == "anycostfl":
+            for p in live:
+                if p.alpha not in subs:
+                    subs[p.alpha] = sim.shrink_fast(sorted_params, p.alpha)
+        if use_pool:
+            trained = sim.pool.train_shared(
+                sorted_params,
+                [TrainJob(p.client_id, p.alpha, p.batches) for p in live],
+                subs)
+        else:
+            trained = [sim.train_one(p, sorted_params) for p in live]
 
         en, fl, cb = 0.0, 0.0, 0.0
         en_cmp = en_com = 0.0
         for p, tr in zip(live, trained):
-            sim.materialize(p, tr, sorted_params)
+            sim.materialize(p, tr, sorted_params, fast=use_pool,
+                            sub=subs.get(p.alpha))
             p.dispatched_at = t_wall
             p.completes_at = t_wall + p.duration
             queue.push(p.completes_at, ev_mod.COMPLETE, p.client_id, p)
@@ -481,7 +558,7 @@ def _run_round_based(sim: Simulation, policy: SyncPolicy,
             hist.log_round(t, latency_s=0.0, energy_j=en, flops=0.0,
                            comm_bits=0.0, mean_alpha=0.0, mean_beta=0.0,
                            mean_gain=0.0, t_wall=t_wall,
-                           t_max_effective=T_max)
+                           t_max_effective=t_max_eff)
             continue
 
         bh_bits, n_cells_rep, e_ship = 0.0, 0, 0.0
@@ -504,7 +581,10 @@ def _run_round_based(sim: Simulation, policy: SyncPolicy,
                 w = apply_scales(base_weights(
                     rc.method, rc.use_aio, [p.update for p in accepted],
                     [p.fedhq_level for p in accepted]), scales)
-                params = sim.aggregate(sorted_params, accepted, w)
+                params = sim.aggregate(sorted_params, accepted, w,
+                                       fast=use_pool)
+        for p in live:
+            sim.fleet.debit(p.client_id, p.energy, t_wall)
 
         log = hist.log_round(
             t, latency_s=lat, energy_j=en, flops=fl, comm_bits=cb,
@@ -513,7 +593,7 @@ def _run_round_based(sim: Simulation, policy: SyncPolicy,
                                      for p in live])),
             mean_gain=float(np.mean([p.strat.gain for p in live])),
             t_wall=t_wall, n_clients=len(accepted),
-            n_dropped=len(live) - len(accepted), t_max_effective=T_max,
+            n_dropped=len(live) - len(accepted), t_max_effective=t_max_eff,
             n_cells_reporting=n_cells_rep, backhaul_bits=bh_bits,
             energy_train_j=en_cmp, energy_uplink_j=en_com,
             energy_backhaul_j=e_ship, latency_train_s=lat_parts[0],
@@ -527,19 +607,253 @@ def _run_round_based(sim: Simulation, policy: SyncPolicy,
                       f"E={en:.2f}J t={t_wall:.1f}s "
                       f"alpha={log.mean_alpha:.2f} "
                       f"beta={log.mean_beta:.4f}")
+        if orch.max_wallclock_s is not None \
+                and t_wall >= orch.max_wallclock_s:
+            break
     hist.trace = queue.trace_signature()
+    hist.dispatch_log = sim.dispatch_log
     hist.final_params = params
+    return hist
+
+
+# --------------------------------------------------------------- fedbuff mode
+
+def _run_fedbuff(sim: Simulation, policy, orch: OrchestratorConfig,
+                 verbose: bool) -> History:
+    rc = sim.run_cfg
+    use_pool = orch.use_pool if orch.use_pool is not None \
+        else policy.pool_default
+    retry_dt = orch.retry_interval_s if orch.retry_interval_s is not None \
+        else sim.fleet_cfg.T_max
+    queue = ev_mod.EventQueue(trace_limit=orch.event_trace_limit)
+    hist = History(rc, [])
+
+    # frozen sorted coordinate frame (cross-version merges need one frame)
+    current = sim.sort_params(sim.params)
+    sim.ensure_planner(current)
+    version = 0
+    version_params: dict[int, PyTree] = {0: current}
+    inflight_version: dict[int, int] = {}
+    buffer: list[PendingUpdate] = []
+    n_agg = 0
+    last_agg_t = 0.0
+    en, fl, cb = 0.0, 0.0, 0.0
+    en_cmp = en_com = 0.0
+    # --max-inflight throttle: clients beyond the cap of concurrent
+    # dispatched flights wait in FIFO order for a free slot
+    cap = orch.max_inflight
+    waiting: deque = deque()
+    peak_inflight = 0
+
+    def enqueue_flight(p: PendingUpdate, now: float) -> None:
+        nonlocal peak_inflight
+        inflight_version[p.client_id] = p.version
+        peak_inflight = max(peak_inflight, len(inflight_version))
+        if sim.fleet.next_departure(p.client_id, now) < p.completes_at:
+            raise NotImplementedError(
+                "a device that leaves mid-flight: fleet dynamics "
+                "(ROADMAP queue 1) brings the churn event")
+        queue.push(p.completes_at, ev_mod.COMPLETE, p.client_id, p)
+
+    def dispatch(i: int, env: schedule.DeviceEnv, now: float) -> None:
+        p = sim.prepare(i, env)
+        if p is None:
+            queue.push(now + retry_dt, ev_mod.RETRY, i)
+            inflight_version.pop(i, None)
+            return
+        p.version = version
+        p.dispatched_at = now
+        # planned timeline: the device reserves compute + uplink by its plan
+        t_cmp = p.alpha * env.tau * env.D * env.W / p.strat.freq
+        t_com = p.alpha * p.strat.beta * env.S_bits / env.rate
+        p.completes_at = now + t_cmp + t_com
+        sim.dispatch_log.append((now, i, env.E_max))
+        enqueue_flight(p, now)
+
+    def pump(now: float) -> None:
+        """Fill free flight slots from the waiting FIFO, each on a fresh
+        channel draw."""
+        while waiting and (cap is None or len(inflight_version) < cap):
+            j = waiting.popleft()
+            dispatch(j, sim.fleet.device_env(sim.rng, j, sim.W, sim.S_bits),
+                     now)
+
+    def redispatch(i: int, now: float) -> None:
+        """Join the FIFO behind any earlier waiters, then fill the free
+        slots; with no cap, an immediate dispatch."""
+        waiting.append(i)
+        pump(now)
+
+    def requeue(p: PendingUpdate, now: float) -> None:
+        """``requeue``: retrain the rejected round's exact minibatches and
+        uniforms (its ``draw``) on the current version, a fresh flight of
+        the same length.  It takes back the slot its own rejected flight
+        just freed, outside the --max-inflight FIFO."""
+        q = dataclasses.replace(p, version=version, dispatched_at=now,
+                                staleness=0, update=None)
+        q.completes_at = now + (p.completes_at - p.dispatched_at)
+        sim.dispatch_log.append((now, p.client_id, p.env.E_max))
+        enqueue_flight(q, now)
+
+    for i, env in enumerate(sim.fleet.round_envs(sim.rng, sim.W,
+                                                 sim.S_bits)):
+        if cap is not None and len(inflight_version) >= cap:
+            waiting.append(i)
+        else:
+            dispatch(i, env, 0.0)
+
+    # progress guard: without a wall-clock budget the run targets
+    # rc.rounds merges, but an all-infeasible fleet would retry forever;
+    # budget enough simulated time for every merge even if one device
+    # alone is ever feasible, then stop
+    wall_limit = orch.max_wallclock_s
+    if wall_limit is None:
+        cycle = max(sim.fleet_cfg.T_max, retry_dt)
+        wall_limit = rc.rounds * orch.buffer_size * cycle * 4.0
+
+    now = 0.0
+    n_stale = 0
+    while len(queue):
+        ev = queue.pop()
+        if ev.time > wall_limit:
+            break
+        now = ev.time
+        if ev.kind == ev_mod.RETRY:
+            redispatch(ev.client, now)
+            continue
+
+        p = ev.payload
+        inflight_version.pop(p.client_id, None)   # flight landed
+        p.staleness = version - p.version
+        # the device spent its planned round energy whether or not the
+        # server admits the update
+        sim.fleet.debit(p.client_id, p.strat.E_cmp + p.strat.E_com, now)
+        if not policy.admit(p.staleness):
+            n_stale += 1
+            en += p.strat.E_cmp + p.strat.E_com   # spent, never aggregated
+            en_cmp += p.strat.E_cmp
+            en_com += p.strat.E_com
+            if orch.staleness_mode == STALE_REQUEUE:
+                requeue(p, now)
+            else:
+                redispatch(p.client_id, now)
+            continue
+        buffer.append(p)
+        redispatch(p.client_id, now)
+
+        if not policy.should_aggregate(buffer):
+            continue
+
+        # ---- materialize the buffered rounds (deferred, batched training)
+        shrunk: dict = {}
+        jobs = []
+        for b in buffer:
+            vk = (b.version, b.alpha)
+            if vk not in shrunk:
+                shrunk[vk] = sim.shrink_fast(version_params[b.version],
+                                             b.alpha)
+            jobs.append(TrainJob(b.client_id, b.alpha, b.batches,
+                                 sub_params=shrunk[vk]))
+        if use_pool:
+            trained = sim.pool.train_stacked(jobs)
+        else:
+            trained = [sim.client._local_steps(j.sub_params, j.batches)
+                       for j in jobs]
+        # stream each decoded update into one O(N) AIO accumulator and drop
+        # it on the spot: unnormalized weights times the staleness
+        # discount (Eq. 5's ratio cancels the cohort normalization)
+        stream_acc = EdgeAggregator(-1, current)
+        gamma = orch.staleness_exponent
+        for b, j, tr in zip(buffer, jobs, trained):
+            sim.materialize(b, tr, version_params[b.version],
+                            fast=use_pool, sub=j.sub_params)
+            en += b.energy
+            en_cmp += b.e_cmp
+            en_com += b.e_com
+            fl += b.update.flops
+            cb += b.update.bits
+            w_b = unnormalized_weight(rc.method, rc.use_aio, b.update,
+                                      b.fedhq_level) \
+                * staleness_scales([b.staleness], gamma)[0]
+            stream_acc.absorb(b.update.values, b.update.mask, w_b)
+            b.update = dataclasses.replace(b.update, values=None,
+                                           mask=None)
+        current = finalize_apply(current, stream_acc.ship(),
+                                 sim.server.server_lr)
+        version += 1
+        version_params[version] = current
+        # keep only the versions an in-flight client still trains on
+        keep = set(inflight_version.values()) | {version}
+        for v in [v for v in version_params if v not in keep]:
+            del version_params[v]
+        n_agg += 1
+
+        # latency split along the merge's triggering arrival (buffer[-1]):
+        # its training inside [last_agg_t, now] is the compute share, the
+        # rest (its wire time and the wait on the earlier arrivals) uplink
+        lat = now - last_agg_t
+        trig = buffer[-1]
+        lo = max(trig.dispatched_at, last_agg_t)
+        compute_end = min(trig.dispatched_at + trig.t_cmp, now)
+        lat_train = max(0.0, compute_end - lo)
+        log = hist.log_round(
+            n_agg - 1, latency_s=lat, energy_j=en, flops=fl, comm_bits=cb,
+            mean_alpha=float(np.mean([b.update.alpha for b in buffer])),
+            mean_beta=float(np.mean([b.update.beta_realized
+                                     for b in buffer])),
+            mean_gain=float(np.mean([b.strat.gain for b in buffer])),
+            t_wall=now, n_clients=len(buffer),
+            mean_staleness=float(np.mean([b.staleness for b in buffer])),
+            max_staleness=int(max(b.staleness for b in buffer)),
+            n_stale_dropped=n_stale,
+            t_max_effective=sim.effective_T_max(now),
+            energy_train_j=en_cmp, energy_uplink_j=en_com,
+            latency_train_s=lat_train, latency_uplink_s=lat - lat_train)
+        done = orch.max_wallclock_s is None and n_agg >= rc.rounds
+        if (n_agg - 1) % rc.eval_every == 0 or done:
+            acc, loss = sim.evaluate(current)
+            hist.log_eval(log, acc, loss)
+            if verbose:
+                print(f"[{rc.method}/fedbuff] merge {n_agg:3d} "
+                      f"t={now:7.1f}s acc={acc:.3f} loss={loss:.3f} "
+                      f"stale={log.mean_staleness:.1f} "
+                      f"alpha={log.mean_alpha:.2f}")
+        buffer = []
+        en, fl, cb = 0.0, 0.0, 0.0
+        en_cmp = en_com = 0.0
+        n_stale = 0
+        last_agg_t = now
+        if done:
+            break
+
+    # final eval, so best_acc reflects the last merged model
+    if hist.rounds and hist.rounds[-1].test_acc is None:
+        acc, loss = sim.evaluate(current)
+        hist.log_eval(hist.rounds[-1], acc, loss)
+    hist.trace = queue.trace_signature()
+    hist.dispatch_log = sim.dispatch_log
+    hist.peak_inflight = peak_inflight
+    hist.final_params = current
     return hist
 
 
 def run_orchestrated(run_cfg: FLRunConfig,
                      fleet_cfg: Optional[FleetConfig] = None,
                      orch: Optional[OrchestratorConfig] = None, *,
-                     device="cuda", verbose: bool = False) -> History:
-    """Run federated training under an arrival/aggregation policy (sync),
-    on a flat or a hierarchical fleet."""
+                     device="cuda", verbose: bool = False,
+                     uniforms: Optional[UniformSource] = None) -> History:
+    """Run federated training under an arrival/aggregation policy (sync,
+    semisync or fedbuff) on ``device`` (``cuda`` unless the caller asks
+    for the CPU), on a flat or a hierarchical fleet; ``uniforms``
+    replaces the default uniform source."""
     orch = orch or OrchestratorConfig()
-    sim = Simulation(run_cfg, fleet_cfg, device=device)
+    sim = Simulation(run_cfg, fleet_cfg, device=device, uniforms=uniforms)
     sim.agg_route = sim.resolve_agg_route(orch.agg_route)
-    return _run_round_based(sim, SyncPolicy(orch), orch, verbose)
-
+    policy = make_policy(orch, fleet_T_max=sim.fleet_cfg.T_max)
+    if not policy.round_based and sim.topo is not None:
+        raise ValueError(
+            "hierarchical topology needs a round-based policy "
+            "(sync/semisync): fedbuff's cross-version stream has no "
+            "per-cell round barrier to ship partials at")
+    runner = _run_round_based if policy.round_based else _run_fedbuff
+    return runner(sim, policy, orch, verbose)

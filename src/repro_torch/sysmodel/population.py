@@ -5,13 +5,15 @@ I = 60 devices in a 550 m cell; energy coefficient eps_i ~ U[5e-27, 1e-26];
 positions re-dropped every round; per-round energy budget E_max ~ U[3, 9] J;
 shared latency budget T_max.  A hierarchical topology
 (``FleetConfig.topology``) binds each device to a cell with its own
-wireless config.  ``make_fleet`` and ``Fleet.round_envs`` consume the
-numpy generator exactly as ``repro/sysmodel/population.py`` does for
-these fleets, so one seed gives the same envs.
+wireless config.  ``make_fleet``, ``Fleet.round_envs`` and
+``Fleet.device_env`` consume the numpy generator exactly as
+``repro/sysmodel/population.py`` does for these fleets, so one seed
+gives the same envs.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Optional
 
 import numpy as np
@@ -118,6 +120,27 @@ class Fleet:
                 rates[idx] = achievable_rate(dist, w, rng=rng)
         return [self._env(i, rates[i], W, S_bits)
                 for i in range(c.n_devices)]
+
+    def device_env(self, rng: np.random.Generator, i: int, W: float,
+                   S_bits: float) -> DeviceEnv:
+        """A fresh channel draw for device i alone (fedbuff's
+        re-dispatch): re-drop its position in its cell and draw its
+        fading, one device's share of :meth:`round_envs`' stream."""
+        w = self._wireless(i)
+        rate = achievable_rate(self._distances(rng, 1, w), w, rng=rng)
+        return self._env(i, rate[0], W, S_bits)
+
+    # a static fleet: every device is always in its cell, never leaves
+    # mid-flight and has no battery to debit
+
+    def available(self, i: int, t: float) -> bool:
+        return True
+
+    def next_departure(self, i: int, t: float) -> float:
+        return math.inf
+
+    def debit(self, i: int, energy_j: float, t: float) -> None:
+        pass
 
 
 _NOT_PORTED = {

@@ -8,8 +8,9 @@ one AnycostFL component each (the Fig. 5a ablations).  Tracks the
 Table-I columns: rounds, energy (J), latency (s), compute (FLOPs),
 communication (bits), test accuracy.  The round loop itself lives in
 ``orchestrator/runner.py``; this module keeps the public entry point
-(``run_fl``, the synchronous policy) and the config/log dataclasses and
-helpers shared with it.
+(``run_fl``: the synchronous policy unless an ``OrchestratorConfig``
+asks for ``semisync`` or ``fedbuff``) and the config/log dataclasses
+and helpers shared with it.
 """
 from __future__ import annotations
 
@@ -54,8 +55,9 @@ class FLRunConfig:
 
 @dataclasses.dataclass
 class RoundLog:
-    """One round's record: the reference's fields that the synchronous
-    round on a static fleet, flat or hierarchical, sets."""
+    """One round's (or fedbuff merge's) record: the reference's fields
+    that the ported policies set on a static fleet, flat or
+    hierarchical."""
     round: int
     latency_s: float
     energy_j: float
@@ -68,7 +70,11 @@ class RoundLog:
     test_loss: Optional[float] = None
     t_wall: float = 0.0           # simulated wall-clock at round end
     n_clients: int = 0            # updates that entered the aggregation
-    n_dropped: int = 0            # completed but rejected
+    n_dropped: int = 0            # completed but rejected (semisync)
+    mean_staleness: float = 0.0   # fedbuff: mean server-version lag
+    max_staleness: int = 0        # fedbuff: worst admitted version lag
+    n_stale_dropped: int = 0      # fedbuff: rejected by the staleness cap
+    n_aborted: int = 0            # churned out mid-flight (0: static fleet)
     t_max_effective: float = 0.0  # T_max handed to the P4 solver
     # hierarchical topologies (0 on the flat path)
     n_cells_reporting: int = 0    # cells that shipped a partial
@@ -88,6 +94,11 @@ class History:
     rounds: list
     best_acc: float = 0.0
     trace: Optional[tuple] = None   # event-queue replay signature
+    # (t, client_id, headroom_j) per successful dispatch
+    dispatch_log: Optional[list] = None
+    # fedbuff: most concurrent in-flight clients observed (audits the
+    # --max-inflight throttle)
+    peak_inflight: int = 0
     final_params: Optional[PyTree] = None   # the global model after the run
 
     def log_round(self, round_idx: int, **fields) -> RoundLog:
@@ -173,10 +184,9 @@ def _device_batches(rng: np.random.Generator, x: np.ndarray, y: np.ndarray,
 
 def run_fl(run_cfg: FLRunConfig, fleet_cfg: Optional[FleetConfig] = None,
            orch=None, *, device="cuda", verbose: bool = False) -> "History":
-    """Synchronous federated training (the paper's lock-step rounds) on
-    ``device``: ``cuda`` unless the caller asks for the CPU.  ``orch`` is
-    an ``OrchestratorConfig`` (its ``agg_route`` picks the hierarchical
-    aggregation route); None is the sync default."""
+    """Federated training on ``device`` (``cuda`` unless the caller asks
+    for the CPU) under ``orch``, an ``OrchestratorConfig``; None is the
+    paper's synchronous round."""
     from repro_torch.orchestrator.runner import run_orchestrated
     return run_orchestrated(run_cfg, fleet_cfg, orch, device=device,
                             verbose=verbose)

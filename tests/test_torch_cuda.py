@@ -461,3 +461,93 @@ def test_flat_baseline_round_launches_quantize_and_aggregate(cuda, method):
                                        "fused_sparsify_quantize",
                                        "aio_absorb", "aio_merge")), counts
     assert np.isfinite(hist.rounds[-1].test_loss)
+
+
+def test_vmapped_group_of_four_lanes_matches_the_loop_on_the_card(cuda):
+    """The client pool's batched step: one vmapped group of 4 lanes, from
+    shared and from stacked parameters, against each client's own
+    ``_local_steps`` on the card, 2 steps each on the synthetic task's
+    images as the runs train them: parameters within rtol 1e-5, beside
+    an absolute 1e-5 of the leaf's largest magnitude (the vmapped
+    convolutions sum in another order).  On white-noise images a near-tie
+    of a max-pool window can route one lane's gradient elsewhere (seen on
+    the CPU at 2.2e-5 of the update's norm), which no float tolerance
+    covers."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import shrinking
+    from repro_torch.core.anycost import AnycostClient
+    from repro_torch.data.synthetic import make_image_task
+    from repro_torch.device import resolve_device
+    from repro_torch.models.registry import build_model
+    from repro_torch.orchestrator.client_pool import ClientPool, TrainJob
+    from repro_torch.utils.pytree import tree_leaves, tree_map
+    resolve_device("cuda")              # float32 convolutions, no TF32
+    cfg = get_config("fmnist-cnn")
+    client = AnycostClient(build_model(cfg), shrinking.cnn_shrink_spec(cfg),
+                           lr=0.1, batch_size=32)
+    params = shrinking.sort_channels(build_model(cfg).init(
+        torch.Generator().manual_seed(0), cuda), client.spec)
+    rng = np.random.default_rng(0)
+    task, _ = make_image_task(rng, 256, 8, shape=(28, 28, 1))
+    batches = [{"images": torch.tensor(task.x[i], device=cuda),
+                "labels": torch.tensor(task.y[i], device=cuda)}
+               for i in rng.permutation(256).reshape(4, 2, 32)]
+    sub = shrinking.shrink(params, 0.55, client.spec)
+    pool = ClientPool(client)
+    subs = [tree_map(lambda x, j=j: x * (1.0 - 0.01 * j), sub)
+            for j in range(4)]
+    for got, starts in (
+            (pool.train_shared(params, [TrainJob(j, 0.55, b)
+                                        for j, b in enumerate(batches)]),
+             [sub] * 4),
+            (pool.train_stacked([TrainJob(j, 0.55, b, sub_params=s)
+                                 for j, (b, s) in enumerate(zip(batches,
+                                                                subs))]),
+             subs)):
+        for g, s, b in zip(got, starts, batches):
+            for x, y in zip(tree_leaves(g),
+                            tree_leaves(client._local_steps(s, b))):
+                assert x.device.type == "cuda"
+                torch.testing.assert_close(
+                    x, y, rtol=1e-5, atol=1e-5 * float(y.abs().max()))
+
+
+@pytest.mark.parametrize("policy", ["sync_pooled", "semisync", "fedbuff"])
+def test_async_paths_launch_their_kernels(cuda, policy):
+    """Phase 7's paths at 3 devices: a pooled sync or semisync round
+    compresses every trained update (accepted or dropped: the norms and
+    #5 once each) and aggregates with #6 once per round with accepted
+    updates; a fedbuff merge compresses and absorbs (#7) each buffered
+    update and launches no #6 or #8."""
+    from repro_torch.orchestrator.policies import OrchestratorConfig
+    from repro_torch.orchestrator.runner import run_orchestrated
+    from repro_torch.sysmodel.population import FleetConfig
+    from repro_torch.train.fl_loop import FLRunConfig
+    orch = {"sync_pooled": OrchestratorConfig(use_pool=True),
+            "semisync": OrchestratorConfig(policy="semisync",
+                                           deadline_s=10.5),
+            "fedbuff": OrchestratorConfig(policy="fedbuff", buffer_size=2,
+                                          max_wallclock_s=30.0)}[policy]
+    ops.reset_launch_counts()
+    hist = run_orchestrated(FLRunConfig(rounds=2, n_train=128, n_test=64,
+                                        eval_every=1, lr=0.1, seed=3,
+                                        use_planner=False),
+                            FleetConfig(n_devices=3), orch, device="cuda")
+    counts = ops.launch_counts()
+    trained = sum(r.n_clients + r.n_dropped for r in hist.rounds)
+    assert trained > 0
+    assert counts["kernel_l2"] == counts["kernel_sumsq"] == trained
+    assert counts["fused_sparsify_quantize"] == trained
+    assert counts["threshold_apply"] == counts["prob_quantize"] == 0
+    assert counts["aio_merge"] == 0
+    if policy == "fedbuff":
+        assert counts["aio_absorb"] == trained
+        assert counts["aio_aggregate"] == 0
+        assert len(hist.rounds) >= 2 and hist.peak_inflight == 3
+    else:
+        assert counts["aio_absorb"] == 0
+        assert counts["aio_aggregate"] == sum(r.n_clients > 0
+                                              for r in hist.rounds)
+    if policy == "semisync":
+        assert sum(r.n_dropped for r in hist.rounds) > 0
+    assert np.isfinite(hist.rounds[-1].test_loss)

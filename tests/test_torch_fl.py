@@ -153,7 +153,8 @@ def test_port_imports_neither_jax_nor_the_reference():
     """In a fresh interpreter where ``jax`` and ``repro`` cannot be
     imported, every module of the port imports (the baselines, gains,
     codec and energy modules among them) and a flat AnycostFL round, a
-    flat QSGD round and a hierarchical CPU round run."""
+    flat QSGD round, a hierarchical CPU round and a pooled fedbuff merge
+    run."""
     code = textwrap.dedent("""
         import importlib, pkgutil, sys
         sys.modules["jax"] = None
@@ -183,6 +184,15 @@ def test_port_imports_neither_jax_nor_the_reference():
                           kind="hier", n_cells=2)), device="cpu")
         assert hist.rounds[0].n_cells_reporting > 0
         assert hist.rounds[0].test_loss == hist.rounds[0].test_loss
+        from repro_torch.orchestrator.policies import OrchestratorConfig
+        from repro_torch.orchestrator.runner import run_orchestrated
+        hist = run_orchestrated(
+            FLRunConfig(rounds=1, n_train=64, n_test=32, eval_every=1,
+                        seed=1, use_planner=False),
+            FleetConfig(n_devices=2),
+            OrchestratorConfig(policy="fedbuff", buffer_size=2),
+            device="cpu")
+        assert hist.rounds[0].n_clients == 2 and hist.peak_inflight == 2
         assert not [k for k, v in sys.modules.items() if v is not None
                     and (k.split(".")[0] in ("jax", "jaxlib", "repro"))]
         print("ok")
@@ -217,7 +227,7 @@ def test_cli_runs_on_the_cpu_and_prints_the_final_json(capsys):
     assert 0.0 <= blob["best_acc"] <= 1.0
     assert blob["rows"]["round"] == 0 and blob["rows"]["comm_bits"] > 0
     with pytest.raises(SystemExit):
-        launch_train.main(["--device", "cpu", "--async-mode", "fedbuff"])
+        launch_train.main(["--device", "cpu", "--async-mode", "async"])
 
 
 def test_cli_runs_a_baseline_on_non_iid_data(capsys):
@@ -237,7 +247,10 @@ def test_cli_runs_a_baseline_on_non_iid_data(capsys):
 
 def test_outside_the_slice_raises():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        policies.OrchestratorConfig(policy="fedbuff")
+        policies.OrchestratorConfig(agg_route="mesh")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        runner.Simulation(FLRunConfig(**TINY), FleetConfig(
+            n_devices=3, mobility="random_waypoint"), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         runner.Simulation(dataclasses.replace(
             FLRunConfig(**TINY), arch="qwen2-7b"), device="cpu")
