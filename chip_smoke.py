@@ -99,10 +99,14 @@ Phases, in order; any failure exits non-zero:
    before and read just after and held to the counts
    ``expected_launches`` derives; each prints its host wall time:
    (a) sync with ``use_pool=True`` and ``use_pool=False``, 3 rounds:
-       phase 4a's counts in both; the pooled run's test loss within rtol
-       1e-3 of the sequential run's (batched convolutions sum in another
-       order) in every round, from the first round whose EMS channel
-       sort differs between the two runs within ``POOL_LOSS_RTOL``;
+       phase 4a's counts in both; round 0, which starts both from one
+       model and one channel sort, client by client in job order: the
+       same device, its realized bits within ``POOL_BITS_RTOL`` and its
+       trained sub-model within ``POOL_LANE_RTOL`` of its update's
+       norm; the pooled run's test loss within rtol 1e-3 of the
+       sequential run's (batched convolutions sum in another order) in
+       every round, from the first round whose EMS channel sort differs
+       between the two runs within ``POOL_LOSS_RTOL``;
    (b) semisync, 3 rounds, ``drop`` and ``downweight``, the deadline at
        the median of (a)'s round-0 client durations, so it binds: every
        round accepts and drops exactly the devices (a) trained (the
@@ -157,8 +161,18 @@ TOPK_LOSS_RTOL = 4e-3
 #: same in both runs, and at POOL_LOSS_RTOL from the first round whose
 #: sort differs (a vmapped convolution sums in another order, and the
 #: sort can turn that into another sub-model for a device); set from the
-#: readings of scripts/pool_sequential_agreement.py (10 seeds)
+#: readings of scripts/pool_sequential_agreement.py (10 seeds).  Round 0
+#: starts both runs from one model and one sort, so there each client's
+#: trained sub-model is held within POOL_LANE_RTOL of its update's norm
+#: (read on the H100: at most 8.5e-4, in one client of a few seeds, most
+#: likely a flipped max-pool or ReLU decision, which an elementwise rtol
+#: 1e-5 does not cover; a lane left untrained is 1 apart by construction,
+#: and another job's result about as far) and its realized bits at
+#: POOL_BITS_RTOL (read: up to 7.5e-6; a flipped level index moves the
+#: entropy-coded size, a client out of order moves it by far more)
 POOL_LOSS_RTOL = 4e-3
+POOL_BITS_RTOL = 5e-5
+POOL_LANE_RTOL = 1e-2
 
 
 def fail(msg: str) -> None:
@@ -550,22 +564,26 @@ def table1_phase(card: str, checks_at: dict, n_rho: int,
 
 
 @contextlib.contextmanager
-def recording_rounds(durations: list, perms: list):
-    """Append each materialized client's ``T_cmp + T_com`` to
-    ``durations`` and each round's EMS channel-sort permutations to
-    ``perms``, in the order the runner takes them."""
-    from repro_torch.core import shrinking
+def recording_rounds(rounds: list, clients: list):
+    """Append each round's start parameters (with the run's shrink spec)
+    to ``rounds``, and each materialized client's ``(client_id, bits,
+    T_cmp + T_com, trained sub-model, the sub-model it trained from or
+    None)`` to ``clients`` (the start is the client pool's; one client
+    at a time, it is shrunk in the decode), in the order the runner
+    takes them.  Only references are kept, so the recorded run
+    does no extra work; :func:`sort_perms` reads the channel sorts after
+    it."""
     from repro_torch.orchestrator import runner
     sort, mat = runner.Simulation.sort_params, runner.Simulation.materialize
 
     def sort_params(self, params):
-        _, pr = shrinking.sort_channels(params, self.spec, return_perms=True)
-        perms.append([p.tolist() for p in pr])
+        rounds.append((self.spec, params))
         return sort(self, params)
 
-    def materialize(self, p, *a, **k):
-        p = mat(self, p, *a, **k)
-        durations.append(p.duration)
+    def materialize(self, p, trained, *a, **k):
+        p = mat(self, p, trained, *a, **k)
+        clients.append((p.client_id, p.update.bits, p.duration, trained,
+                        k.get("sub")))
         return p
 
     runner.Simulation.sort_params = sort_params
@@ -575,6 +593,25 @@ def recording_rounds(durations: list, perms: list):
     finally:
         runner.Simulation.sort_params = sort
         runner.Simulation.materialize = mat
+
+
+def sort_perms(rounds: list) -> list:
+    """Each recorded round's EMS channel-sort permutations, as lists."""
+    from repro_torch.core import shrinking
+    return [[p.tolist() for p in shrinking.sort_channels(
+        params, spec, return_perms=True)[1]] for spec, params in rounds]
+
+
+def lane_drift(got, want, start) -> float:
+    """How far two trainings of one job from ``start`` land apart, as a
+    share of the update one of them made: ``|got - want|`` over
+    ``|start - want|``, Euclidean norms over every leaf."""
+    from repro_torch.utils.pytree import tree_leaves
+
+    def dist(a, b):
+        return math.sqrt(sum(float(((x - y) ** 2).sum())
+                             for x, y in zip(tree_leaves(a), tree_leaves(b))))
+    return dist(got, want) / dist(start, want)
 
 
 def async_phase(n_rho: int, n_levels: int) -> dict:
@@ -610,19 +647,37 @@ def async_phase(n_rho: int, n_levels: int) -> dict:
 
     print(f"[async] fmnist-cnn at full width, {N_DEVICES} devices, "
           f"n_train {cfg.n_train}, planner on, flat fleet", flush=True)
-    # (a) sync, pooled and sequential; the loss held at rtol 1e-3 until a
-    # round's channel sort differs between them
-    durations, perms, pool_perms = [], [], []
-    with recording_rounds(durations, perms):
+    # (a) sync, pooled and sequential: round 0 (one start, one sort)
+    # client by client, then the loss at rtol 1e-3 until a round's
+    # channel sort differs between them
+    seq_rounds, seq_clients, pool_rounds, pool_clients = [], [], [], []
+    with recording_rounds(seq_rounds, seq_clients):
         seq, seq_wall = drive("sync sequential",
                               OrchestratorConfig(use_pool=False))
-    with recording_rounds([], pool_perms):
+    with recording_rounds(pool_rounds, pool_clients):
         pooled, pool_wall = drive("sync pooled",
                                   OrchestratorConfig(use_pool=True))
     if [r.n_clients for r in seq.rounds] != \
             [r.n_clients for r in pooled.rounds]:
         fail("sync pooled: the rounds trained other devices than the "
              "sequential run's")
+    live = [r.n_clients + r.n_dropped for r in seq.rounds]
+    bits_rel = drift = 0.0
+    for (ci, bi, _, ti, _), (cj, bj, _, tj, start) in zip(
+            seq_clients[:live[0]], pool_clients[:live[0]]):
+        bits_rel = max(bits_rel, abs(bj - bi) / bi)
+        drift = max(drift, lane_drift(tj, ti, start))
+        if ci != cj or not abs(bj - bi) <= POOL_BITS_RTOL * bi \
+                or not drift <= POOL_LANE_RTOL:
+            fail(f"sync pooled: round 0's client {cj} (sequential: {ci}) "
+                 f"realized {bj} bits against {bi} (rtol {POOL_BITS_RTOL}"
+                 f"); trained parameters {drift:.3e} of the update's norm "
+                 f"apart (limit {POOL_LANE_RTOL})")
+    print(f"[async] sync round 0, client by client in job order, pooled "
+          f"vs sequential: bits within {bits_rel:.3e} relative, trained "
+          f"parameters within {drift:.3e} of the update's norm",
+          flush=True)
+    perms, pool_perms = sort_perms(seq_rounds), sort_perms(pool_rounds)
     swapped = False
     for t, (c, g) in enumerate(zip(seq.rounds, pooled.rounds)):
         swapped = swapped or perms[t] != pool_perms[t]
@@ -639,8 +694,7 @@ def async_phase(n_rho: int, n_levels: int) -> dict:
           f"{'the same in every round' if first is None else f'differ from round {first}'}",
           flush=True)
     # (b) semisync at a binding deadline
-    live = [r.n_clients for r in seq.rounds]
-    deadline = statistics.median(durations[:live[0]])
+    deadline = statistics.median(c[2] for c in seq_clients[:live[0]])
     for mode in ("drop", "downweight"):
         hist, _ = drive(f"semisync {mode}", OrchestratorConfig(
             policy="semisync", deadline_s=deadline, straggler_mode=mode))

@@ -9,50 +9,27 @@ equal on both sides), and prints per round: whether the round's EMS
 channel sort (the permutations ``shrinking.sort_channels`` takes from
 the round-start parameters) is the same in both runs, the largest
 relative difference of a client's realized bits, and the relative
-difference of the test loss.  A vmapped convolution sums in another
-order, so the two runs start apart by float32 rounding; the sort is a
-discontinuity that can turn that into a different sub-model for a
-device.  The last line is a JSON summary: the largest loss difference
+difference of the test loss; for round 0, also how far each client's
+trained sub-model lies from the other run's, as a share of the norm of
+its update (``chip_smoke.py`` phase 7a holds it at ``POOL_LANE_RTOL``).
+It records the runs with ``chip_smoke.py``'s helpers.  A vmapped
+convolution sums in another order, so the two runs start apart by
+float32 rounding; the sort is a discontinuity that can turn that into a
+different sub-model for a device.  The last line is a JSON summary: the largest loss difference
 in rounds whose sorts all agreed so far, and in rounds from the first
-one whose sort differed.  Runs on the card unless ``--device cpu``.
+one whose sort differed, and round 0's largest bits difference and
+parameter drift.  Runs on the card unless ``--device cpu``.
 """
 from __future__ import annotations
 
 import argparse
-import contextlib
 import json
 import os
 import sys
 
-sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                                "..", "src"))
-
-
-@contextlib.contextmanager
-def recording(perms: list, bits: list):
-    """Append each round's channel-sort permutations and each client's
-    realized bits, in the order the runner takes them."""
-    from repro_torch.core import shrinking
-    from repro_torch.orchestrator import runner
-    sort, mat = runner.Simulation.sort_params, runner.Simulation.materialize
-
-    def sort_params(self, params):
-        _, pr = shrinking.sort_channels(params, self.spec, return_perms=True)
-        perms.append([p.tolist() for p in pr])
-        return sort(self, params)
-
-    def materialize(self, p, *a, **k):
-        p = mat(self, p, *a, **k)
-        bits.append(p.update.bits)
-        return p
-
-    runner.Simulation.sort_params = sort_params
-    runner.Simulation.materialize = materialize
-    try:
-        yield
-    finally:
-        runner.Simulation.sort_params = sort
-        runner.Simulation.materialize = mat
+ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
+sys.path.insert(0, os.path.join(ROOT, "src"))
+sys.path.insert(0, ROOT)
 
 
 def main(argv=None) -> None:
@@ -72,25 +49,35 @@ def main(argv=None) -> None:
 
     where = (torch.cuda.get_device_name(0) if args.device == "cuda"
              else "cpu")
-    same_sort = after_swap = 0.0
+    from chip_smoke import lane_drift, recording_rounds, sort_perms
+
+    same_sort = after_swap = first_bits = first_drift = 0.0
     for seed in range(args.seeds):
         cfg = FLRunConfig(rounds=args.rounds, n_train=1536, n_test=384,
                           eval_every=1, seed=seed, use_planner=True)
         runs = []
         for pool in (False, True):
-            perms, bits = [], []
-            with recording(perms, bits):
+            rounds, clients = [], []
+            with recording_rounds(rounds, clients):
                 hist = run_orchestrated(cfg, FleetConfig(
                     n_devices=args.devices), OrchestratorConfig(
                         use_pool=pool), device=args.device)
-            runs.append((perms, bits, hist.rounds))
-        (p0, b0, r0), (p1, b1, r1) = runs
+            runs.append((sort_perms(rounds), clients, hist.rounds))
+        (p0, c0, r0), (p1, c1, r1) = runs
         swapped, at = False, 0
         for t, (a, b) in enumerate(zip(r0, r1)):
             n = a.n_clients + a.n_dropped
-            bits_rel = max((abs(x - y) / x for x, y in zip(
-                b0[at:at + n], b1[at:at + n])), default=0.0)
+            pairs = list(zip(c0[at:at + n], c1[at:at + n]))
             at += n
+            bits_rel = max((abs(x[1] - y[1]) / x[1] for x, y in pairs),
+                           default=0.0)
+            if t == 0:
+                drift = max((lane_drift(y[3], x[3], y[4]) for x, y in pairs),
+                            default=0.0)
+                first_bits = max(first_bits, bits_rel)
+                first_drift = max(first_drift, drift)
+                print(f"seed {seed} round 0: trained parameters within "
+                      f"{drift:.3e} of the update's norm", flush=True)
             swapped = swapped or p0[t] != p1[t]
             loss_rel = abs(a.test_loss - b.test_loss) / abs(a.test_loss)
             if swapped:
@@ -103,7 +90,9 @@ def main(argv=None) -> None:
                   flush=True)
     print(json.dumps({"device": where, "seeds": args.seeds,
                       "max_loss_rel_same_sort": same_sort,
-                      "max_loss_rel_after_sort_differs": after_swap}))
+                      "max_loss_rel_after_sort_differs": after_swap,
+                      "round0_max_bits_rel": first_bits,
+                      "round0_max_param_drift": first_drift}))
 
 
 if __name__ == "__main__":

@@ -137,20 +137,6 @@ class AnycostClient:
             beta_realized=bits / (32.0 * n), bits=bits,
             n_samples=n_samples, flops=alpha * w_per_sample * n_samples)
 
-    def finish_round_fast(self, alpha: float, trained: PyTree,
-                          strategy: Strategy, n_steps: int,
-                          rand: torch.Tensor, *, sub: PyTree,
-                          planner: Optional[compression.BetaPlanner] = None,
-                          w_per_sample: float = 0.0) -> ClientUpdate:
-        """The client pool's finish, from the pool's already shrunk
-        ``sub``.  The reference jits its fast finish, which is equal to
-        its eager one up to fusion; the port runs eagerly either way, and
-        with ``sub`` given :meth:`finish_round` reads no global model
-        (``expand_update`` takes only shapes), so the two coincide."""
-        return self.finish_round(None, alpha, trained, strategy, n_steps,
-                                 rand, planner=planner,
-                                 w_per_sample=w_per_sample, sub=sub)
-
 
 class AnycostServer:
     """Server-side: channel sorting, AIO aggregation, model update."""

@@ -8,7 +8,8 @@ rounds are one ``torch.func.vmap`` over stacked minibatches
 
 * ``train_shared``  — every client starts from the same (sorted, shrunk)
   global params (``in_dims=None``), one shrink per bucket instead of one
-  per client.  The round-based policies use it.
+  per client, which it hands back in each job's ``sub_params`` for the
+  update's decode.  The round-based policies use it.
 * ``train_stacked`` — clients start from *different* model versions (a
   fedbuff buffer spans server versions): their params are stacked along
   the vmap axis (``in_dims=0``).
@@ -44,7 +45,9 @@ class TrainJob:
     client_id: int
     alpha: float                      # bucketed width
     batches: dict                     # (steps, B, ...) stacked minibatches
-    sub_params: Optional[PyTree] = None   # only for train_stacked
+    # the shrunk params it trains from: the caller's for train_stacked,
+    # set by train_shared
+    sub_params: Optional[PyTree] = None
 
 
 def _tree_stack(trees: list) -> PyTree:
@@ -83,18 +86,20 @@ class ClientPool:
         return [tree_map(lambda x, i=i: x[i], out)
                 for i in range(len(idxs))]
 
-    def train_shared(self, sorted_global: PyTree, jobs: list[TrainJob],
-                     subs: Optional[dict] = None) -> list[PyTree]:
-        """Train every job from one global model; the trained params per
-        job, in job order.  ``subs`` optionally maps alpha to the
-        caller's already shrunk params, reused instead of shrinking per
-        width bucket."""
+    def train_shared(self, sorted_global: PyTree,
+                     jobs: list[TrainJob]) -> list[PyTree]:
+        """Train every job from one global model, shrunk once per width
+        bucket; the trained params per job, in job order.  Sets each
+        job's ``sub_params`` to the shrunk params it trained from."""
         out: list = [None] * len(jobs)
+        subs: dict = {}
         for (alpha, _, _), idxs in self._groups(jobs).items():
-            sub = (subs or {}).get(alpha)
-            if sub is None:
-                sub = shrinking.shrink(sorted_global, alpha,
-                                       self.client.spec)
+            if alpha not in subs:
+                subs[alpha] = shrinking.shrink(sorted_global, alpha,
+                                               self.client.spec)
+            sub = subs[alpha]
+            for j in idxs:
+                jobs[j].sub_params = sub
             for j, trained in zip(idxs, self._run_group(idxs, jobs, sub,
                                                         shared=True)):
                 out[j] = trained

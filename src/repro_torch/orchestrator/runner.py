@@ -234,11 +234,6 @@ class Simulation:
         # set from OrchestratorConfig.agg_route by run_orchestrated
         self.agg_route = "streaming"
 
-    def effective_T_max(self, t_wall: float) -> float:
-        """The deadline handed to the Problem-(P4) solver: the fleet's
-        ``T_max`` (a static fleet has no battery to adapt it to)."""
-        return self.fleet_cfg.T_max
-
     # ------------------------------------------------------------ round body
 
     def sort_params(self, params: PyTree) -> PyTree:
@@ -308,34 +303,28 @@ class Simulation:
         return self.client._local_steps(sub, p.batches)
 
     def materialize(self, p: PendingUpdate, trained: PyTree,
-                    sorted_params: PyTree, *, fast: bool = False,
+                    sorted_params: PyTree, *,
                     sub: Optional[PyTree] = None) -> PendingUpdate:
         """Decode the trained sub-model into a ClientUpdate + realized costs
-        (Eq. 6-9), with the reference's float-op order.  ``fast`` is the
-        client pool's finish (``AnycostClient.finish_round_fast``) from
-        its shrunk ``sub``; it computes what the default path does."""
+        (Eq. 6-9), with the reference's float-op order.  ``sub`` is the
+        shrunk model the device trained from, when the caller has it (the
+        client pool's); otherwise it is shrunk here."""
         rc = self.run_cfg
         env, strat = p.env, p.strat
+        if sub is None:
+            sub = shrinking.shrink(sorted_params, p.alpha, self.spec)
         if self.baseline is None:
             rand = p.draw(self._n_params)
             planner = self.planner if rc.use_fgc else None
-            if fast:
-                if sub is None:
-                    sub = self.shrink_fast(sorted_params, p.alpha)
-                upd = self.client.finish_round_fast(
-                    p.alpha, trained, strat, p.n_steps, rand, sub=sub,
-                    planner=planner, w_per_sample=self.W)
-            else:
-                upd = self.client.finish_round(
-                    sorted_params, p.alpha, trained, strat, p.n_steps, rand,
-                    planner=planner, w_per_sample=self.W, sub=sub)
+            upd = self.client.finish_round(
+                sorted_params, p.alpha, trained, strat, p.n_steps, rand,
+                planner=planner, w_per_sample=self.W, sub=sub)
             if not rc.use_fgc:
                 # transmit the raw (width-masked) update
                 upd = dataclasses.replace(
                     upd, bits=32.0 * strat.alpha * self._n_params,
                     beta_realized=1.0)
         else:
-            sub = shrinking.shrink(sorted_params, p.alpha, self.spec)
             full_update, wmask = shrinking.expand_update(
                 tree_sub(sub, trained), sorted_params, p.alpha, self.spec)
             comp = self.baseline.compress(full_update, env, p.draw)
@@ -362,16 +351,9 @@ class Simulation:
         p.energy = e_cmp + e_com
         return p
 
-    def shrink_fast(self, sorted_params: PyTree, alpha: float) -> PyTree:
-        """The EMS slice on the client pool's path: the reference jits it
-        once per width bucket; here it is plain ``shrinking.shrink``."""
-        return shrinking.shrink(sorted_params, alpha, self.spec)
-
     def aggregate(self, sorted_params: PyTree, accepted: list[PendingUpdate],
-                  weights: torch.Tensor, *, fast: bool = False) -> PyTree:
-        """Eq. 5 and the server step.  ``fast`` names the reference's
-        jitted merge, which computes the same; with no jit here, both are
-        this one call."""
+                  weights: torch.Tensor) -> PyTree:
+        """Eq. 5 and the server step."""
         return self.server.aggregate(sorted_params,
                                      [p.update for p in accepted],
                                      weights=weights)
@@ -519,30 +501,21 @@ def _run_round_based(sim: Simulation, policy, orch: OrchestratorConfig,
         envs = sim.fleet.round_envs(sim.rng, sim.W, sim.S_bits)
         sorted_params = sim.sort_params(params)
         sim.ensure_planner(sorted_params)
-        t_max_eff = sim.effective_T_max(t_wall)
         live = [p for p in (sim.prepare(i, env) for i, env in enumerate(envs))
                 if p is not None]
         for p in live:
             sim.dispatch_log.append((t_wall, p.client_id, p.env.E_max))
 
-        subs: dict = {}
-        if use_pool and rc.method == "anycostfl":
-            for p in live:
-                if p.alpha not in subs:
-                    subs[p.alpha] = sim.shrink_fast(sorted_params, p.alpha)
+        jobs = [TrainJob(p.client_id, p.alpha, p.batches) for p in live]
         if use_pool:
-            trained = sim.pool.train_shared(
-                sorted_params,
-                [TrainJob(p.client_id, p.alpha, p.batches) for p in live],
-                subs)
+            trained = sim.pool.train_shared(sorted_params, jobs)
         else:
             trained = [sim.train_one(p, sorted_params) for p in live]
 
         en, fl, cb = 0.0, 0.0, 0.0
         en_cmp = en_com = 0.0
-        for p, tr in zip(live, trained):
-            sim.materialize(p, tr, sorted_params, fast=use_pool,
-                            sub=subs.get(p.alpha))
+        for p, j, tr in zip(live, jobs, trained):
+            sim.materialize(p, tr, sorted_params, sub=j.sub_params)
             p.dispatched_at = t_wall
             p.completes_at = t_wall + p.duration
             queue.push(p.completes_at, ev_mod.COMPLETE, p.client_id, p)
@@ -558,7 +531,7 @@ def _run_round_based(sim: Simulation, policy, orch: OrchestratorConfig,
             hist.log_round(t, latency_s=0.0, energy_j=en, flops=0.0,
                            comm_bits=0.0, mean_alpha=0.0, mean_beta=0.0,
                            mean_gain=0.0, t_wall=t_wall,
-                           t_max_effective=t_max_eff)
+                           t_max_effective=sim.fleet_cfg.T_max)
             continue
 
         bh_bits, n_cells_rep, e_ship = 0.0, 0, 0.0
@@ -581,10 +554,7 @@ def _run_round_based(sim: Simulation, policy, orch: OrchestratorConfig,
                 w = apply_scales(base_weights(
                     rc.method, rc.use_aio, [p.update for p in accepted],
                     [p.fedhq_level for p in accepted]), scales)
-                params = sim.aggregate(sorted_params, accepted, w,
-                                       fast=use_pool)
-        for p in live:
-            sim.fleet.debit(p.client_id, p.energy, t_wall)
+                params = sim.aggregate(sorted_params, accepted, w)
 
         log = hist.log_round(
             t, latency_s=lat, energy_j=en, flops=fl, comm_bits=cb,
@@ -593,7 +563,8 @@ def _run_round_based(sim: Simulation, policy, orch: OrchestratorConfig,
                                      for p in live])),
             mean_gain=float(np.mean([p.strat.gain for p in live])),
             t_wall=t_wall, n_clients=len(accepted),
-            n_dropped=len(live) - len(accepted), t_max_effective=t_max_eff,
+            n_dropped=len(live) - len(accepted),
+            t_max_effective=sim.fleet_cfg.T_max,
             n_cells_reporting=n_cells_rep, backhaul_bits=bh_bits,
             energy_train_j=en_cmp, energy_uplink_j=en_com,
             energy_backhaul_j=e_ship, latency_train_s=lat_parts[0],
@@ -649,10 +620,6 @@ def _run_fedbuff(sim: Simulation, policy, orch: OrchestratorConfig,
         nonlocal peak_inflight
         inflight_version[p.client_id] = p.version
         peak_inflight = max(peak_inflight, len(inflight_version))
-        if sim.fleet.next_departure(p.client_id, now) < p.completes_at:
-            raise NotImplementedError(
-                "a device that leaves mid-flight: fleet dynamics "
-                "(ROADMAP queue 1) brings the churn event")
         queue.push(p.completes_at, ev_mod.COMPLETE, p.client_id, p)
 
     def dispatch(i: int, env: schedule.DeviceEnv, now: float) -> None:
@@ -725,9 +692,6 @@ def _run_fedbuff(sim: Simulation, policy, orch: OrchestratorConfig,
         p = ev.payload
         inflight_version.pop(p.client_id, None)   # flight landed
         p.staleness = version - p.version
-        # the device spent its planned round energy whether or not the
-        # server admits the update
-        sim.fleet.debit(p.client_id, p.strat.E_cmp + p.strat.E_com, now)
         if not policy.admit(p.staleness):
             n_stale += 1
             en += p.strat.E_cmp + p.strat.E_com   # spent, never aggregated
@@ -750,8 +714,8 @@ def _run_fedbuff(sim: Simulation, policy, orch: OrchestratorConfig,
         for b in buffer:
             vk = (b.version, b.alpha)
             if vk not in shrunk:
-                shrunk[vk] = sim.shrink_fast(version_params[b.version],
-                                             b.alpha)
+                shrunk[vk] = shrinking.shrink(version_params[b.version],
+                                              b.alpha, sim.spec)
             jobs.append(TrainJob(b.client_id, b.alpha, b.batches,
                                  sub_params=shrunk[vk]))
         if use_pool:
@@ -766,7 +730,7 @@ def _run_fedbuff(sim: Simulation, policy, orch: OrchestratorConfig,
         gamma = orch.staleness_exponent
         for b, j, tr in zip(buffer, jobs, trained):
             sim.materialize(b, tr, version_params[b.version],
-                            fast=use_pool, sub=j.sub_params)
+                            sub=j.sub_params)
             en += b.energy
             en_cmp += b.e_cmp
             en_com += b.e_com
@@ -806,7 +770,7 @@ def _run_fedbuff(sim: Simulation, policy, orch: OrchestratorConfig,
             mean_staleness=float(np.mean([b.staleness for b in buffer])),
             max_staleness=int(max(b.staleness for b in buffer)),
             n_stale_dropped=n_stale,
-            t_max_effective=sim.effective_T_max(now),
+            t_max_effective=sim.fleet_cfg.T_max,
             energy_train_j=en_cmp, energy_uplink_j=en_com,
             latency_train_s=lat_train, latency_uplink_s=lat - lat_train)
         done = orch.max_wallclock_s is None and n_agg >= rc.rounds

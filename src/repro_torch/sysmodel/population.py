@@ -13,7 +13,6 @@ gives the same envs.
 from __future__ import annotations
 
 import dataclasses
-import math
 from typing import Any, Optional
 
 import numpy as np
@@ -129,18 +128,6 @@ class Fleet:
         w = self._wireless(i)
         rate = achievable_rate(self._distances(rng, 1, w), w, rng=rng)
         return self._env(i, rate[0], W, S_bits)
-
-    # a static fleet: every device is always in its cell, never leaves
-    # mid-flight and has no battery to debit
-
-    def available(self, i: int, t: float) -> bool:
-        return True
-
-    def next_departure(self, i: int, t: float) -> float:
-        return math.inf
-
-    def debit(self, i: int, energy_j: float, t: float) -> None:
-        pass
 
 
 _NOT_PORTED = {

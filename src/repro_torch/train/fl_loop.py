@@ -74,7 +74,6 @@ class RoundLog:
     mean_staleness: float = 0.0   # fedbuff: mean server-version lag
     max_staleness: int = 0        # fedbuff: worst admitted version lag
     n_stale_dropped: int = 0      # fedbuff: rejected by the staleness cap
-    n_aborted: int = 0            # churned out mid-flight (0: static fleet)
     t_max_effective: float = 0.0  # T_max handed to the P4 solver
     # hierarchical topologies (0 on the flat path)
     n_cells_reporting: int = 0    # cells that shipped a partial

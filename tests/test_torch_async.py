@@ -200,8 +200,7 @@ def test_fedbuff_on_a_hierarchy_raises_as_the_reference():
 @pytest.mark.parametrize("n_cells", [None, 2])
 def test_device_env_draws_as_the_reference(n_cells):
     """One device's fresh channel draw: the same env and the same numpy
-    stream position as the reference's, flat and per cell; a static
-    fleet is always available, never departs and has no battery."""
+    stream position as the reference's, flat and per cell."""
     fleets = []
     for mod, topo in ((population, TopologyConfig),
                       (jpopulation, jtopology.TopologyConfig)):
@@ -211,11 +210,9 @@ def test_device_env_draws_as_the_reference(n_cells):
         fleet = mod.make_fleet(rng, cfg, np.array([40, 30, 20, 10]))
         envs = [dataclasses.astuple(fleet.device_env(rng, i, 1e6, 3.2e7))
                 for i in (2, 0, 3, 2)]
-        fleets.append((fleet, envs, rng.bit_generator.state))
-    (fleet, envs, state), (_, jenvs, jstate) = fleets
+        fleets.append((envs, rng.bit_generator.state))
+    (envs, state), (jenvs, jstate) = fleets
     assert envs == jenvs and state == jstate
-    assert fleet.available(1, 7.0) and fleet.next_departure(1, 7.0) == np.inf
-    assert fleet.debit(1, 3.0, 7.0) is None
 
 
 # --------------------------------------------------------------- client pool
