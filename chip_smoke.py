@@ -39,6 +39,14 @@ Phases, in order; any failure exits non-zero:
    fedbuff run (``buffer_size=2``, 30 simulated seconds) on both: the
    event trace, every merge's clients and staleness, the stale drops and
    the peak in-flight count exact; bits, energy and losses rtol 1e-3.
+   Then a 4-device flat dynamic run (Markov availability, a battery,
+   ``gain`` selection at participation 0.5) and a 4-device, 2-cell
+   mobile run (random waypoint, ``nearest`` handover), 2 rounds each,
+   on both (:func:`dynamic_pair`): the dispatch log's devices,
+   ``n_unavailable``, ``n_aborted``, ``n_handovers``, the cells
+   reporting and the trace's event kinds exact; ``t_wall``, bits,
+   energy and losses rtol 1e-3; where the gates differ, an availability
+   flip must lie between the two runs' round starts.
 4. The main paths, each with every launch counter zeroed just before and
    read just after, fmnist-cnn at full width, 12 devices, 3 rounds,
    n_train 1536, the beta planner on, eval every round:
@@ -115,6 +123,27 @@ Phases, in order; any failure exits non-zero:
        with accepted updates;
    (c) fedbuff, ``buffer_size`` 8, 3 merges, no staleness cap: #5 and #7
        24 launches each, the norm call 25, #3 8, #4 80, #6 and #8 none.
+8. Fleet dynamics and mobility through ``run_fl``, the same size and
+   planner, each run held to ``expected_launches`` (a churned flight is
+   never compressed; at least one round must aggregate); each prints its
+   host wall time and per round ``n_clients``, ``n_unavailable``,
+   ``n_aborted``, ``n_handovers`` and ``mean_soc``:
+   (a) a dynamic flat sync run: Markov availability (seed 0, 30 s on, 15
+       s off), ``BatteryConfig(capacity_j=30, recharge_w=0.2)``, ``gain``
+       selection at participation 0.5: #6 once per round with accepted
+       updates, every dispatch's headroom at least ``min_headroom_j``,
+       some device gated out or churned;
+   (b) a mobile hierarchy, 4 cells, random waypoint (seed 7, 20-40 m/s),
+       ``nearest`` handover with a 25 m margin: #7 once per accepted
+       update, #8 once per extra reporting cell, no #6, one HANDOVER
+       event per logged handover;
+   (c) a replay scenario written to a temporary file
+       (:func:`write_scenario`, the 4 sites of ``cell_sites(4, 550)``):
+       at least one handover and one CHURN, and cell 3's ships after
+       round 0 at its stepped-down 1e7 bit/s;
+   (d) a dynamic fedbuff run, buffer 8, 3 merges, (a)'s availability and
+       battery and Gauss-Markov motion: RETRY and CHURN events, #5 and
+       #7 once per buffered update (24), no #6 or #8.
 
 The last lines are the card's name and power limit, one JSON object of
 kernels, and the result line.  Without a card, or without the rest of
@@ -364,7 +393,10 @@ def expected_launches(cfg, hist, n_rho: int, n_levels: int,
     aggregates with one #6 when it accepted any; a hierarchical one
     absorbs each accepted update (#7) and merges each extra reporting
     cell (#8); a fedbuff merge compresses and absorbs (#7) each buffered
-    update and never stacks the buffer (no #6)."""
+    update and never stacks the buffer (no #6).  A flight that churns
+    out of the cell mid-round is prepared but never trained, so it is
+    never compressed and counts in none of these; a round that trains
+    nobody launches nothing."""
     from repro_torch.kernels import ops
     n_upd = sum(r.n_clients + r.n_dropped for r in hist.rounds)
     anycost = cfg.method == "anycostfl"
@@ -385,14 +417,17 @@ def expected_launches(cfg, hist, n_rho: int, n_levels: int,
 
 
 def drive_run(label: str, run_cfg, fleet, n_rho: int, n_levels: int, *,
-              orch=None, hier: bool = False, must: dict = None):
+              orch=None, hier: bool = False, must: dict = None,
+              every_round: bool = True):
     """One ``run_fl`` on the card under ``orch`` (None: sync) with every
     launch counter zeroed just before and read just after.  Every round
     (fedbuff: merge) must aggregate updates, so every kernel of the path
-    launches; the counts must be the ones ``expected_launches`` derives,
-    which must agree with ``must``; the losses must be finite and the
-    final parameters finite CUDA tensors.  Returns the history, the
-    launches and the host wall seconds."""
+    launches (on a dynamic fleet, ``every_round=False``, at least one
+    round must, as a round may find nobody to train); the counts must be
+    the ones ``expected_launches`` derives, which must agree with
+    ``must``; the losses must be finite and the final parameters finite
+    CUDA tensors.  Returns the history, the launches and the host wall
+    seconds."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.train.fl_loop import run_fl
@@ -404,8 +439,10 @@ def drive_run(label: str, run_cfg, fleet, n_rho: int, n_levels: int, *,
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     got = ops.launch_counts()
-    if not all(r.n_clients > 0 for r in hist.rounds):
-        fail(f"{label}: a round aggregated no update")
+    if not (all if every_round else any)(r.n_clients > 0
+                                         for r in hist.rounds):
+        fail(f"{label}: {'a' if every_round else 'every'} round "
+             f"aggregated no update")
     want = expected_launches(run_cfg, hist, n_rho, n_levels, hier,
                              fedbuff=orch is not None
                              and orch.policy == "fedbuff")
@@ -415,9 +452,11 @@ def drive_run(label: str, run_cfg, fleet, n_rho: int, n_levels: int, *,
     if got != want:
         fail(f"{label}: launched {json.dumps(got)}, expected "
              f"{json.dumps(want)}")
-    if not all(r.test_loss is not None and math.isfinite(r.test_loss)
-               for r in hist.rounds):
-        fail(f"{label}: a round's test loss is not finite")
+    # a round that trained nobody logs no evaluation
+    if any(r.test_loss is None and r.n_clients > 0
+           or r.test_loss is not None and not math.isfinite(r.test_loss)
+           for r in hist.rounds):
+        fail(f"{label}: a round's test loss is missing or not finite")
     if not all(bool(torch.isfinite(t).all()) and t.device.type == "cuda"
                for t in tree_leaves(hist.final_params)):
         fail(f"{label}: final parameters are not finite CUDA tensors")
@@ -727,6 +766,281 @@ def async_phase(n_rho: int, n_levels: int) -> dict:
     return launched
 
 
+def dynamic_pair(label: str, run_cfg, fleet) -> None:
+    """Phase 3's dynamic and mobile runs: one ``run_orchestrated`` on the
+    CPU and one on the card, same seed, same uniforms.  Exact: the
+    dispatch log's devices, each round's ``n_unavailable``,
+    ``n_aborted``, ``n_handovers`` and cells reporting, and the trace's
+    event kinds; rtol 1e-3: ``t_wall``, bits, energy and losses.  A round
+    starts at the previous one's ``t_wall``, which holds the realized
+    uplink time, so the two runs start a round a last-bit apart; where an
+    availability flip lies between the two starts, the gates may differ
+    from that round on, which is shown (the flip and the gap) and ends
+    the comparison; any other difference fails."""
+    from repro_torch.fleet import make_trace
+    from repro_torch.orchestrator.runner import run_orchestrated
+    hists = {where: run_orchestrated(run_cfg, fleet, None, device=where,
+                                     uniforms=CpuDrawnUniforms(7, where))
+             for where in ("cpu", "cuda")}
+    c_h, g_h = hists["cpu"], hists["cuda"]
+    trace = make_trace(fleet.dynamics.availability, fleet.n_devices) \
+        if fleet.dynamics is not None else None
+    # a round that trained nobody logs its start, and the idle server
+    # then moves the clock a deadline on
+    starts = {w: [0.0] + [r.t_wall + (fleet.T_max if r.flops == 0 else 0.0)
+                          for r in h.rounds[:-1]]
+              for w, h in hists.items()}
+    dlog = {w: {} for w in hists}
+    for w, h in hists.items():
+        for t, i, _ in h.dispatch_log:
+            dlog[w].setdefault(t, []).append(i)
+    if len(c_h.rounds) != len(g_h.rounds):
+        fail(f"{label}: {len(g_h.rounds)} rounds on the card, "
+             f"{len(c_h.rounds)} on the CPU")
+    explained = None
+    for k, (c, g) in enumerate(zip(c_h.rounds, g_h.rounds)):
+        t_c, t_g = starts["cpu"][k], starts["cuda"][k]
+        same = (c.n_unavailable, c.n_aborted, c.n_handovers,
+                c.n_cells_reporting, c.n_clients) == \
+            (g.n_unavailable, g.n_aborted, g.n_handovers,
+             g.n_cells_reporting, g.n_clients) \
+            and dlog["cpu"].get(t_c) == dlog["cuda"].get(t_g)
+        if not same:
+            lo, hi = min(t_c, t_g), max(t_c, t_g)
+            flips = [(i, trace.next_change(i, lo))
+                     for i in range(fleet.n_devices)] if trace else []
+            flips = [(i, f) for i, f in flips if f <= hi]
+            if not flips:
+                fail(f"{label}: round {k}'s gates, cohort or cells differ "
+                     f"between the card and the CPU with no availability "
+                     f"flip between their starts {t_g!r} and {t_c!r}")
+            explained = (k, lo, hi, flips)
+            break
+        for f in ("t_wall", "comm_bits", "energy_j", "test_loss"):
+            a, b = getattr(c, f), getattr(g, f)
+            if (a is None) != (b is None) or a is not None \
+                    and not abs(a - b) <= 1e-3 * abs(a):
+                fail(f"{label}: {f} {b} on the card vs {a} on the CPU in "
+                     f"round {k} (rtol 1e-3)")
+    if explained is None:
+        if [e[2] for e in c_h.trace] != [e[2] for e in g_h.trace] \
+                or [d[1] for d in c_h.dispatch_log] != \
+                [d[1] for d in g_h.dispatch_log]:
+            fail(f"{label}: the trace's event kinds or the dispatch log's "
+                 f"devices differ between the card and the CPU")
+        note = "every round agrees"
+    else:
+        k, lo, hi, flips = explained
+        note = (f"from round {k} the gates differ: availability flips "
+                f"{flips} lie between the two starts {lo!r} and {hi!r}")
+    per_round = [(r.n_clients, r.n_unavailable, r.n_aborted, r.n_handovers,
+                  r.n_cells_reporting) for r in g_h.rounds]
+    print(f"[agree] {label}, card vs CPU: rounds (n_clients, "
+          f"n_unavailable, n_aborted, n_handovers, n_cells_reporting) "
+          f"{per_round}; events {[e[2] for e in g_h.trace]}; t_wall "
+          f"{[r.t_wall for r in g_h.rounds]} vs "
+          f"{[r.t_wall for r in c_h.rounds]}; test_loss "
+          f"{[r.test_loss for r in g_h.rounds]} vs "
+          f"{[r.test_loss for r in c_h.rounds]}; {note}", flush=True)
+
+
+def write_scenario(path: str) -> dict:
+    """Phase 8c's world: 12 devices over the 4 ring sites of
+    ``cell_sites(4, 550)``, written to ``path``.  Devices 0 and 1 cross
+    from one site's area to the next's within 20 s; device 2 leaves the
+    cell at t = 1 s, inside round 0 (every planned round of this fleet
+    lasts several seconds); the rest stand near a site, and cell 3 keeps
+    three of them, always on, so it reports every round; cell 3's
+    backhaul steps from 1e9 to 1e7 bit/s at t = 1 s, after round 0's
+    ship (at its start, t = 0)."""
+    from repro_torch.mobility import ScenarioTrace
+    from repro_torch.topology import cell_sites
+    sites = cell_sites(N_CELLS, 550.0)
+
+    def near(k, dx, dy):
+        return [[0.0, float(sites[k][0] + dx), float(sites[k][1] + dy)]]
+
+    devices = [
+        {"waypoints": [[0.0, 260.0, 10.0], [20.0, 10.0, 260.0]]},
+        {"waypoints": [[0.0, -260.0, -10.0], [20.0, -10.0, -260.0]]},
+        {"waypoints": near(0, -25.0, -30.0), "on": [[0.0, 1.0]]},
+        {"waypoints": near(0, -40.0, 20.0)},
+        {"waypoints": near(0, 15.0, 45.0)},
+        {"waypoints": near(1, 30.0, -20.0)},
+        {"waypoints": near(1, -35.0, -10.0)},
+        {"waypoints": near(2, 20.0, 30.0)},
+        {"waypoints": near(2, 10.0, -40.0)},
+        {"waypoints": near(3, -30.0, 15.0)},
+        {"waypoints": near(3, 25.0, 20.0)},
+        {"waypoints": near(3, 5.0, -35.0)},
+    ]
+    cells = [{"site": [float(x), float(y)]} for x, y in sites]
+    cells[3]["backhaul_bps"] = [[0.0, 1e9], [1.0, 1e7]]
+    ScenarioTrace(devices=devices, cells=cells).save(path)
+    return dict(churner=2, low_rate_cell=3, low_rate=1e7)
+
+
+@contextlib.contextmanager
+def timing_control_plane(acc: dict):
+    """Add the host seconds spent in the round-based control plane to
+    ``acc``: the gates and selection (``Simulation.gate_round``), the
+    handover decision (``HandoverEngine.reassign``) and the motion
+    models' positions (``Fleet.positions``, ``Fleet.device_env``)."""
+    from repro_torch.mobility.handover import HandoverEngine
+    from repro_torch.orchestrator.runner import Simulation
+    from repro_torch.sysmodel.population import Fleet
+    patched = [(Simulation, "gate_round", "gate"),
+               (HandoverEngine, "reassign", "handover"),
+               (Fleet, "positions", "positions"),
+               (Fleet, "device_env", "device_env")]
+    originals = [getattr(cls, name) for cls, name, _ in patched]
+
+    def timed(fn, key):
+        def wrapper(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                acc[key] = acc.get(key, 0.0) + time.perf_counter() - t0
+        return wrapper
+
+    for (cls, name, key), fn in zip(patched, originals):
+        setattr(cls, name, timed(fn, key))
+    try:
+        yield acc
+    finally:
+        for (cls, name, _), fn in zip(patched, originals):
+            setattr(cls, name, fn)
+
+
+def fleet_phase(n_rho: int, n_levels: int) -> dict:
+    """Phase 8: fleet dynamics and mobility through ``run_fl`` on the
+    card, each run held by :func:`drive_run` (at least one round must
+    aggregate).  Returns each run's launches."""
+    import tempfile
+
+    from repro_torch.fleet import (AvailabilityConfig, BatteryConfig,
+                                   FleetDynamicsConfig)
+    from repro_torch.mobility import HandoverConfig, MobilityConfig
+    from repro_torch.orchestrator.policies import OrchestratorConfig
+    from repro_torch.sysmodel.population import FleetConfig
+    from repro_torch.topology import TopologyConfig, payload_bits
+    from repro_torch.train.fl_loop import FLRunConfig
+
+    cfg = FLRunConfig(rounds=3, n_train=1536, n_test=384, eval_every=1,
+                      seed=0, use_planner=True)
+    battery = BatteryConfig(capacity_j=30.0, recharge_w=0.2, seed=0)
+    dyn = FleetDynamicsConfig(
+        availability=AvailabilityConfig(kind="markov", seed=0,
+                                        mean_on_s=30.0, mean_off_s=15.0),
+        battery=battery, selection="gain", participation=0.5)
+    launched = {}
+
+    def kinds(hist):
+        out = {}
+        for e in hist.trace:
+            out[e[2]] = out.get(e[2], 0) + 1
+        return out
+
+    def drive(label, fleet, orch=None, hier=False, must=None):
+        with timing_control_plane({}) as plane:
+            hist, got, wall = drive_run(label, cfg, fleet, n_rho, n_levels,
+                                        orch=orch, hier=hier, must=must,
+                                        every_round=False)
+        launched[label] = got
+        per_round = [(r.n_clients, r.n_unavailable, r.n_aborted,
+                      r.n_handovers, r.mean_soc) for r in hist.rounds]
+        print(f"[fleet] {label}: {wall:.3f} s host wall time; rounds "
+              f"(n_clients, n_unavailable, n_aborted, n_handovers, "
+              f"mean_soc) {per_round}; events {json.dumps(kinds(hist))}; "
+              f"control-plane host ms "
+              f"{json.dumps({k: v * 1e3 for k, v in plane.items()})}; "
+              f"launches {json.dumps({k: v for k, v in got.items() if v})}",
+              flush=True)
+        return hist
+
+    print(f"[fleet] fmnist-cnn at full width, {N_DEVICES} devices, "
+          f"n_train {cfg.n_train}, {cfg.rounds} rounds, planner on",
+          flush=True)
+    # (a) dynamic flat sync: #6 once per round that accepted an update
+    hist = drive("8a dynamic flat", FleetConfig(n_devices=N_DEVICES,
+                                                dynamics=dyn),
+                 must=dict(aio_absorb=0, aio_merge=0))
+    low = [h for _, _, h in hist.dispatch_log
+           if h < battery.min_headroom_j]
+    if low:
+        fail(f"8a dynamic flat: dispatched with headroom {low} J, below "
+             f"{battery.min_headroom_j} J")
+    if sum(r.n_unavailable + r.n_aborted for r in hist.rounds) == 0:
+        fail("8a dynamic flat: no device was gated out or churned")
+    # (b) mobile hierarchical sync: #7 per accepted update, #8 per extra
+    # reporting cell, #6 never; one HANDOVER event a move
+    mob_hier = FleetConfig(
+        n_devices=N_DEVICES, topology=TopologyConfig(
+            kind="hier", n_cells=N_CELLS,
+            handover=HandoverConfig("nearest", margin_m=25.0)),
+        mobility=MobilityConfig(kind="random_waypoint", seed=7,
+                                speed_range=(20.0, 40.0)))
+    hist = drive("8b mobile hier", mob_hier, hier=True,
+                 must=dict(aio_aggregate=0))
+    if kinds(hist).get("handover", 0) != hist.total_handovers():
+        fail(f"8b mobile hier: {kinds(hist).get('handover', 0)} HANDOVER "
+             f"events, {hist.total_handovers()} handovers logged")
+    # (c) a replay scenario written here: crossings, a mid-round exit and
+    # a backhaul that steps down after round 0
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "scenario.json")
+        world = write_scenario(path)
+        fleet = FleetConfig(
+            n_devices=N_DEVICES, topology=TopologyConfig(
+                kind="hier", n_cells=N_CELLS,
+                handover=HandoverConfig("nearest", margin_m=25.0)),
+            mobility=MobilityConfig(kind="replay", scenario_file=path),
+            dynamics=FleetDynamicsConfig(availability=AvailabilityConfig(
+                kind="replay", trace_file=path)))
+        hist = drive("8c replay scenario", fleet, hier=True,
+                     must=dict(aio_aggregate=0))
+    ship = payload_bits(sum(math.prod(s) for s in FMNIST_SHAPES),
+                        len(FMNIST_SHAPES), "f32")
+    slow = fleet.topology.backhaul.latency_s + ship / world["low_rate"]
+    churned = [e[3] for e in hist.trace if e[2] == "churn"]
+    if hist.total_handovers() == 0 or world["churner"] not in churned:
+        fail(f"8c replay scenario: {hist.total_handovers()} handovers, "
+             f"devices {churned} churned; expected a handover and device "
+             f"{world['churner']}'s exit")
+    # every round after round 0 starts past the step, and the slowed cell
+    # (always reporting) ships longest, so it sets the backhaul latency
+    later = [r.latency_backhaul_s for r in hist.rounds[1:]]
+    if hist.rounds[0].latency_backhaul_s >= slow \
+            or not all(abs(x - slow) <= 1e-9 * slow for x in later):
+        fail(f"8c replay scenario: backhaul latencies "
+             f"{[r.latency_backhaul_s for r in hist.rounds]} s, expected "
+             f"{slow} s (cell {world['low_rate_cell']} at "
+             f"{world['low_rate']:g} bit/s) after round 0")
+    print(f"[fleet] 8c: cell {world['low_rate_cell']}'s ships after round "
+          f"0 take {slow:.6f} s at {world['low_rate']:g} bit/s; backhaul "
+          f"latency per round "
+          f"{[r.latency_backhaul_s for r in hist.rounds]}", flush=True)
+    # (d) dynamic fedbuff with motion: #5 and #7 per buffered update, no
+    # #6 or #8; gated devices RETRY, flights CHURN
+    k, merges = 8, cfg.rounds
+    hist = drive("8d dynamic fedbuff", FleetConfig(
+        n_devices=N_DEVICES, dynamics=dataclasses.replace(
+            dyn, selection="uniform", participation=1.0),
+        mobility=MobilityConfig(kind="gauss_markov", seed=0)),
+        orch=OrchestratorConfig(policy="fedbuff", buffer_size=k),
+        must=dict(fused_sparsify_quantize=merges * k,
+                  aio_absorb=merges * k, aio_aggregate=0, aio_merge=0))
+    ev = kinds(hist)
+    if ev.get("retry", 0) == 0 or ev.get("churn", 0) == 0:
+        fail(f"8d dynamic fedbuff: events {ev}, expected RETRY and CHURN")
+    if [r.n_clients for r in hist.rounds] != [k] * merges:
+        fail(f"8d dynamic fedbuff: merges of "
+             f"{[r.n_clients for r in hist.rounds]}, expected {merges} of "
+             f"{k}")
+    return launched
+
+
 def main() -> None:
     try:
         import torch
@@ -737,8 +1051,11 @@ def main() -> None:
              "CUDA card")
     try:
         from repro_torch.core import compression
+        from repro_torch.fleet import (AvailabilityConfig, BatteryConfig,
+                                       FleetDynamicsConfig)
         from repro_torch.kernels import (aio_agg, build, fused_compress,
                                          ops, quantize, ref, sparsify)
+        from repro_torch.mobility import HandoverConfig, MobilityConfig
         from repro_torch.orchestrator.policies import OrchestratorConfig
         from repro_torch.orchestrator.runner import run_orchestrated
         from repro_torch.sysmodel.population import FleetConfig
@@ -1060,6 +1377,25 @@ def main() -> None:
           f"{[r.test_loss for r in fb['cuda'].rounds]} vs "
           f"{[r.test_loss for r in fb['cpu'].rounds]}", flush=True)
 
+    # a dynamic flat fleet and a mobile hierarchy, card vs CPU
+    dynamic_pair("dynamic 4-device flat run (Markov, battery, gain at "
+                 "0.5)", small, FleetConfig(
+                     n_devices=4, dynamics=FleetDynamicsConfig(
+                         availability=AvailabilityConfig(
+                             kind="markov", seed=1, mean_on_s=30.0,
+                             mean_off_s=15.0),
+                         battery=BatteryConfig(capacity_j=30.0,
+                                               recharge_w=0.2, seed=0),
+                         selection="gain", participation=0.5)))
+    dynamic_pair("mobile 4-device 2-cell run (random waypoint, nearest "
+                 "handover)", small, FleetConfig(
+                     n_devices=4, topology=TopologyConfig(
+                         kind="hier", n_cells=2, handover=HandoverConfig(
+                             "nearest", margin_m=5.0)),
+                     mobility=MobilityConfig(kind="random_waypoint",
+                                             seed=9,
+                                             speed_range=(30.0, 60.0))))
+
     # ---------------------------------------------------------------- 4
     cfg = FLRunConfig(rounds=3, n_train=1536, n_test=384, eval_every=1,
                       seed=0, use_planner=True)
@@ -1343,6 +1679,8 @@ def main() -> None:
     by_path = {"4a flat": counts["flat"], "4b hier": counts["hier"],
                **{f"7 {k}": v for k, v in async_phase(n_rho,
                                                       n_levels).items()}}
+    # ---------------------------------------------------------------- 8
+    by_path.update(fleet_phase(n_rho, n_levels))
     for k in kernels:
         k["launches_by_path"] = {path: c[k["name"]]
                                  for path, c in by_path.items()}

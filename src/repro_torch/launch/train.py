@@ -1,13 +1,19 @@
 """FL training entry point: AnycostFL and the Table I baselines under the
 sync, semisync or fedbuff policy, on a flat fleet or (round-based
-policies) a client -> edge -> cloud hierarchy.
+policies) a client -> edge -> cloud hierarchy, static or dynamic, fixed
+or moving.
 
   PYTHONPATH=src python -m repro_torch.launch.train --mode fl \\
       --method anycostfl --rounds 40 --devices 12 [--device cpu] \\
       [--arch vgg9-cifar] [--non-iid] \\
       [--async-mode semisync --deadline 8 --straggler-mode downweight] \\
       [--async-mode fedbuff --buffer-size 8 --max-wallclock 300] \\
-      [--topology hier --cells 4 --backhaul-codec int8 --backhaul-ef]
+      [--topology hier --cells 4 --backhaul-codec int8 --backhaul-ef] \\
+      [--availability markov --battery on --selection gain \\
+       --participation 0.5] \\
+      [--mobility random_waypoint --speed 30 --handover-policy nearest] \\
+      [--mobility replay --scenario-trace world.json \\
+       --availability replay]
 
 ``--method`` is one of ``train/fl_loop.METHODS``; ``--arch`` names one of
 the paper's two models (an LM family raises ``NotImplementedError``).
@@ -20,6 +26,9 @@ from __future__ import annotations
 import argparse
 import json
 
+from repro_torch.fleet import (AvailabilityConfig, BatteryConfig,
+                               FleetDynamicsConfig)
+from repro_torch.mobility import HandoverConfig, MobilityConfig
 from repro_torch.orchestrator.policies import POLICIES, OrchestratorConfig
 from repro_torch.orchestrator.runner import run_orchestrated
 from repro_torch.sysmodel.population import FleetConfig
@@ -27,15 +36,56 @@ from repro_torch.topology import BackhaulConfig, TopologyConfig
 from repro_torch.train.fl_loop import METHODS, FLRunConfig
 
 
+def _dynamics_config(args):
+    """The fleet-dynamics control plane from the flags.  The defaults
+    (``--availability always --battery off --selection uniform``) build a
+    config that gives the static fleet bit for bit."""
+    avail = AvailabilityConfig(
+        kind=args.availability,
+        seed=args.availability_seed
+        if args.availability_seed is not None else args.seed,
+        # one scenario file can drive positions and availability
+        trace_file=args.trace_file or args.scenario_trace)
+    battery = None
+    if args.battery == "on":
+        battery = BatteryConfig(capacity_j=args.battery_capacity,
+                                recharge_w=args.battery_recharge,
+                                seed=args.seed)
+    return FleetDynamicsConfig(
+        availability=avail, battery=battery, selection=args.selection,
+        participation=args.participation,
+        selection_seed=args.selection_seed,
+        soc_deadline_scale=args.soc_deadline_scale,
+        soc_deadline_threshold=args.soc_deadline_threshold)
+
+
+def _mobility_config(args):
+    """Device motion from the flags; None for ``static`` (the paper's
+    per-round position re-drop)."""
+    if args.mobility == "static":
+        return None
+    return MobilityConfig(
+        kind=args.mobility,
+        seed=args.mobility_seed if args.mobility_seed is not None
+        else args.seed,
+        speed_range=(0.5 * args.speed, 1.5 * args.speed),
+        mean_speed=args.speed, scenario_file=args.scenario_trace)
+
+
 def _topology_config(args):
     """The multi-cell topology from the flags; None for ``flat``."""
     if args.topology == "flat":
         return None
+    handover = None
+    if args.mobility != "static" and args.handover_policy != "none":
+        handover = HandoverConfig(policy=args.handover_policy,
+                                  margin_m=args.handover_margin)
     return TopologyConfig(
         kind="hier", n_cells=args.cells,
         assignment=args.cell_assignment,
         cell_radius_scale=args.cell_radius_scale,
         cell_deadline_s=args.cell_deadline,
+        handover=handover,
         backhaul_rate_range=(tuple(args.backhaul_rate_range)
                              if args.backhaul_rate_range else None),
         backhaul_het_seed=args.seed,
@@ -129,13 +179,72 @@ def main(argv=None):
                     choices=["streaming", "batched"],
                     help="hierarchical aggregation route: the streaming "
                          "edge fold, or the batched (I, N) Eq. 5")
+    # ---- mobility and handover
+    ap.add_argument("--mobility", default="static",
+                    choices=["static", "random_waypoint", "gauss_markov",
+                             "replay"],
+                    help="device motion model (static = the paper's "
+                         "per-round position re-drop)")
+    ap.add_argument("--speed", type=float, default=5.0,
+                    help="mean device speed in m/s (random_waypoint "
+                         "draws U[0.5x, 1.5x]; gauss_markov reverts to "
+                         "this mean)")
+    ap.add_argument("--mobility-seed", type=int, default=None,
+                    help="motion-model seed (default: --seed)")
+    ap.add_argument("--handover-policy", default="nearest",
+                    choices=["none", "nearest", "load_balanced"],
+                    help="round-boundary device->cell re-assignment of a "
+                         "mobile hierarchy (none: devices keep their "
+                         "initial cell)")
+    ap.add_argument("--handover-margin", type=float, default=25.0,
+                    help="handover hysteresis margin in metres")
+    ap.add_argument("--scenario-trace", default=None,
+                    help="JSON scenario for --mobility replay: device "
+                         "waypoints, availability intervals and per-cell "
+                         "backhaul rates over time (also feeds "
+                         "--availability replay when no --trace-file is "
+                         "given)")
+    # ---- fleet dynamics
+    ap.add_argument("--availability", default="always",
+                    choices=["always", "markov", "diurnal", "replay"],
+                    help="device availability trace (always = the "
+                         "paper's static fleet)")
+    ap.add_argument("--availability-seed", type=int, default=None,
+                    help="trace seed (default: --seed)")
+    ap.add_argument("--trace-file", default=None,
+                    help="JSON on-intervals for --availability replay")
+    ap.add_argument("--battery", default="off", choices=["off", "on"],
+                    help="per-device state of charge: dispatches drain "
+                         "E_cmp + E_com, headroom clamps E_max")
+    ap.add_argument("--battery-capacity", type=float, default=60.0,
+                    help="battery capacity in joules")
+    ap.add_argument("--battery-recharge", type=float, default=0.05,
+                    help="trickle recharge in joules per simulated second")
+    ap.add_argument("--soc-deadline-scale", type=float, default=None,
+                    help="shrink the T_max handed to the P4 solver by "
+                         "this factor while the fleet's mean state of "
+                         "charge is below --soc-deadline-threshold")
+    ap.add_argument("--soc-deadline-threshold", type=float, default=0.5,
+                    help="mean state-of-charge fraction below which the "
+                         "deadline shrinks")
+    ap.add_argument("--selection", default="uniform",
+                    choices=["uniform", "energy", "gain", "oort"],
+                    help="client-selection policy")
+    ap.add_argument("--participation", type=float, default=1.0,
+                    help="per-round cap as a fraction of the available "
+                         "devices")
+    ap.add_argument("--selection-seed", type=int, default=None,
+                    help="seed of the selection generator (default: "
+                         "--seed, through a generator of its own)")
     args = ap.parse_args(argv)
     run_cfg = FLRunConfig(arch=args.arch, method=args.method,
                           rounds=args.rounds, seed=args.seed,
                           iid=not args.non_iid, n_train=args.n_train,
                           n_test=args.n_test, eval_every=args.eval_every)
     fleet = FleetConfig(n_devices=args.devices,
-                        topology=_topology_config(args))
+                        dynamics=_dynamics_config(args),
+                        topology=_topology_config(args),
+                        mobility=_mobility_config(args))
     orch = OrchestratorConfig(
         policy=args.async_mode, max_wallclock_s=args.max_wallclock,
         deadline_s=args.deadline, buffer_size=args.buffer_size,
@@ -151,11 +260,13 @@ def main(argv=None):
            for th in (0.3, 0.5, 0.7, 0.9) if hist.best_acc >= th}
     print(json.dumps({"arch": args.arch, "method": args.method,
                       "policy": args.async_mode,
-                      "availability": "always", "selection": "uniform",
+                      "availability": args.availability,
+                      "selection": args.selection,
                       "topology": args.topology,
                       "cells": args.cells if args.topology == "hier" else 1,
-                      "mobility": "static",
-                      "handover_policy": "nearest", "n_handovers": 0,
+                      "mobility": args.mobility,
+                      "handover_policy": args.handover_policy,
+                      "n_handovers": hist.total_handovers(),
                       "best_acc": hist.best_acc,
                       "sim_wallclock_s": hist.wallclock(),
                       "backhaul_mb": float(sum(r.backhaul_bits

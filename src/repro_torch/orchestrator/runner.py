@@ -1,6 +1,6 @@
 """FL runner over the discrete-event engine: the ``sync``, ``semisync``
-and ``fedbuff`` policies on a static fleet, flat or hierarchical, for
-every method of ``train/fl_loop.METHODS``.
+and ``fedbuff`` policies on a flat or hierarchical fleet, static or
+dynamic, fixed or moving, for every method of ``train/fl_loop.METHODS``.
 
 ``run_orchestrated`` builds a :class:`Simulation` and the policy
 (``policies.make_policy``).  ``anycostfl`` solves Problem (P4) per
@@ -45,6 +45,24 @@ place) and finalizes Eq. 5 once (:func:`_hier_round_merge`).
 accepted updates with the flat Eq. 5 (``aio_aggregate``) instead,
 charging the same backhaul costs.
 
+**Fleet dynamics** (``FleetConfig.dynamics``): at each round start only
+the devices the availability trace has in the cell and whose battery
+holds ``min_headroom_j`` are candidates; their energy budget is clamped
+to the battery's headroom, and the selection policy picks the round's
+cohort under the participation cap (per cell on a hierarchy).  A device
+whose trace says it leaves before its planned ``T_cmp + T_com`` elapses
+is prepared (its minibatches and uniforms drawn) but never trained: it
+aborts with a CHURN event and is charged its planned energy pro rata.
+Under fedbuff a flight ends in COMPLETE or CHURN, and a gated device
+RETRYs when its trace turns on or its battery is ready again.
+
+**Mobility** (``FleetConfig.mobility``): positions follow seeded
+trajectories and Eq. 8 sees the distance to the serving site; at each
+round boundary the handover engine re-homes devices (one HANDOVER event
+a move) before dispatch, and a flight merges at the cell recorded at
+its dispatch.  A replay scenario can also step each cell's backhaul rate
+over time (``Simulation.cell_backhaul``).
+
 The numpy generator is consumed in the reference's order
 (``repro/orchestrator/runner.py``): setup (task data, partition,
 fleet), then per round (per dispatch under fedbuff) the channel draws,
@@ -62,6 +80,7 @@ key chain.
 from __future__ import annotations
 
 import dataclasses
+import math
 from collections import deque
 from typing import Any, Callable, Optional, Protocol
 
@@ -75,6 +94,8 @@ from repro_torch.core.anycost import (AnycostClient, AnycostServer,
 from repro_torch.data.partition import partition_dirichlet, partition_iid
 from repro_torch.data.synthetic import make_image_task
 from repro_torch.device import resolve_device
+from repro_torch.fleet import AlwaysOn, FleetDynamicsConfig, make_selection
+from repro_torch.mobility import HandoverEngine
 from repro_torch.models import cnn as cnn_mod
 from repro_torch.models.registry import build_model
 from repro_torch.orchestrator import events as ev_mod
@@ -218,21 +239,107 @@ class Simulation:
         self.uniforms = uniforms if uniforms is not None \
             else TorchUniforms(run_cfg.seed + 1, self.device)
         self.pool = ClientPool(self.client)
+
+        # fleet-dynamics control plane: selection draws from a generator
+        # of its own, so who trains when never moves the model-init, data
+        # or channel streams
+        dyn = self.dyn = fleet_cfg.dynamics or FleetDynamicsConfig()
+        sel_seed = dyn.selection_seed if dyn.selection_seed is not None \
+            else run_cfg.seed
+        self.selection = make_selection(
+            dyn.selection, np.random.default_rng([0x5E1EC7, sel_seed]))
         # (t, client_id, headroom_j) per successful dispatch
         self.dispatch_log: list[tuple] = []
+        self.fleet_dynamic = (
+            (self.fleet.trace is not None
+             and not isinstance(self.fleet.trace, AlwaysOn))
+            or self.fleet.battery is not None)
 
         # hierarchical topology (None -> the paper's flat single cell)
         topo = fleet_cfg.topology
         self.topo = topo if topo is not None and topo.kind == "hier" \
             else None
+        # mobility: the handover engine re-homes devices at round
+        # boundaries; a replay scenario may step each cell's backhaul
+        self.handover = None
+        if self.topo is not None and self.fleet.mobility is not None \
+                and self.topo.handover is not None \
+                and self.fleet.n_cells > 1:
+            self.handover = HandoverEngine(self.topo.handover,
+                                           self.fleet.sites)
         self.cell_backhauls = self.topo.cell_backhauls() \
             if self.topo is not None else None
+        self.scenario = self.fleet.scenario
         self.codec_ef = None
         self._ef_frame = None
         if self.topo is not None and self.topo.backhaul.error_feedback:
             self.codec_ef = CodecErrorFeedback()
         # set from OrchestratorConfig.agg_route by run_orchestrated
         self.agg_route = "streaming"
+
+    # ------------------------------------------------------- fleet dynamics
+
+    def effective_T_max(self, t_wall: float) -> float:
+        """Battery-aware deadline: while the fleet's mean state of charge
+        is below ``soc_deadline_threshold``, the T_max handed to the
+        Problem-(P4) solver shrinks by ``soc_deadline_scale``; the
+        fleet's T_max when unconfigured or without a battery."""
+        scale = self.dyn.soc_deadline_scale
+        if scale is None or self.fleet.battery is None:
+            return self.fleet_cfg.T_max
+        if self.fleet.battery.mean_soc_frac(t_wall) \
+                < self.dyn.soc_deadline_threshold:
+            return self.fleet_cfg.T_max * scale
+        return self.fleet_cfg.T_max
+
+    def gate_round(self, t_wall: float, envs: list[schedule.DeviceEnv]):
+        """Availability, battery and selection gating of a round-based
+        dispatch.  Returns ``(selected, envs_eff, n_unavailable,
+        headroom)``.
+
+        On a static fleet (always on, no battery, uniform selection with
+        no binding cap) it selects every device in order, consumes no
+        randomness and hands back the caller's env objects."""
+        n = self.fleet_cfg.n_devices
+        cand = [i for i in range(n) if self.fleet.available(i, t_wall)]
+        envs_eff = {i: self.fleet.dynamic_env(i, envs[i], t_wall)
+                    for i in cand}
+        t_max_eff = self.effective_T_max(t_wall)
+        if t_max_eff != self.fleet_cfg.T_max:
+            envs_eff = {i: dataclasses.replace(e, T_max=t_max_eff)
+                        for i, e in envs_eff.items()}
+        headroom = {i: (self.fleet.battery.headroom(i, t_wall)
+                        if self.fleet.battery is not None
+                        else envs_eff[i].E_max) for i in cand}
+        if not cand:
+            return [], envs_eff, n, headroom
+        if self.topo is not None and self.fleet.n_cells > 1:
+            # per-cell selection: each edge runs the policy over its own
+            # roster under its own cap, in ascending cell order
+            selected = []
+            for k in range(self.fleet.n_cells):
+                ck = [i for i in cand if self.fleet.cell_of(i) == k]
+                if not ck:
+                    continue
+                selected.extend(self.selection.select(
+                    ck, envs_eff, headroom, self._cap(len(ck))))
+            return sorted(selected), envs_eff, n - len(cand), headroom
+        selected = self.selection.select(cand, envs_eff, headroom,
+                                         self._cap(len(cand)))
+        return selected, envs_eff, n - len(cand), headroom
+
+    def _cap(self, n_cand: int) -> int:
+        """The participation cap over ``n_cand`` candidates."""
+        if self.dyn.participation >= 1.0:
+            return n_cand
+        return max(1, math.ceil(self.dyn.participation * n_cand))
+
+    def mean_soc(self, t: float) -> float:
+        """The fleet's mean state of charge at ``t`` (1.0 without a
+        battery)."""
+        if self.fleet.battery is None:
+            return 1.0
+        return self.fleet.battery.mean_soc_frac(t)
 
     # ------------------------------------------------------------ round body
 
@@ -364,6 +471,17 @@ class Simulation:
 
     # --------------------------------------------------- hierarchical glue
 
+    def cell_backhaul(self, k: int, t_wall: float):
+        """Cell k's backhaul at time t: its (possibly heterogeneous)
+        draw, with the rate the scenario trace gives the cell at t, if
+        it gives one."""
+        bh = self.cell_backhauls[k]
+        if self.scenario is not None:
+            rate = self.scenario.backhaul_rate(k, t_wall)
+            if rate is not None:
+                bh = dataclasses.replace(bh, rate_bps=rate)
+        return bh
+
     def encode_ship(self, k: int, part: aggregation.PartialAgg):
         """Wire-encode cell k's partial, through the cell's EF residual
         when the codec runs with error feedback."""
@@ -390,7 +508,8 @@ class Simulation:
 # ---------------------------------------------------------------- round mode
 
 def _hier_round_merge(sim: Simulation, policy,
-                      live: list[PendingUpdate], sorted_params: PyTree,
+                      live: list[PendingUpdate],
+                      aborted: list[PendingUpdate], sorted_params: PyTree,
                       queue: ev_mod.EventQueue, t_wall: float):
     """One hierarchical round tail: per-cell accept -> edge absorb ->
     backhaul ship -> cloud merge.
@@ -398,8 +517,13 @@ def _hier_round_merge(sim: Simulation, policy,
     Each cell applies the arrival policy to its own arrivals (trimmed to
     ``cell_deadline_s`` when set), folds the accepted updates into its
     partial with unnormalized coefficients, and ships it; the round
-    lasts until the slowest cell's barrier plus its shipping time.
-    Membership is the cell recorded on each flight at dispatch.
+    lasts until the slowest cell's barrier plus its shipping time.  A
+    cell with an aborted flight learns of it at the departure, but never
+    waits past its barrier.  Membership is the cell recorded on each
+    flight at dispatch (``PendingUpdate.cell``): handover re-homes
+    devices between rounds, never an update already in the air.  Each
+    cell ships over its backhaul at ``t_wall``
+    (:meth:`Simulation.cell_backhaul`).
 
     Returns ``(accepted, new_params or None, lat, ship_energy,
     backhaul_bits, n_cells_reporting, lat_parts)``; ``lat_parts`` splits
@@ -415,7 +539,8 @@ def _hier_round_merge(sim: Simulation, policy,
     crit: list[tuple[float, float, float, float]] = []
     for k in range(fleet.n_cells):
         cell_live = [p for p in live if p.cell == k]
-        if not cell_live:
+        cell_ab = [p for p in aborted if p.cell == k]
+        if not cell_live and not cell_ab:
             continue
         acc_k, scales_k, lat_k = policy.accept(cell_live, 0.0)
         if cell_dl is not None:
@@ -428,6 +553,12 @@ def _hier_round_merge(sim: Simulation, policy,
                 lat_k = cell_dl
             else:
                 lat_k = min(lat_k, cell_dl)
+        if cell_ab:
+            barrier = cell_dl if cell_dl is not None \
+                else getattr(policy, "deadline", math.inf)
+            lat_k = max(lat_k, min(barrier,
+                                   max(p.completes_at - t_wall
+                                       for p in cell_ab)))
         if acc_k:
             w_uns = [unnormalized_weight(rc.method, rc.use_aio, p.update,
                                          p.fedhq_level) * s
@@ -446,7 +577,7 @@ def _hier_round_merge(sim: Simulation, policy,
                 bits = payload_bits(tree_size(sorted_params),
                                     len(tree_leaves(sorted_params)),
                                     topo.backhaul.codec)
-            t_ship, e_k = sim.cell_backhauls[k].ship_bits(bits)
+            t_ship, e_k = sim.cell_backhaul(k, t_wall).ship_bits(bits)
             bh_bits += bits
             e_ship += e_k
             ships.append((t_wall + lat_k + t_ship, k))
@@ -498,13 +629,53 @@ def _run_round_based(sim: Simulation, policy, orch: OrchestratorConfig,
     t_wall = 0.0
 
     for t in range(rc.rounds):
-        envs = sim.fleet.round_envs(sim.rng, sim.W, sim.S_bits)
+        # round-boundary handover, before dispatch, so the round's
+        # channels, selection and edge merges see the new binding; one
+        # HANDOVER event a move
+        n_handover = 0
+        if sim.handover is not None:
+            new_cells, moves = sim.handover.reassign(
+                sim.fleet.positions(t_wall), sim.fleet.cells)
+            for i, old, new in moves:
+                queue.push(t_wall, ev_mod.HANDOVER, i, (old, new))
+            for _ in moves:
+                queue.pop()
+            sim.fleet.cells = new_cells
+            n_handover = len(moves)
+        envs = sim.fleet.round_envs(sim.rng, sim.W, sim.S_bits, t=t_wall)
         sorted_params = sim.sort_params(params)
         sim.ensure_planner(sorted_params)
-        live = [p for p in (sim.prepare(i, env) for i, env in enumerate(envs))
-                if p is not None]
-        for p in live:
-            sim.dispatch_log.append((t_wall, p.client_id, p.env.E_max))
+
+        selected, envs_eff, n_unavail, headroom = sim.gate_round(t_wall,
+                                                                 envs)
+        t_max_eff = sim.effective_T_max(t_wall)
+        occupancy = int(np.bincount(sim.fleet.cells).max()) \
+            if sim.fleet.cells is not None else 0
+        pendings = [p for p in (sim.prepare(i, envs_eff[i])
+                                for i in selected)
+                    if p is not None]
+        for p in pendings:
+            sim.dispatch_log.append((t_wall, p.client_id,
+                                     headroom[p.client_id]))
+
+        # mid-round churn: a device that leaves the cell before its
+        # planned T_cmp + T_com elapses aborts; it is never trained or
+        # compressed, and is charged its planned energy pro rata
+        live, aborted = [], []
+        for p in pendings:
+            t_off = sim.fleet.next_departure(p.client_id, t_wall)
+            planned = p.strat.T_cmp + p.strat.T_com
+            if t_off < t_wall + planned:
+                p.dispatched_at = t_wall
+                p.completes_at = t_off
+                frac = min(1.0, (t_off - t_wall) / planned) \
+                    if planned > 0 else 1.0
+                p.energy = frac * (p.strat.E_cmp + p.strat.E_com)
+                p.e_cmp = frac * p.strat.E_cmp
+                p.e_com = frac * p.strat.E_com
+                aborted.append(p)
+            else:
+                live.append(p)
 
         jobs = [TrainJob(p.client_id, p.alpha, p.batches) for p in live]
         if use_pool:
@@ -524,32 +695,58 @@ def _run_round_based(sim: Simulation, policy, orch: OrchestratorConfig,
             en_com += p.e_com
             fl += p.update.flops
             cb += p.update.bits
-        for _ in range(len(live)):  # record arrival order
+        for p in aborted:
+            queue.push(p.completes_at, ev_mod.CHURN, p.client_id, p)
+            en += p.energy
+            en_cmp += p.e_cmp
+            en_com += p.e_com
+        for _ in range(len(live) + len(aborted)):  # record arrival order
             queue.pop()
 
-        if not live:               # no device found a feasible strategy
-            hist.log_round(t, latency_s=0.0, energy_j=en, flops=0.0,
-                           comm_bits=0.0, mean_alpha=0.0, mean_beta=0.0,
-                           mean_gain=0.0, t_wall=t_wall,
-                           t_max_effective=sim.fleet_cfg.T_max)
+        if not live:               # no device trained this round
+            for p in aborted:
+                sim.fleet.debit(p.client_id, p.energy, p.completes_at)
+            hist.log_round(
+                t, latency_s=0.0, energy_j=en, flops=0.0, comm_bits=0.0,
+                mean_alpha=0.0, mean_beta=0.0, mean_gain=0.0,
+                t_wall=t_wall, n_unavailable=n_unavail,
+                n_aborted=len(aborted), mean_soc=sim.mean_soc(t_wall),
+                n_handovers=n_handover, max_cell_occupancy=occupancy,
+                t_max_effective=t_max_eff, energy_train_j=en_cmp,
+                energy_uplink_j=en_com)
+            if sim.fleet_dynamic:
+                # the server idles a deadline, so that traces and
+                # batteries move on (a static fleet must not drift)
+                t_wall += sim.fleet_cfg.T_max
             continue
 
         bh_bits, n_cells_rep, e_ship = 0.0, 0, 0.0
         if sim.topo is not None:
             (accepted, new_params, lat, e_ship, bh_bits, n_cells_rep,
-             lat_parts) = _hier_round_merge(sim, policy, live,
+             lat_parts) = _hier_round_merge(sim, policy, live, aborted,
                                             sorted_params, queue, t_wall)
             en += e_ship
             t_wall += lat
+            for p in live + aborted:
+                sim.fleet.debit(p.client_id, p.energy, t_wall)
             if new_params is not None:
                 params = new_params
         else:
             accepted, scales, lat = policy.accept(live, 0.0)
+            if aborted:
+                # the server learns of a dropout at the departure, but
+                # never waits past its own deadline barrier (semisync)
+                barrier = getattr(policy, "deadline", math.inf)
+                lat = max(lat, min(barrier,
+                                   max(p.completes_at - t_wall
+                                       for p in aborted)))
             # critical-path split: compute until the slowest accepted
             # client's T_cmp elapses, uplink/barrier wait for the rest
             lt = min(lat, max((p.t_cmp for p in accepted), default=0.0))
             lat_parts = (lt, lat - lt, 0.0)
             t_wall += lat
+            for p in live + aborted:
+                sim.fleet.debit(p.client_id, p.energy, t_wall)
             if accepted:
                 w = apply_scales(base_weights(
                     rc.method, rc.use_aio, [p.update for p in accepted],
@@ -564,8 +761,10 @@ def _run_round_based(sim: Simulation, policy, orch: OrchestratorConfig,
             mean_gain=float(np.mean([p.strat.gain for p in live])),
             t_wall=t_wall, n_clients=len(accepted),
             n_dropped=len(live) - len(accepted),
-            t_max_effective=sim.fleet_cfg.T_max,
+            n_unavailable=n_unavail, n_aborted=len(aborted),
+            mean_soc=sim.mean_soc(t_wall), t_max_effective=t_max_eff,
             n_cells_reporting=n_cells_rep, backhaul_bits=bh_bits,
+            n_handovers=n_handover, max_cell_occupancy=occupancy,
             energy_train_j=en_cmp, energy_uplink_j=en_com,
             energy_backhaul_j=e_ship, latency_train_s=lat_parts[0],
             latency_uplink_s=lat_parts[1], latency_backhaul_s=lat_parts[2])
@@ -596,6 +795,10 @@ def _run_fedbuff(sim: Simulation, policy, orch: OrchestratorConfig,
         else policy.pool_default
     retry_dt = orch.retry_interval_s if orch.retry_interval_s is not None \
         else sim.fleet_cfg.T_max
+    if sim.dyn.selection != "uniform" or sim.dyn.participation < 1.0:
+        print("[fedbuff] warning: selection policies and participation "
+              "caps are round-based controls; fedbuff devices free-run "
+              "(availability/battery gating still applies)")
     queue = ev_mod.EventQueue(trace_limit=orch.event_trace_limit)
     hist = History(rc, [])
 
@@ -617,12 +820,46 @@ def _run_fedbuff(sim: Simulation, policy, orch: OrchestratorConfig,
     peak_inflight = 0
 
     def enqueue_flight(p: PendingUpdate, now: float) -> None:
+        """COMPLETE at the planned arrival, unless the availability
+        trace has the device leave the cell first (CHURN)."""
         nonlocal peak_inflight
-        inflight_version[p.client_id] = p.version
+        i = p.client_id
+        inflight_version[i] = p.version
         peak_inflight = max(peak_inflight, len(inflight_version))
-        queue.push(p.completes_at, ev_mod.COMPLETE, p.client_id, p)
+        t_off = sim.fleet.next_departure(i, now)
+        if t_off < p.completes_at:
+            queue.push(t_off, ev_mod.CHURN, i, p)
+        else:
+            queue.push(p.completes_at, ev_mod.COMPLETE, i, p)
+
+    def gated(i: int, now: float) -> bool:
+        """Availability and battery gates: an off-cell device RETRYs when
+        its trace turns on, a drained one when the trickle restores its
+        headroom (never, with no recharge).  True if it was gated."""
+        fleet = sim.fleet
+        if fleet.trace is not None and not fleet.trace.available(i, now):
+            t_retry = fleet.trace.next_change(i, now)
+        elif fleet.battery is not None \
+                and not fleet.battery.available(i, now):
+            t_retry = max(fleet.battery.ready_time(i, now), now + 1e-9)
+        else:
+            return False
+        inflight_version.pop(i, None)
+        if math.isfinite(t_retry):
+            queue.push(t_retry, ev_mod.RETRY, i)
+        return True
+
+    def headroom(i: int, env: schedule.DeviceEnv, now: float) -> float:
+        return sim.fleet.battery.headroom(i, now) \
+            if sim.fleet.battery is not None else env.E_max
 
     def dispatch(i: int, env: schedule.DeviceEnv, now: float) -> None:
+        if gated(i, now):
+            return
+        env = sim.fleet.dynamic_env(i, env, now)
+        t_max_eff = sim.effective_T_max(now)
+        if t_max_eff != sim.fleet_cfg.T_max:
+            env = dataclasses.replace(env, T_max=t_max_eff)
         p = sim.prepare(i, env)
         if p is None:
             queue.push(now + retry_dt, ev_mod.RETRY, i)
@@ -634,7 +871,7 @@ def _run_fedbuff(sim: Simulation, policy, orch: OrchestratorConfig,
         t_cmp = p.alpha * env.tau * env.D * env.W / p.strat.freq
         t_com = p.alpha * p.strat.beta * env.S_bits / env.rate
         p.completes_at = now + t_cmp + t_com
-        sim.dispatch_log.append((now, i, env.E_max))
+        sim.dispatch_log.append((now, i, headroom(i, env, now)))
         enqueue_flight(p, now)
 
     def pump(now: float) -> None:
@@ -642,8 +879,8 @@ def _run_fedbuff(sim: Simulation, policy, orch: OrchestratorConfig,
         channel draw."""
         while waiting and (cap is None or len(inflight_version) < cap):
             j = waiting.popleft()
-            dispatch(j, sim.fleet.device_env(sim.rng, j, sim.W, sim.S_bits),
-                     now)
+            dispatch(j, sim.fleet.device_env(sim.rng, j, sim.W, sim.S_bits,
+                                             t=now), now)
 
     def redispatch(i: int, now: float) -> None:
         """Join the FIFO behind any earlier waiters, then fill the free
@@ -655,11 +892,17 @@ def _run_fedbuff(sim: Simulation, policy, orch: OrchestratorConfig,
         """``requeue``: retrain the rejected round's exact minibatches and
         uniforms (its ``draw``) on the current version, a fresh flight of
         the same length.  It takes back the slot its own rejected flight
-        just freed, outside the --max-inflight FIFO."""
+        just freed, outside the --max-inflight FIFO.  A device the gates
+        now hold (out of the cell, or spent below its reserve) goes the
+        gated dispatch path instead."""
+        i = p.client_id
+        if not sim.fleet.available(i, now):
+            redispatch(i, now)
+            return
         q = dataclasses.replace(p, version=version, dispatched_at=now,
                                 staleness=0, update=None)
         q.completes_at = now + (p.completes_at - p.dispatched_at)
-        sim.dispatch_log.append((now, p.client_id, p.env.E_max))
+        sim.dispatch_log.append((now, i, headroom(i, p.env, now)))
         enqueue_flight(q, now)
 
     for i, env in enumerate(sim.fleet.round_envs(sim.rng, sim.W,
@@ -679,7 +922,7 @@ def _run_fedbuff(sim: Simulation, policy, orch: OrchestratorConfig,
         wall_limit = rc.rounds * orch.buffer_size * cycle * 4.0
 
     now = 0.0
-    n_stale = 0
+    n_stale = n_aborted = 0
     while len(queue):
         ev = queue.pop()
         if ev.time > wall_limit:
@@ -688,10 +931,32 @@ def _run_fedbuff(sim: Simulation, policy, orch: OrchestratorConfig,
         if ev.kind == ev_mod.RETRY:
             redispatch(ev.client, now)
             continue
+        if ev.kind == ev_mod.CHURN:
+            # the device left the cell mid-flight: abort, charge the
+            # planned energy pro rata, come back when the trace does
+            p = ev.payload
+            planned = p.completes_at - p.dispatched_at
+            frac = min(1.0, (now - p.dispatched_at) / planned) \
+                if planned > 0 else 1.0
+            waste = frac * (p.strat.E_cmp + p.strat.E_com)
+            en += waste
+            en_cmp += frac * p.strat.E_cmp
+            en_com += frac * p.strat.E_com
+            sim.fleet.debit(p.client_id, waste, now)
+            n_aborted += 1
+            inflight_version.pop(p.client_id, None)
+            t_on = sim.fleet.trace.next_change(p.client_id, now)
+            if math.isfinite(t_on):
+                queue.push(t_on, ev_mod.RETRY, p.client_id)
+            pump(now)      # the aborted flight freed a throttle slot
+            continue
 
         p = ev.payload
         inflight_version.pop(p.client_id, None)   # flight landed
         p.staleness = version - p.version
+        # the device spent its planned energy whether or not the server
+        # admits the update (the energy log keeps the realized costs)
+        sim.fleet.debit(p.client_id, p.strat.E_cmp + p.strat.E_com, now)
         if not policy.admit(p.staleness):
             n_stale += 1
             en += p.strat.E_cmp + p.strat.E_com   # spent, never aggregated
@@ -769,8 +1034,9 @@ def _run_fedbuff(sim: Simulation, policy, orch: OrchestratorConfig,
             t_wall=now, n_clients=len(buffer),
             mean_staleness=float(np.mean([b.staleness for b in buffer])),
             max_staleness=int(max(b.staleness for b in buffer)),
-            n_stale_dropped=n_stale,
-            t_max_effective=sim.fleet_cfg.T_max,
+            n_stale_dropped=n_stale, n_aborted=n_aborted,
+            mean_soc=sim.mean_soc(now),
+            t_max_effective=sim.effective_T_max(now),
             energy_train_j=en_cmp, energy_uplink_j=en_com,
             latency_train_s=lat_train, latency_uplink_s=lat - lat_train)
         done = orch.max_wallclock_s is None and n_agg >= rc.rounds
@@ -785,7 +1051,7 @@ def _run_fedbuff(sim: Simulation, policy, orch: OrchestratorConfig,
         buffer = []
         en, fl, cb = 0.0, 0.0, 0.0
         en_cmp = en_com = 0.0
-        n_stale = 0
+        n_stale = n_aborted = 0
         last_agg_t = now
         if done:
             break

@@ -9,17 +9,21 @@ cell keeps the paper's 550 m geometry exactly.
 
 Assignment is deterministic and consumes no randomness: ``contiguous``
 gives each cell a block of device ids, ``round_robin`` stripes them.
-Device motion and round-boundary handover are not ported: a
-``TopologyConfig.handover`` other than None raises.
+With a motion model attached the binding becomes geometric and changes
+between rounds: devices start in their nearest cell
+(``mobility.assign_nearest`` over the fixed :func:`cell_sites`) and the
+handover engine re-homes them at round boundaries
+(``TopologyConfig.handover``).
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Optional
+from typing import Optional
 
 import numpy as np
 
+from repro_torch.mobility.handover import HandoverConfig
 from repro_torch.sysmodel.wireless import WirelessConfig
 from repro_torch.topology.backhaul import BackhaulConfig, sample_cell_backhauls
 
@@ -50,8 +54,9 @@ class TopologyConfig:
     # per-cell edge deadline; None -> the arrival policy's own barrier
     # applies within each cell
     cell_deadline_s: Optional[float] = None
-    # round-boundary device->cell re-assignment: not ported, must be None
-    handover: Optional[Any] = None
+    # round-boundary device->cell re-assignment (mobile fleets only);
+    # None -> the binding never changes
+    handover: Optional[HandoverConfig] = None
     # heterogeneous backhaul: seeded per-cell rate draw (log-uniform over
     # the range); None -> every cell gets `backhaul` verbatim
     backhaul_rate_range: Optional[tuple] = None
@@ -73,10 +78,6 @@ class TopologyConfig:
             if not 0 < lo <= hi:
                 raise ValueError("backhaul_rate_range must satisfy "
                                  "0 < lo <= hi")
-        if self.handover is not None:
-            raise NotImplementedError(
-                "TopologyConfig.handover: the port has no device motion; "
-                "ROADMAP queue 1, 'Mobility', brings handover")
 
     @property
     def radius_scale(self) -> float:

@@ -55,9 +55,8 @@ class FLRunConfig:
 
 @dataclasses.dataclass
 class RoundLog:
-    """One round's (or fedbuff merge's) record: the reference's fields
-    that the ported policies set on a static fleet, flat or
-    hierarchical."""
+    """One round's (or fedbuff merge's) record: the reference's fields,
+    but its telemetry views."""
     round: int
     latency_s: float
     energy_j: float
@@ -74,10 +73,17 @@ class RoundLog:
     mean_staleness: float = 0.0   # fedbuff: mean server-version lag
     max_staleness: int = 0        # fedbuff: worst admitted version lag
     n_stale_dropped: int = 0      # fedbuff: rejected by the staleness cap
+    # fleet dynamics (0 / 1.0 on the static always-on roster)
+    n_unavailable: int = 0        # off-cell or drained at dispatch time
+    n_aborted: int = 0            # churned out of the cell mid-round
+    mean_soc: float = 1.0         # the fleet's mean state of charge
     t_max_effective: float = 0.0  # T_max handed to the P4 solver
     # hierarchical topologies (0 on the flat path)
     n_cells_reporting: int = 0    # cells that shipped a partial
     backhaul_bits: float = 0.0    # edge->cloud bits this round
+    # mobility (0 on a static fleet)
+    n_handovers: int = 0          # devices re-homed at this round's start
+    max_cell_occupancy: int = 0   # most devices bound to any one cell
     # per-phase split: energy sums to energy_j, latency to latency_s
     energy_train_j: float = 0.0
     energy_uplink_j: float = 0.0
@@ -109,6 +115,10 @@ class History:
         log.test_acc = acc
         log.test_loss = loss
         self.best_acc = max(self.best_acc, acc)
+
+    def total_handovers(self) -> int:
+        """Devices re-homed over the whole run."""
+        return int(sum(r.n_handovers for r in self.rounds))
 
     def cumulative(self, field: str) -> np.ndarray:
         return np.cumsum([getattr(r, field) for r in self.rounds])

@@ -551,3 +551,57 @@ def test_async_paths_launch_their_kernels(cuda, policy):
     if policy == "semisync":
         assert sum(r.n_dropped for r in hist.rounds) > 0
     assert np.isfinite(hist.rounds[-1].test_loss)
+
+
+@pytest.mark.parametrize("path", ["dynamic_flat", "mobile_hier"])
+def test_fleet_paths_launch_their_kernels(cuda, path):
+    """A dynamic flat fleet (Markov availability, a battery, gain
+    selection at 0.5) and a mobile 2-cell hierarchy (random waypoint,
+    nearest handover) on the card: every trained update is compressed
+    (the norms and #5 once each), an aborted flight never; the flat run
+    aggregates with #6 once per round with accepted updates, the
+    hierarchical one absorbs each accepted update (#7) and merges each
+    extra reporting cell (#8)."""
+    from repro_torch.fleet import (AvailabilityConfig, BatteryConfig,
+                                   FleetDynamicsConfig)
+    from repro_torch.mobility import HandoverConfig, MobilityConfig
+    from repro_torch.orchestrator.runner import run_orchestrated
+    from repro_torch.sysmodel.population import FleetConfig
+    from repro_torch.topology import TopologyConfig
+    from repro_torch.train.fl_loop import FLRunConfig
+    fleet = {
+        "dynamic_flat": FleetConfig(n_devices=4, dynamics=FleetDynamicsConfig(
+            availability=AvailabilityConfig(kind="markov", seed=1),
+            battery=BatteryConfig(capacity_j=30.0, recharge_w=0.2),
+            selection="gain", participation=0.5)),
+        "mobile_hier": FleetConfig(n_devices=4, topology=TopologyConfig(
+            kind="hier", n_cells=2, handover=HandoverConfig(margin_m=5.0)),
+            mobility=MobilityConfig(kind="random_waypoint", seed=9,
+                                    speed_range=(30.0, 60.0)))}[path]
+    ops.reset_launch_counts()
+    hist = run_orchestrated(FLRunConfig(rounds=2, n_train=128, n_test=64,
+                                        eval_every=1, lr=0.1, seed=3,
+                                        use_planner=False),
+                            fleet, None, device="cuda")
+    counts = ops.launch_counts()
+    trained = sum(r.n_clients + r.n_dropped for r in hist.rounds)
+    accepted = sum(r.n_clients for r in hist.rounds)
+    assert trained > 0
+    assert counts["kernel_l2"] == counts["kernel_sumsq"] == trained
+    assert counts["fused_sparsify_quantize"] == trained
+    assert counts["threshold_apply"] == counts["prob_quantize"] == 0
+    if path == "dynamic_flat":
+        assert sum(r.n_aborted + r.n_unavailable for r in hist.rounds) > 0
+        assert counts["aio_aggregate"] == sum(r.n_clients > 0
+                                              for r in hist.rounds)
+        assert counts["aio_absorb"] == counts["aio_merge"] == 0
+    else:
+        assert hist.total_handovers() > 0
+        assert sum(e[2] == "handover" for e in hist.trace) == \
+            hist.total_handovers()
+        assert counts["aio_absorb"] == accepted
+        assert counts["aio_merge"] == sum(r.n_cells_reporting - 1
+                                          for r in hist.rounds)
+        assert counts["aio_aggregate"] == 0
+    assert all(np.isfinite(r.test_loss) for r in hist.rounds
+               if r.test_loss is not None)

@@ -153,8 +153,8 @@ def test_port_imports_neither_jax_nor_the_reference():
     """In a fresh interpreter where ``jax`` and ``repro`` cannot be
     imported, every module of the port imports (the baselines, gains,
     codec and energy modules among them) and a flat AnycostFL round, a
-    flat QSGD round, a hierarchical CPU round and a pooled fedbuff merge
-    run."""
+    flat QSGD round, a hierarchical CPU round, a pooled fedbuff merge, a
+    dynamic round and a mobile hierarchical round run."""
     code = textwrap.dedent("""
         import importlib, pkgutil, sys
         sys.modules["jax"] = None
@@ -193,6 +193,26 @@ def test_port_imports_neither_jax_nor_the_reference():
             OrchestratorConfig(policy="fedbuff", buffer_size=2),
             device="cpu")
         assert hist.rounds[0].n_clients == 2 and hist.peak_inflight == 2
+        from repro_torch.fleet import (AvailabilityConfig, BatteryConfig,
+                                       FleetDynamicsConfig)
+        from repro_torch.mobility import HandoverConfig, MobilityConfig
+        hist = run_fl(FLRunConfig(rounds=1, n_train=64, n_test=32,
+                                  eval_every=1, seed=1, use_planner=False),
+                      FleetConfig(n_devices=4, dynamics=FleetDynamicsConfig(
+                          availability=AvailabilityConfig(kind="markov"),
+                          battery=BatteryConfig(), selection="gain",
+                          participation=0.5)), device="cpu")
+        assert hist.rounds[0].n_clients + hist.rounds[0].n_aborted \
+            + hist.rounds[0].n_unavailable > 0
+        hist = run_fl(FLRunConfig(rounds=1, n_train=64, n_test=32,
+                                  eval_every=1, seed=1, use_planner=False),
+                      FleetConfig(n_devices=4, topology=TopologyConfig(
+                          kind="hier", n_cells=2,
+                          handover=HandoverConfig()),
+                          mobility=MobilityConfig(kind="random_waypoint")),
+                      device="cpu")
+        assert hist.rounds[0].n_cells_reporting > 0
+        assert hist.rounds[0].max_cell_occupancy > 0
         assert not [k for k, v in sys.modules.items() if v is not None
                     and (k.split(".")[0] in ("jax", "jaxlib", "repro"))]
         print("ok")
@@ -248,9 +268,6 @@ def test_cli_runs_a_baseline_on_non_iid_data(capsys):
 def test_outside_the_slice_raises():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         policies.OrchestratorConfig(agg_route="mesh")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        runner.Simulation(FLRunConfig(**TINY), FleetConfig(
-            n_devices=3, mobility="random_waypoint"), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         runner.Simulation(dataclasses.replace(
             FLRunConfig(**TINY), arch="qwen2-7b"), device="cpu")

@@ -170,15 +170,23 @@ def test_data_and_fleet_draws_match(fleet_kw):
 
 
 def test_fleet_features_outside_the_slice_raise():
-    for field in ("dynamics", "mobility"):
-        cfg = population.FleetConfig(n_devices=2, **{field: object()})
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            population.make_fleet(np.random.default_rng(0), cfg,
-                                  np.array([1, 1]))
-    # topologies are ported; device motion and handover are not
+    """Fleet dynamics, device motion and handover are ported (they build
+    and attach their state); the mesh route of the hierarchy is not."""
+    from repro_torch.fleet import AvailabilityConfig, FleetDynamicsConfig
+    from repro_torch.mobility import HandoverConfig, MobilityConfig
+    from repro_torch.orchestrator.policies import OrchestratorConfig
     from repro_torch.topology import TopologyConfig
+    cfg = population.FleetConfig(
+        n_devices=2, dynamics=FleetDynamicsConfig(
+            availability=AvailabilityConfig(kind="markov")),
+        mobility=MobilityConfig(kind="random_waypoint"),
+        topology=TopologyConfig(kind="hier", n_cells=2,
+                                handover=HandoverConfig()))
+    fleet = population.make_fleet(np.random.default_rng(0), cfg,
+                                  np.array([1, 1]))
+    assert fleet.trace is not None and fleet.mobility is not None
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TopologyConfig(kind="hier", n_cells=2, handover=object())
+        OrchestratorConfig(agg_route="mesh")
 
 
 # ------------------------------------------------------------------------ EMS
