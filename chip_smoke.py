@@ -144,6 +144,37 @@ Phases, in order; any failure exits non-zero:
    (d) a dynamic fedbuff run, buffer 8, 3 merges, (a)'s availability and
        battery and Gauss-Markov motion: RETRY and CHURN events, #5 and
        #7 once per buffered update (24), no #6 or #8.
+9. Telemetry on the card (``repro_torch.telemetry``).  First phase 3's
+   3-device flat pair with a session on each side and health rules that
+   fire every round (:func:`telemetry_card_cpu`): metric names, kinds
+   and labels and the alerts exact, ``learning.*`` values within
+   :func:`learning_tolerance`.  Then two flat runs under cuDNN's default
+   algorithms, whose difference is printed: they need not agree bit for
+   bit, so every on/off pair below runs on its deterministic ones.  The
+   same size and planner as phase 4, each pair a session (with
+   ``HealthEngine(DEFAULT_RULES)``) against none, every ``RoundLog``
+   field, the event trace, the dispatch log and the final parameters
+   bitwise equal and the launches equal with and without it:
+   (a) the flat main path: the launches phase 4a's; the bundle flushed
+       and checked (:func:`check_bundle`: the Perfetto JSON declares
+       every ``(pid, tid)``, spans have numeric ``ts`` and ``dur`` >= 0,
+       the JSONL files parse, alerts carry ``ALERT_KEYS``, the manifest
+       validates with ``backend`` ``cuda``, and ``query summary --json``
+       is ``History.phase_totals()`` bit for bit); every trained device
+       has its five ``learning.*`` gauges a round, the three stage
+       energies summing to ``e_total`` within rtol 1e-5;
+   (b) the 4-cell hierarchy with the ``int8`` codec and EF: phase 4b's
+       launches, ``learning.cell_divergence`` for every reporting cell
+       and ``learning.ef_residual_energy`` > 0 from round 1;
+   (c) 8d's dynamic fedbuff run: as many CHURN, RETRY and BUFFER_MERGE
+       instants as churn and retry events and merges;
+   (d) (a) with ``RollupPolicy(device_threshold=8)`` and
+       ``trace_sample=0.5``: only hash-sampled device tracks remain;
+   (e) one round under ``--torch-profile``'s profiler: its Chrome trace
+       names the port's #5 and #6 CUDA kernels.
+   (a) and (b) print their 3-round host wall time with telemetry off and
+   on (alternating, the median of 3) and the learning recorder's host
+   ms a round and its share of the round.
 
 The last lines are the card's name and power limit, one JSON object of
 kernels, and the result line.  Without a card, or without the rest of
@@ -1041,6 +1072,403 @@ def fleet_phase(n_rho: int, n_levels: int) -> dict:
     return launched
 
 
+@contextlib.contextmanager
+def deterministic_cudnn():
+    """cuDNN's deterministic algorithms for the enclosed runs.  Two runs
+    of the same configuration in one process differ on the card under
+    the default algorithms (phase 9 prints by how much), so a bitwise
+    comparison of telemetry on against off needs them."""
+    import torch
+    saved = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = saved
+
+
+@contextlib.contextmanager
+def timing_recorder(acc: list):
+    """Append the host seconds of every ``LearningRecorder`` call to
+    ``acc`` (the calls read their statistics off the card, so each one's
+    device work is inside its time)."""
+    from repro_torch.telemetry.learning import LearningRecorder
+    names = ("device_stats", "record_device", "record_alignment",
+             "record_cell", "record_ef_residual", "note_contribution",
+             "record_round")
+    originals = [getattr(LearningRecorder, n) for n in names]
+
+    def timed(fn):
+        def wrapper(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                acc.append(time.perf_counter() - t0)
+        return wrapper
+
+    for n, fn in zip(names, originals):
+        setattr(LearningRecorder, n, timed(fn))
+    try:
+        yield acc
+    finally:
+        for n, fn in zip(names, originals):
+            setattr(LearningRecorder, n, fn)
+
+
+def same_run(label: str, on, off) -> None:
+    """Every ``RoundLog`` field, the event trace, the dispatch log and
+    the final parameters bitwise equal."""
+    import torch
+    from repro_torch.utils.pytree import tree_leaves
+    if [dataclasses.asdict(r) for r in on.rounds] != \
+            [dataclasses.asdict(r) for r in off.rounds]:
+        fail(f"{label}: a RoundLog field differs with telemetry on")
+    if on.trace != off.trace or on.dispatch_log != off.dispatch_log:
+        fail(f"{label}: the event trace or the dispatch log differs with "
+             f"telemetry on")
+    if not all(torch.equal(a, b) for a, b in zip(
+            tree_leaves(on.final_params), tree_leaves(off.final_params))):
+        fail(f"{label}: the final parameters differ with telemetry on")
+
+
+def check_bundle(label: str, tel, hist, run_cfg, fleet) -> dict:
+    """Flush ``tel`` with its manifest to a temporary directory and check
+    every file of the bundle; ``query summary --json`` must give
+    ``History.phase_totals()`` back bit for bit.  Returns the file
+    sizes."""
+    import io
+    import tempfile
+
+    from repro_torch.telemetry import (ALERT_KEYS, build_manifest, query,
+                                       validate_manifest)
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = tel.flush(manifest=build_manifest(
+            run_cfg, fleet, trace_signature=hist.trace, device="cuda"),
+            out_dir=tmp)
+        if set(paths) != {"perfetto", "trace_jsonl", "metrics_jsonl",
+                          "alerts_jsonl", "manifest"}:
+            fail(f"{label}: the bundle holds {sorted(paths)}")
+        with open(paths["perfetto"]) as f:
+            doc = json.load(f)
+        declared = {(e["pid"], e["tid"]) for e in doc["traceEvents"]
+                    if e["ph"] == "M" and e["name"] == "thread_name"}
+        for e in doc["traceEvents"]:
+            if e["ph"] == "M":
+                continue
+            if (e["pid"], e["tid"]) not in declared:
+                fail(f"{label}: perfetto event {e['name']} on an "
+                     f"undeclared (pid, tid) {(e['pid'], e['tid'])}")
+            if e["ph"] == "X" and not (
+                    isinstance(e["ts"], (int, float))
+                    and isinstance(e["dur"], (int, float))
+                    and e["dur"] >= 0):
+                fail(f"{label}: span {e['name']} has ts {e['ts']!r}, dur "
+                     f"{e['dur']!r}")
+        lines = {}
+        for kind in ("trace_jsonl", "metrics_jsonl", "alerts_jsonl"):
+            with open(paths[kind]) as f:
+                lines[kind] = [json.loads(x) for x in f if x.strip()]
+        bad = [a for a in lines["alerts_jsonl"]
+               if tuple(sorted(a)) != tuple(sorted(ALERT_KEYS))]
+        if bad:
+            fail(f"{label}: alert records with keys {sorted(bad[0])}")
+        if len(lines["alerts_jsonl"]) != len(tel.health.alerts()):
+            fail(f"{label}: alerts.jsonl holds {len(lines['alerts_jsonl'])} "
+                 f"lines, the engine raised {len(tel.health.alerts())}")
+        with open(paths["manifest"]) as f:
+            man = json.load(f)
+        if validate_manifest(man) or man["backend"] != "cuda":
+            fail(f"{label}: manifest missing {validate_manifest(man)}, "
+                 f"backend {man.get('backend')!r}")
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            query.main(["summary", "--telemetry-dir", tmp, "--json"])
+        if json.loads(out.getvalue()) != hist.phase_totals():
+            fail(f"{label}: query summary --json is not "
+                 f"History.phase_totals() bit for bit")
+        return {k: len(v) for k, v in lines.items()}
+
+
+def learning_tolerance(rec: dict, reg) -> tuple[float, float]:
+    """(rtol, atol) of one ``learning.*`` value, card against CPU: rtol
+    1e-3 (phase 3's bound for bits and losses); the cosines also atol
+    1e-3, and from round 1 on the stage energies 2e-3 of the device's
+    update energy (a kernel at the sparsification threshold or a level
+    index that flips moves a whole kernel's quantization error), as
+    ``tests/test_torch_learning.py`` holds the port to the reference."""
+    name, lab = rec["name"], rec["labels"]
+    if name in ("learning.cosine_alignment", "learning.cell_divergence"):
+        return 1e-3, 1e-3
+    if name in ("learning.error_energy", "learning.error_total") \
+            and lab["round"] > 0:
+        return 1e-3, 2e-3 * reg.value("learning.update_norm",
+                                      device=lab["device"],
+                                      round=lab["round"]) ** 2
+    return 1e-3, 0.0
+
+
+def telemetry_card_cpu(run_cfg, fleet) -> None:
+    """Phase 9's card-against-CPU pair: phase 3's 3-device flat run with
+    a session on each side, and health rules that fire in every round.
+    Exact: the metric names, kinds and label sets and the alerts' rule,
+    round, kind, severity and signal; ``learning.*`` values within
+    :func:`learning_tolerance`.  The card's session is flushed through
+    :func:`check_bundle`, so its ``alerts.jsonl`` holds those alerts."""
+    from repro_torch import telemetry as tm
+    from repro_torch.orchestrator import runner
+    from repro_torch.orchestrator.policies import (OrchestratorConfig,
+                                                   SyncPolicy)
+    rules = tm.DEFAULT_RULES + (
+        tm.HealthRule("silent", "silent_devices",
+                      params=dict(threshold=-1.0, min_round=0)),
+        tm.HealthRule("backhaul", "backhaul_saturation",
+                      params=dict(threshold=-1.0)))
+    tels, hists = {}, {}
+    for where in ("cpu", "cuda"):
+        tels[where] = tm.Telemetry()
+        tels[where].health = tm.HealthEngine(rules)
+        sim = runner.Simulation(run_cfg, fleet, device=where,
+                                uniforms=CpuDrawnUniforms(7, where),
+                                telemetry=tels[where])
+        orch = OrchestratorConfig()
+        hists[where] = runner._run_round_based(sim, SyncPolicy(orch), orch,
+                                               False)
+    recs = {w: list(t.registry.records()) for w, t in tels.items()}
+
+    def key(r):
+        return r["name"], r["kind"], sorted(r["labels"].items())
+
+    if [key(r) for r in recs["cuda"]] != [key(r) for r in recs["cpu"]]:
+        fail("telemetry card vs CPU: metric names, kinds or labels differ")
+    worst = 0.0
+    for g, c in zip(recs["cuda"], recs["cpu"]):
+        if not g["name"].startswith("learning."):
+            continue
+        rtol, atol = learning_tolerance(c, tels["cpu"].registry)
+        if not abs(g["value"] - c["value"]) <= atol + rtol * abs(c["value"]):
+            fail(f"telemetry card vs CPU: {g['name']} {g['labels']} "
+                 f"{g['value']!r} on the card, {c['value']!r} on the CPU")
+        worst = max(worst, abs(g["value"] - c["value"])
+                    / max(abs(c["value"]), 1e-30))
+    alerts = {w: [(a["rule"], a["round"], a["kind"], a["severity"],
+                   a["signal"]) for a in t.health.alerts()]
+              for w, t in tels.items()}
+    if alerts["cuda"] != alerts["cpu"] or not alerts["cuda"] or any(
+            sorted(a) != sorted(tm.ALERT_KEYS)
+            for a in tels["cuda"].health.alerts()):
+        fail(f"telemetry card vs CPU: alerts {alerts}")
+    sizes = check_bundle("telemetry card vs CPU", tels["cuda"],
+                         hists["cuda"], run_cfg, fleet)
+    print(f"[telemetry] card vs CPU, 3-device flat 2-round run: "
+          f"{len(recs['cuda'])} metric records, names and labels exact; "
+          f"{len(alerts['cuda'])} alerts identical, the card's bundle "
+          f"lines {json.dumps(sizes)}; learning.* values "
+          f"within tolerance, largest relative difference {worst!r}",
+          flush=True)
+
+
+def telemetry_phase(main_counts: dict, n_rho: int,
+                    n_levels: int) -> tuple[dict, dict]:
+    """Phase 9: a telemetry session on the card (see the module
+    docstring).  Returns each telemetry-on run's launches and the timed
+    host wall times."""
+    import statistics
+    import tempfile
+
+    import torch
+    from repro_torch import telemetry as tm
+    from repro_torch.fleet import (AvailabilityConfig, BatteryConfig,
+                                   FleetDynamicsConfig)
+    from repro_torch.kernels import ops
+    from repro_torch.mobility import MobilityConfig
+    from repro_torch.orchestrator.policies import OrchestratorConfig
+    from repro_torch.sysmodel.population import FleetConfig
+    from repro_torch.topology import BackhaulConfig, TopologyConfig
+    from repro_torch.train.fl_loop import FLRunConfig, run_fl
+    from repro_torch.utils.pytree import tree_leaves
+
+    cfg = FLRunConfig(rounds=3, n_train=1536, n_test=384, eval_every=1,
+                      seed=0, use_planner=True)
+    flat = FleetConfig(n_devices=N_DEVICES)
+    hier = FleetConfig(n_devices=N_DEVICES, topology=TopologyConfig(
+        kind="hier", n_cells=N_CELLS,
+        backhaul=BackhaulConfig(codec="int8", error_feedback=True)))
+    fedbuff = FleetConfig(
+        n_devices=N_DEVICES, dynamics=FleetDynamicsConfig(
+            availability=AvailabilityConfig(kind="markov", seed=0,
+                                            mean_on_s=30.0,
+                                            mean_off_s=15.0),
+            battery=BatteryConfig(capacity_j=30.0, recharge_w=0.2, seed=0)),
+        mobility=MobilityConfig(kind="gauss_markov", seed=0))
+    fb_orch = OrchestratorConfig(policy="fedbuff", buffer_size=8)
+    launched = {}
+
+    def session(**kw):
+        tel = tm.Telemetry(**kw)
+        tel.health = tm.HealthEngine(tm.DEFAULT_RULES)
+        return tel
+
+    def run(fleet, tel=None, orch=None, run_cfg=cfg):
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        hist = run_fl(run_cfg, fleet, orch, device="cuda", telemetry=tel)
+        torch.cuda.synchronize()
+        return hist, ops.launch_counts(), time.perf_counter() - t0
+
+    # the default cuDNN algorithms: two runs of one configuration
+    a, _, _ = run(flat)
+    b, _, _ = run(flat)
+    drift = max(float((x - y).abs().max()) for x, y in zip(
+        tree_leaves(a.final_params), tree_leaves(b.final_params)))
+    print(f"[telemetry] default cuDNN algorithms, two flat runs, telemetry "
+          f"off: final parameters differ by up to {drift!r}; test losses "
+          f"{[r.test_loss for r in a.rounds]} vs "
+          f"{[r.test_loss for r in b.rounds]}; phase 9 compares runs "
+          f"under cuDNN's deterministic algorithms", flush=True)
+
+    walls = {}
+    with deterministic_cudnn():
+        # (a) the flat main path and (b) the 4-cell int8 + EF hierarchy:
+        # on against off, then timed off/on alternately
+        for key, fleet, hier_path in (("9a flat", flat, False),
+                                      ("9b hier int8 EF", hier, True)):
+            off, c_off, _ = run(fleet)
+            tel = session()
+            on, c_on, _ = run(fleet, tel)
+            same_run(key, on, off)
+            want = expected_launches(cfg, off, n_rho, n_levels, hier_path)
+            main = main_counts["hier" if hier_path else "flat"]
+            if not c_on == c_off == want == main:
+                fail(f"{key}: launched {json.dumps(c_on)} with telemetry "
+                     f"on, {json.dumps(c_off)} off, expected "
+                     f"{json.dumps(want)}, phase 4 {json.dumps(main)}")
+            launched[key] = c_on
+            sizes = check_bundle(key, tel, on, cfg, fleet)
+            reg = tel.registry
+            for r in on.rounds:
+                devices = reg.label_values("dispatch.latency_s", "device")
+                live = [d for d in devices if reg.value(
+                    "learning.update_norm", device=d, round=r.round)
+                    is not None]
+                if len(live) != r.n_clients + r.n_dropped:
+                    fail(f"{key} round {r.round}: learning gauges for "
+                         f"{len(live)} devices, {r.n_clients + r.n_dropped} "
+                         f"trained")
+                for d in live:
+                    e = [reg.value("learning.error_energy", device=d,
+                                   round=r.round, phase=p)
+                         for p in ("shrink", "sparsify", "quantize")]
+                    tot = reg.value("learning.error_total", device=d,
+                                    round=r.round)
+                    if None in e or tot is None \
+                            or not abs(sum(e) - tot) <= 1e-5 * abs(tot):
+                        fail(f"{key} round {r.round} device {d}: stage "
+                             f"energies {e} against e_total {tot}")
+                if hier_path:
+                    cells = [c for c in range(N_CELLS) if reg.value(
+                        "learning.cell_divergence", cell=c, round=r.round)
+                        is not None]
+                    res = [reg.value("learning.ef_residual_energy", cell=c,
+                                     round=r.round) for c in cells]
+                    if len(cells) != r.n_cells_reporting \
+                            or r.round >= 1 and not all(
+                                e is not None and e > 0 for e in res):
+                        fail(f"{key} round {r.round}: cell divergence for "
+                             f"cells {cells} of {r.n_cells_reporting} "
+                             f"reporting, EF residual energies {res}")
+            per = {"on": [], "off": []}
+            rec = []
+            for _ in range(3):
+                per["off"].append(run(fleet)[2])
+                with timing_recorder(rec):
+                    per["on"].append(run(fleet, session())[2])
+            walls[key] = {k: statistics.median(v) for k, v in per.items()}
+            rec_ms = sum(rec) / 3 / cfg.rounds * 1e3
+            walls[key]["recorder_ms_per_round"] = rec_ms
+            walls[key]["recorder_share"] = \
+                rec_ms / (walls[key]["on"] / cfg.rounds * 1e3)
+            print(f"[telemetry] {key}: telemetry on = off bit for bit; "
+                  f"launches {json.dumps({k: v for k, v in c_on.items() if v})}"
+                  f"; bundle lines {json.dumps(sizes)}; alerts "
+                  f"{len(tel.health.alerts())}; 3-round host wall time, "
+                  f"median of 3 alternating: off {walls[key]['off']:.4f} s, "
+                  f"on {walls[key]['on']:.4f} s (runs off "
+                  f"{[round(x, 4) for x in per['off']]}, on "
+                  f"{[round(x, 4) for x in per['on']]}); learning recorder "
+                  f"{rec_ms:.3f} ms of host time a round, "
+                  f"{walls[key]['recorder_share']:.4f} of the round",
+                  flush=True)
+            if hier_path:
+                print(f"[telemetry] {key}: learning.ef_residual_energy by "
+                      f"(cell, round) "
+                      f"{[(c, r.round, reg.value('learning.ef_residual_energy', cell=c, round=r.round)) for r in on.rounds for c in range(N_CELLS)]}",
+                      flush=True)
+
+        # (c) dynamic fedbuff (phase 8d's configuration)
+        off, c_off, _ = run(fedbuff, orch=fb_orch)
+        tel = session()
+        on, c_on, _ = run(fedbuff, tel, orch=fb_orch)
+        same_run("9c dynamic fedbuff", on, off)
+        if c_on != c_off:
+            fail(f"9c dynamic fedbuff: launched {json.dumps(c_on)} on, "
+                 f"{json.dumps(c_off)} off")
+        launched["9c dynamic fedbuff"] = c_on
+        inst = {}
+        for e in tel.sink.instants:
+            inst[e.name] = inst.get(e.name, 0) + 1
+        ev = {}
+        for e in on.trace:
+            ev[e[2]] = ev.get(e[2], 0) + 1
+        want = {"CHURN": ev.get("churn", 0), "RETRY": ev.get("retry", 0),
+                "BUFFER_MERGE": len(on.rounds)}
+        got = {k: inst.get(k, 0) for k in want}
+        if got != want or not all(want.values()):
+            fail(f"9c dynamic fedbuff: instants {got}, events {want}")
+        print(f"[telemetry] 9c dynamic fedbuff: on = off bit for bit; "
+              f"instants {json.dumps(inst)} match the trace's events",
+              flush=True)
+
+        # (d) (a) with a rollup policy past its threshold and half the
+        # device tracks sampled
+        tel = tm.Telemetry(rollup=tm.RollupPolicy(device_threshold=8),
+                           trace_sample=0.5)
+        on, c_on, _ = run(flat, tel)
+        off, _, _ = run(flat)
+        same_run("9d rollup and sampling", on, off)
+        if c_on != main_counts["flat"] or not tel.registry.rollup_active:
+            fail(f"9d rollup and sampling: launched {json.dumps(c_on)}, "
+                 f"rollup active {tel.registry.rollup_active}")
+        tracks = [t for t in tel.sink.tracks() if t.startswith("device/")]
+        if not 0 < len(tracks) < N_DEVICES or not all(
+                tm.sampled(0, int(t.split("/")[1]), 0.5) for t in tracks):
+            fail(f"9d rollup and sampling: device tracks {tracks}")
+        print(f"[telemetry] 9d rollup (threshold 8) and sampling (0.5): on "
+              f"= off bit for bit; device tracks kept {tracks}", flush=True)
+
+    # (e) one round under the torch profiler
+    with tempfile.TemporaryDirectory() as tmp:
+        tel = tm.Telemetry(tmp, torch_profile=True)
+        run(flat, tel, run_cfg=dataclasses.replace(cfg, rounds=1))
+        path = os.path.join(tmp, "torch_profile", "trace.json")
+        with open(path) as f:
+            names = {e["name"] for e in json.load(f)["traceEvents"]
+                     if e.get("cat") == "kernel"}
+    found = {k: sorted(n[:60] for n in names if k in n)
+             for k in ("fused_vec4_kernel", "aio_kernel")}
+    if not all(found.values()):
+        fail(f"9e profiler: kernel events {sorted(names)[:20]}; expected "
+             f"the port's #5 and #6")
+    print(f"[telemetry] 9e torch profiler, 1 round: {len(names)} distinct "
+          f"CUDA kernels in the Chrome trace, among them {found}",
+          flush=True)
+    return launched, walls
+
+
 def main() -> None:
     try:
         import torch
@@ -1681,6 +2109,10 @@ def main() -> None:
                                                       n_levels).items()}}
     # ---------------------------------------------------------------- 8
     by_path.update(fleet_phase(n_rho, n_levels))
+    # ---------------------------------------------------------------- 9
+    telemetry_card_cpu(small, flat3)
+    tel_launched, _ = telemetry_phase(counts, n_rho, n_levels)
+    by_path.update(tel_launched)
     for k in kernels:
         k["launches_by_path"] = {path: c[k["name"]]
                                  for path, c in by_path.items()}

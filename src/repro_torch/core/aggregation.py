@@ -158,3 +158,28 @@ def finalize_trees(num: torch.Tensor, den: torch.Tensor,
 def partial_finalize(part: PartialAgg) -> PyTree:
     """Eq. 5's ratio of a partial, shaped like its template."""
     return finalize_trees(part.num, part.den, part.template)
+
+
+def alignment_stats(a: PyTree, b: PyTree) -> tuple:
+    """(cosine, relative L2 distance ``||a - b|| / ||b||``) between two
+    update pytrees, as 0-d float32 tensors; each is 0 where a norm it
+    divides by is 0.  Per-leaf float32 sums, added over the leaves left
+    to right in sorted-key order, as the reference folds them."""
+    la = [x.float().reshape(-1) for x in tree_leaves(a)]
+    lb = [y.float().reshape(-1) for y in tree_leaves(b)]
+
+    def fold(parts):
+        total = parts[0]
+        for x in parts[1:]:
+            total = total + x
+        return total
+
+    dot = fold([torch.dot(x, y) for x, y in zip(la, lb)])
+    na = torch.sqrt(fold([x.square().sum() for x in la]))
+    nb = torch.sqrt(fold([y.square().sum() for y in lb]))
+    diff = torch.sqrt(fold([(x - y).square().sum() for x, y in zip(la, lb)]))
+    zero = torch.zeros((), dtype=F32, device=dot.device)
+    cos = torch.where((na > 0) & (nb > 0),
+                      dot / torch.clamp(na * nb, min=1e-30), zero)
+    rel = torch.where(nb > 0, diff / torch.clamp(nb, min=1e-30), zero)
+    return cos, rel

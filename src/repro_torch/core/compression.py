@@ -282,6 +282,39 @@ def compress_update(update: PyTree, beta, rand: torch.Tensor,
                             rho=rho, n_levels=n_levels)
 
 
+class StageErrors(NamedTuple):
+    """The EMS->FGC pipeline's error energies for one device round, each
+    a 0-d float32 tensor.  With ``u`` the zero-padded full-coordinate
+    update, ``w`` the width mask, ``m`` the transmitted mask and ``q``
+    the decoded values, in exact arithmetic
+    ``e_shrink + e_sparsify + e_quantize == e_total``."""
+    update_norm_sq: torch.Tensor    # ||u||^2
+    e_shrink: torch.Tensor          # ||u * (1 - w)||^2
+    e_sparsify: torch.Tensor        # ||u * (w - m)||^2  (kernels dropped)
+    e_quantize: torch.Tensor        # ||u * m - q||^2    (grid rounding)
+    e_total: torch.Tensor           # ||u - q||^2
+
+
+def stage_error_energies(full_update: PyTree, width_mask: PyTree,
+                         mask: PyTree, decoded: PyTree) -> StageErrors:
+    """Per-stage error energies of the EMS->FGC pipeline: five float32
+    sums of squares per leaf, each summed over the leaves left to right
+    in sorted-key order, as the reference folds them."""
+    total = None
+    for u, w, m, q in zip(tree_leaves(full_update), tree_leaves(width_mask),
+                          tree_leaves(mask), tree_leaves(decoded)):
+        u, w, m, q = u.float(), w.float(), m.float(), q.float()
+        leaf = torch.stack([u.square().sum(),
+                            (u * (1.0 - w)).square().sum(),
+                            (u * (w - m)).square().sum(),
+                            (u * m - q).square().sum(),
+                            (u - q).square().sum()])
+        total = leaf if total is None else total + leaf
+    if total is None:
+        total = torch.zeros(5, dtype=F32)
+    return StageErrors(*total.unbind())
+
+
 # -------------------------------------------------------------- beta planner
 
 @dataclasses.dataclass

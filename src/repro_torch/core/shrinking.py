@@ -201,6 +201,47 @@ def expand_update(sub_update: PyTree, full_template: PyTree, alpha: float,
     return upd, mask
 
 
+def width_mask_template(full_template: PyTree, alpha: float,
+                        spec: ShrinkSpec) -> PyTree:
+    """The {0,1} float32 coverage mask of the alpha sub-model from the
+    full template alone: the ``width_mask`` :func:`expand_update` returns,
+    ones everywhere but outside the kept channel slice of each group
+    entry."""
+    widths = spec.widths(alpha)
+    mask = _deepcopy_dicts(full_template)
+    for path in _all_paths(mask):
+        _set(mask, path, torch.ones_like(_get(mask, path),
+                                         dtype=torch.float32))
+    for path, pairs in _entries_by_path(spec).items():
+        x = _get(mask, path)
+        for e, g in pairs:
+            v = _view(x, e, g.size)
+            keep = (torch.arange(g.size, device=v.device)
+                    < widths[g.name]).to(torch.float32)
+            shape = [1] * v.dim()
+            shape[e.axis + 1] = g.size
+            x = _unview(v * keep.reshape(shape), e)
+        _set(mask, path, x)
+    return mask
+
+
+def effective_alpha(spec: ShrinkSpec, alpha: float, full_template: PyTree
+                    ) -> float:
+    """Realized FLOP fraction ~ parameter fraction of the alpha
+    sub-model, from the group widths leaf by leaf."""
+    full = sum(_get(full_template, p).numel()
+               for p in _all_paths(full_template))
+    widths = spec.widths(alpha)
+    todo = _entries_by_path(spec)
+    sub_total = 0
+    for p in _all_paths(full_template):
+        factor = 1.0
+        for e, g in todo.get(p, []):
+            factor *= widths[g.name] / g.size
+        sub_total += _get(full_template, p).numel() * factor
+    return sub_total / full
+
+
 # ------------------------------------------------------- spec constructors
 
 def cnn_shrink_spec(cfg) -> ShrinkSpec:

@@ -13,13 +13,19 @@ or moving.
        --participation 0.5] \\
       [--mobility random_waypoint --speed 30 --handover-policy nearest] \\
       [--mobility replay --scenario-trace world.json \\
-       --availability replay]
+       --availability replay] \\
+      [--telemetry-dir out/ --health --telemetry-rollup 64 \\
+       --trace-sample 0.25 --torch-profile]
 
 ``--method`` is one of ``train/fl_loop.METHODS``; ``--arch`` names one of
 the paper's two models (an LM family raises ``NotImplementedError``).
 
 Runs on the CUDA card unless ``--device cpu`` is given, and prints the
-reference launcher's final JSON fields.
+reference launcher's final JSON fields and the per-phase cost
+attribution.  ``--telemetry-dir`` attaches a telemetry session and
+writes its bundle there (``trace.perfetto.json``, ``trace.jsonl``,
+``metrics.jsonl``, ``manifest.json``, and ``alerts.jsonl`` under
+``--health``); ``python -m repro_torch.telemetry.query`` reads it.
 """
 from __future__ import annotations
 
@@ -32,8 +38,11 @@ from repro_torch.mobility import HandoverConfig, MobilityConfig
 from repro_torch.orchestrator.policies import POLICIES, OrchestratorConfig
 from repro_torch.orchestrator.runner import run_orchestrated
 from repro_torch.sysmodel.population import FleetConfig
+from repro_torch.telemetry import (DEFAULT_RULES, NULL_TELEMETRY,
+                                   HealthEngine, RollupPolicy, Telemetry,
+                                   build_manifest, load_rules)
 from repro_torch.topology import BackhaulConfig, TopologyConfig
-from repro_torch.train.fl_loop import METHODS, FLRunConfig
+from repro_torch.train.fl_loop import METHODS, PHASES, FLRunConfig
 
 
 def _dynamics_config(args):
@@ -236,6 +245,37 @@ def main(argv=None):
     ap.add_argument("--selection-seed", type=int, default=None,
                     help="seed of the selection generator (default: "
                          "--seed, through a generator of its own)")
+    # ---- telemetry
+    ap.add_argument("--telemetry-dir", default=None,
+                    help="write the telemetry bundle here: "
+                         "trace.perfetto.json (load in ui.perfetto.dev), "
+                         "trace.jsonl, metrics.jsonl, manifest.json. Off "
+                         "by default; on or off, the run's result is the "
+                         "same bit for bit")
+    ap.add_argument("--torch-profile", action="store_true",
+                    help="also run under torch.profiler (a Chrome trace "
+                         "of host ops and CUDA kernels under "
+                         "<telemetry-dir>/torch_profile)")
+    ap.add_argument("--health", action="store_true",
+                    help="attach the health engine (needs "
+                         "--telemetry-dir): rule-based detectors over the "
+                         "learning.* / round.* series emit ALERT trace "
+                         "instants, an alerts.jsonl in the bundle and a "
+                         "[health] table")
+    ap.add_argument("--health-rules", default=None,
+                    help="JSON rule file overriding the default health "
+                         "detectors (schema in telemetry/health.py)")
+    ap.add_argument("--telemetry-rollup", type=int, default=None,
+                    metavar="N",
+                    help="fleet size at which device-labeled metrics fold "
+                         "into bounded per-cell quantile sketches and "
+                         "top-K trackers; below N, or without the flag, "
+                         "the exact per-device cells")
+    ap.add_argument("--trace-sample", type=float, default=None,
+                    metavar="RATE",
+                    help="keep only this fraction of device/<id> trace "
+                         "rows, chosen by the deterministic hash "
+                         "blake2b(seed, device_id) < RATE")
     args = ap.parse_args(argv)
     run_cfg = FLRunConfig(arch=args.arch, method=args.method,
                           rounds=args.rounds, seed=args.seed,
@@ -254,8 +294,30 @@ def main(argv=None):
         straggler_mode=args.straggler_mode,
         max_inflight=args.max_inflight, agg_route=args.agg_route,
         use_pool=False if args.no_pool else None)
+    if args.torch_profile and not args.telemetry_dir:
+        raise SystemExit("--torch-profile needs --telemetry-dir: the "
+                         "profile is written under "
+                         "<telemetry-dir>/torch_profile")
+    tel = NULL_TELEMETRY
+    if args.telemetry_dir:
+        rollup = None
+        if args.telemetry_rollup is not None:
+            rollup = RollupPolicy(device_threshold=args.telemetry_rollup,
+                                  seed=args.seed)
+        tel = Telemetry(args.telemetry_dir,
+                        torch_profile=args.torch_profile, rollup=rollup,
+                        trace_sample=args.trace_sample,
+                        trace_seed=args.seed)
+    if args.health:
+        if not tel.enabled:
+            raise SystemExit("--health needs --telemetry-dir: the health "
+                             "engine evaluates the learning.* series a "
+                             "telemetry session records")
+        rules = load_rules(args.health_rules) if args.health_rules \
+            else DEFAULT_RULES
+        tel.health = HealthEngine(rules)
     hist = run_orchestrated(run_cfg, fleet, orch, device=args.device,
-                            verbose=True)
+                            verbose=True, telemetry=tel)
     tta = {f"acc>={th:.2f}": hist.time_to_acc(th)
            for th in (0.3, 0.5, 0.7, 0.9) if hist.best_acc >= th}
     print(json.dumps({"arch": args.arch, "method": args.method,
@@ -273,6 +335,29 @@ def main(argv=None):
                                                for r in hist.rounds) / 8e6),
                       "time_to_acc_s": tta,
                       "rows": hist.to_rows()[-1]}, indent=1))
+    # per-phase cost attribution (always available: the registry backs
+    # every RoundLog whether or not a telemetry dir was given)
+    totals = hist.phase_totals()
+    print("[cost attribution]")
+    print(f"  {'phase':>9s} {'energy_j':>12s} {'latency_s':>12s} "
+          f"{'comm_mb':>12s}")
+    for phase in PHASES:
+        print(f"  {phase:>9s} {totals['energy_j'][phase]:12.3f} "
+              f"{totals['latency_s'][phase]:12.3f} "
+              f"{totals['comm_bits'][phase] / 8e6:12.3f}")
+    if tel.enabled:
+        if tel.health is not None:
+            for line in tel.health.summary_table():
+                print(line)
+        manifest = build_manifest(
+            run_cfg, fleet, orch, trace_signature=hist.trace,
+            device=args.device,
+            extra={"phase_totals": totals, "best_acc": hist.best_acc,
+                   "n_alerts": (len(tel.health.alerts())
+                                if tel.health is not None else None)})
+        paths = tel.flush(manifest=manifest)
+        for kind, path in sorted(paths.items()):
+            print(f"[telemetry] {kind}: {path}")
     return hist
 
 

@@ -63,6 +63,16 @@ a move) before dispatch, and a flight merges at the cell recorded at
 its dispatch.  A replay scenario can also step each cell's backhaul rate
 over time (``Simulation.cell_backhaul``).
 
+**Telemetry** (``telemetry=``, a ``repro_torch.telemetry.Telemetry``):
+the run's ``MetricsRegistry`` is always live, as the store behind every
+``RoundLog`` and the ``dispatch.latency_s`` observations; spans,
+instants, cost counters, the ``learning.*`` diagnostics
+(``telemetry/learning.LearningRecorder``, imported only when a session
+is on) and the health engine run behind ``if tel.enabled`` guards.  They
+draw from no random stream, write into no tensor the run reads, and
+launch no kernel, so a run gives the same result bit for bit with a
+session or without one.
+
 The numpy generator is consumed in the reference's order
 (``repro/orchestrator/runner.py``): setup (task data, partition,
 fleet), then per round (per dispatch under fedbuff) the channel draws,
@@ -106,6 +116,8 @@ from repro_torch.orchestrator.policies import (STALE_REQUEUE,
                                                make_policy, staleness_scales,
                                                unnormalized_weight)
 from repro_torch.sysmodel.population import FleetConfig, make_fleet
+from repro_torch.telemetry import (NULL_TELEMETRY, MetricsRegistry,
+                                   profile_trace)
 from repro_torch.topology.codec import (decode_partial, encode_partial,
                                         payload_bits)
 from repro_torch.topology.edge import (CodecErrorFeedback, EdgeAggregator,
@@ -192,12 +204,21 @@ class Simulation:
 
     def __init__(self, run_cfg: FLRunConfig,
                  fleet_cfg: Optional[FleetConfig] = None, *,
-                 device="cuda", uniforms: Optional[UniformSource] = None):
+                 device="cuda", uniforms: Optional[UniformSource] = None,
+                 telemetry=None):
         if run_cfg.method not in METHODS:
             raise ValueError(f"unknown method {run_cfg.method!r}; expected "
                              f"one of {METHODS}")
         self.device = resolve_device(device)
         self.run_cfg = run_cfg
+        # telemetry: the registry is ALWAYS live (it is RoundLog's backing
+        # store: host-side dicts that touch no RNG stream and no tensor);
+        # the trace sink and the per-device emission run only behind
+        # ``if self.tel.enabled`` guards
+        self.tel = telemetry if telemetry is not None \
+            and telemetry.enabled else NULL_TELEMETRY
+        self.registry = self.tel.registry if self.tel.enabled \
+            else MetricsRegistry()
         # setup order mirrors the reference: the numpy stream position
         # after setup must match it
         rng = self.rng = np.random.default_rng(run_cfg.seed)
@@ -210,6 +231,9 @@ class Simulation:
         test_x = torch.from_numpy(self.test.x).to(self.device)
         test_y = torch.from_numpy(self.test.y).to(self.device)
         fleet_cfg = self.fleet_cfg = fleet_cfg or FleetConfig()
+        # engages the registry's rollup policy (if one was configured)
+        # past its threshold; records nothing, so no guard is needed
+        self.registry.set_fleet_size(fleet_cfg.n_devices)
         if run_cfg.iid:
             self.parts = partition_iid(rng, run_cfg.n_train,
                                        fleet_cfg.n_devices)
@@ -276,6 +300,15 @@ class Simulation:
             self.codec_ef = CodecErrorFeedback()
         # set from OrchestratorConfig.agg_route by run_orchestrated
         self.agg_route = "streaming"
+
+        # learning diagnostics: only an enabled session gets a recorder,
+        # and the import is deferred to that branch, so a run without
+        # telemetry never loads the module
+        self.learn = None
+        if self.tel.enabled:
+            from repro_torch.telemetry.learning import LearningRecorder
+            self.learn = LearningRecorder(self.spec,
+                                          self.fleet_cfg.n_devices)
 
     # ------------------------------------------------------- fleet dynamics
 
@@ -510,7 +543,8 @@ class Simulation:
 def _hier_round_merge(sim: Simulation, policy,
                       live: list[PendingUpdate],
                       aborted: list[PendingUpdate], sorted_params: PyTree,
-                      queue: ev_mod.EventQueue, t_wall: float):
+                      queue: ev_mod.EventQueue, t_wall: float,
+                      round_idx: int = 0):
     """One hierarchical round tail: per-cell accept -> edge absorb ->
     backhaul ship -> cloud merge.
 
@@ -529,6 +563,7 @@ def _hier_round_merge(sim: Simulation, policy,
     backhaul_bits, n_cells_reporting, lat_parts)``; ``lat_parts`` splits
     ``lat`` into (train, uplink, backhaul) along the critical cell."""
     topo, fleet, rc = sim.topo, sim.fleet, sim.run_cfg
+    tel = sim.tel
     cell_dl = topo.cell_deadline_s
     route = sim.agg_route
     accepted_all, parts, ships, route_pairs = [], [], [], []
@@ -570,8 +605,11 @@ def _hier_round_merge(sim: Simulation, policy,
                 # the exact encoded size (planes + int8 scale headers)
                 # is what the link serializes and the tariff charges
                 enc = sim.encode_ship(k, edge.ship())
-                parts.append(enc)
+                parts.append((k, enc))
                 bits = enc.bits
+                if tel.enabled and sim.codec_ef is not None:
+                    sim.learn.record_ef_residual(tel, k, round_idx,
+                                                 sim.codec_ef)
             else:
                 route_pairs.extend(zip(acc_k, w_uns))
                 bits = payload_bits(tree_size(sorted_params),
@@ -585,21 +623,48 @@ def _hier_round_merge(sim: Simulation, policy,
             n_rep += 1
             crit.append((lat_k + t_ship, lat_k, t_ship,
                          max(p.t_cmp for p in acc_k)))
+            if tel.enabled:
+                tel.span(f"cell/{k}", "backhaul_ship", t_wall + lat_k,
+                         t_wall + lat_k + t_ship, round=round_idx,
+                         bits=float(bits), codec=topo.backhaul.codec,
+                         energy_j=e_k, n_updates=len(acc_k))
+                tel.counter("cost.energy_j", e_k, cell=k,
+                            phase="backhaul", round=round_idx)
+                tel.counter("cost.comm_bits", float(bits), cell=k,
+                            phase="backhaul", round=round_idx)
+                tel.counter("backhaul.ships", 1.0, cell=k,
+                            codec=topo.backhaul.codec, round=round_idx)
+                for p, w_un in zip(acc_k, w_uns):
+                    sim.learn.note_contribution(p.client_id, w_un)
         else:
             lat = max(lat, lat_k)
             crit.append((lat_k, lat_k, 0.0, 0.0))
         accepted_all.extend(acc_k)
     for t_arr, k in ships:      # record cloud arrival order
         queue.push(t_arr, ev_mod.EDGE_MERGE, k)
+        if tel.enabled:
+            tel.instant("server", "EDGE_MERGE", t_arr, cell=k,
+                        round=round_idx)
     for _ in ships:
         queue.pop()
     new_params = None
     if parts:
+        decoded = [(k, decode_partial(e)) for k, e in parts]
+        cell_aggs = []
+        if tel.enabled:
+            # finalize each cell's aggregate now: the cloud merge below
+            # writes into the first decoded partial's planes
+            cell_aggs = [(k, aggregation.partial_finalize(d))
+                         for k, d in decoded]
         # in place: the first decoded partial becomes the cloud's
         # accumulator (with f32, that is the edge's own planes)
-        merged = cloud_merge([decode_partial(e) for e in parts])
+        merged = cloud_merge([d for _, d in decoded])
         new_params = finalize_apply(sorted_params, merged,
                                     sim.server.server_lr)
+        if tel.enabled:
+            delta = tree_sub(sorted_params, new_params)
+            for k, cell_agg in cell_aggs:
+                sim.learn.record_cell(tel, k, round_idx, cell_agg, delta)
     elif route_pairs:              # batched: the flat (I, N) Eq. 5
         agg = aggregation.aio_aggregate(
             [p.update.values for p, _ in route_pairs],
@@ -623,8 +688,9 @@ def _run_round_based(sim: Simulation, policy, orch: OrchestratorConfig,
     rc = sim.run_cfg
     use_pool = orch.use_pool if orch.use_pool is not None \
         else policy.pool_default
+    tel = sim.tel
     queue = ev_mod.EventQueue(trace_limit=orch.event_trace_limit)
-    hist = History(rc, [])
+    hist = History(rc, [], registry=sim.registry)
     params = sim.params
     t_wall = 0.0
 
@@ -638,6 +704,11 @@ def _run_round_based(sim: Simulation, policy, orch: OrchestratorConfig,
                 sim.fleet.positions(t_wall), sim.fleet.cells)
             for i, old, new in moves:
                 queue.push(t_wall, ev_mod.HANDOVER, i, (old, new))
+                if tel.enabled:
+                    tel.instant(f"device/{i}", "HANDOVER", t_wall,
+                                round=t, src_cell=old, dst_cell=new)
+                    tel.counter("mobility.handovers", 1.0, device=i,
+                                round=t)
             for _ in moves:
                 queue.pop()
             sim.fleet.cells = new_cells
@@ -657,6 +728,11 @@ def _run_round_based(sim: Simulation, policy, orch: OrchestratorConfig,
         for p in pendings:
             sim.dispatch_log.append((t_wall, p.client_id,
                                      headroom[p.client_id]))
+        if tel.enabled:
+            tel.counter("fleet.unavailable", float(n_unavail), round=t)
+            tel.counter("fleet.selected", float(len(selected)), round=t)
+            tel.counter("fleet.infeasible",
+                        float(len(selected) - len(pendings)), round=t)
 
         # mid-round churn: a device that leaves the cell before its
         # planned T_cmp + T_com elapses aborts; it is never trained or
@@ -689,17 +765,58 @@ def _run_round_based(sim: Simulation, policy, orch: OrchestratorConfig,
             sim.materialize(p, tr, sorted_params, sub=j.sub_params)
             p.dispatched_at = t_wall
             p.completes_at = t_wall + p.duration
+            # dispatch->arrival flight time goes to the always-live
+            # registry (like the round.* gauges), so the dispatch latency
+            # is queryable without a telemetry session
+            # repro: ignore[unguarded-telemetry] — always-live by design
+            sim.registry.observe("dispatch.latency_s", p.duration,
+                                 device=p.client_id, cell=p.cell,
+                                 round=t)
             queue.push(p.completes_at, ev_mod.COMPLETE, p.client_id, p)
             en += p.energy
             en_cmp += p.e_cmp
             en_com += p.e_com
             fl += p.update.flops
             cb += p.update.bits
+            if tel.enabled:
+                sub = j.sub_params if j.sub_params is not None \
+                    else shrinking.shrink(sorted_params, p.alpha, sim.spec)
+                sim.learn.record_device(
+                    tel, p.client_id, t,
+                    sim.learn.device_stats(p.alpha, sub, tr,
+                                           p.update.values,
+                                           p.update.mask))
+                tel.span(f"device/{p.client_id}", "train", t_wall,
+                         t_wall + p.t_cmp, round=t, cell=p.cell,
+                         alpha=p.update.alpha, energy_j=p.e_cmp,
+                         flops=p.update.flops)
+                tel.span(f"device/{p.client_id}", "uplink",
+                         t_wall + p.t_cmp, t_wall + p.duration, round=t,
+                         cell=p.cell, bits=p.update.bits,
+                         beta=p.update.beta_realized, energy_j=p.e_com)
+                tel.counter("cost.energy_j", p.e_cmp,
+                            device=p.client_id, cell=p.cell,
+                            phase="train", round=t)
+                tel.counter("cost.energy_j", p.e_com,
+                            device=p.client_id, cell=p.cell,
+                            phase="uplink", round=t)
+                tel.counter("cost.comm_bits", p.update.bits,
+                            device=p.client_id, cell=p.cell,
+                            phase="uplink", round=t)
         for p in aborted:
             queue.push(p.completes_at, ev_mod.CHURN, p.client_id, p)
             en += p.energy
             en_cmp += p.e_cmp
             en_com += p.e_com
+            if tel.enabled:
+                tel.instant(f"device/{p.client_id}", "CHURN",
+                            p.completes_at, round=t, cell=p.cell)
+                tel.counter("cost.energy_j", p.e_cmp,
+                            device=p.client_id, cell=p.cell,
+                            phase="train", round=t)
+                tel.counter("cost.energy_j", p.e_com,
+                            device=p.client_id, cell=p.cell,
+                            phase="uplink", round=t)
         for _ in range(len(live) + len(aborted)):  # record arrival order
             queue.pop()
 
@@ -721,16 +838,20 @@ def _run_round_based(sim: Simulation, policy, orch: OrchestratorConfig,
             continue
 
         bh_bits, n_cells_rep, e_ship = 0.0, 0, 0.0
+        agg_delta = None
         if sim.topo is not None:
             (accepted, new_params, lat, e_ship, bh_bits, n_cells_rep,
              lat_parts) = _hier_round_merge(sim, policy, live, aborted,
-                                            sorted_params, queue, t_wall)
+                                            sorted_params, queue, t_wall,
+                                            round_idx=t)
             en += e_ship
             t_wall += lat
             for p in live + aborted:
                 sim.fleet.debit(p.client_id, p.energy, t_wall)
             if new_params is not None:
                 params = new_params
+                if tel.enabled:
+                    agg_delta = tree_sub(sorted_params, new_params)
         else:
             accepted, scales, lat = policy.accept(live, 0.0)
             if aborted:
@@ -752,6 +873,10 @@ def _run_round_based(sim: Simulation, policy, orch: OrchestratorConfig,
                     rc.method, rc.use_aio, [p.update for p in accepted],
                     [p.fedhq_level for p in accepted]), scales)
                 params = sim.aggregate(sorted_params, accepted, w)
+                if tel.enabled:
+                    agg_delta = tree_sub(sorted_params, params)
+                    for p, wv in zip(accepted, w.tolist()):
+                        sim.learn.note_contribution(p.client_id, wv)
 
         log = hist.log_round(
             t, latency_s=lat, energy_j=en, flops=fl, comm_bits=cb,
@@ -768,6 +893,17 @@ def _run_round_based(sim: Simulation, policy, orch: OrchestratorConfig,
             energy_train_j=en_cmp, energy_uplink_j=en_com,
             energy_backhaul_j=e_ship, latency_train_s=lat_parts[0],
             latency_uplink_s=lat_parts[1], latency_backhaul_s=lat_parts[2])
+        if tel.enabled:
+            if agg_delta is not None:
+                for p in accepted:
+                    sim.learn.record_alignment(tel, p.client_id, t,
+                                               p.update.values, agg_delta)
+            sim.learn.record_round(tel, t, agg_delta)
+            tel.span("server", "round", t_wall - lat, t_wall, round=t,
+                     n_clients=len(accepted), n_cells=n_cells_rep,
+                     energy_j=en)
+            if tel.health is not None:
+                tel.health.evaluate(t, t_wall, sim.registry, tel)
         if t % rc.eval_every == 0 or t == rc.rounds - 1:
             acc, loss = sim.evaluate(params)
             hist.log_eval(log, acc, loss)
@@ -799,8 +935,9 @@ def _run_fedbuff(sim: Simulation, policy, orch: OrchestratorConfig,
         print("[fedbuff] warning: selection policies and participation "
               "caps are round-based controls; fedbuff devices free-run "
               "(availability/battery gating still applies)")
+    tel = sim.tel
     queue = ev_mod.EventQueue(trace_limit=orch.event_trace_limit)
-    hist = History(rc, [])
+    hist = History(rc, [], registry=sim.registry)
 
     # frozen sorted coordinate frame (cross-version merges need one frame)
     current = sim.sort_params(sim.params)
@@ -826,6 +963,12 @@ def _run_fedbuff(sim: Simulation, policy, orch: OrchestratorConfig,
         i = p.client_id
         inflight_version[i] = p.version
         peak_inflight = max(peak_inflight, len(inflight_version))
+        # always-live registry write (host-side, never touches device
+        # state), so the dispatch latency is queryable without a
+        # telemetry session
+        # repro: ignore[unguarded-telemetry] — always-live by design
+        sim.registry.observe("dispatch.latency_s", p.completes_at - now,
+                             device=p.client_id, version=p.version)
         t_off = sim.fleet.next_departure(i, now)
         if t_off < p.completes_at:
             queue.push(t_off, ev_mod.CHURN, i, p)
@@ -929,6 +1072,9 @@ def _run_fedbuff(sim: Simulation, policy, orch: OrchestratorConfig,
             break
         now = ev.time
         if ev.kind == ev_mod.RETRY:
+            if tel.enabled:
+                tel.instant(f"device/{ev.client}", "RETRY", now)
+                tel.counter("fedbuff.retries", 1.0, device=ev.client)
             redispatch(ev.client, now)
             continue
         if ev.kind == ev_mod.CHURN:
@@ -942,6 +1088,13 @@ def _run_fedbuff(sim: Simulation, policy, orch: OrchestratorConfig,
             en += waste
             en_cmp += frac * p.strat.E_cmp
             en_com += frac * p.strat.E_com
+            if tel.enabled:
+                tel.instant(f"device/{p.client_id}", "CHURN", now,
+                            version=p.version)
+                tel.counter("cost.energy_j", frac * p.strat.E_cmp,
+                            device=p.client_id, phase="train")
+                tel.counter("cost.energy_j", frac * p.strat.E_com,
+                            device=p.client_id, phase="uplink")
             sim.fleet.debit(p.client_id, waste, now)
             n_aborted += 1
             inflight_version.pop(p.client_id, None)
@@ -962,6 +1115,13 @@ def _run_fedbuff(sim: Simulation, policy, orch: OrchestratorConfig,
             en += p.strat.E_cmp + p.strat.E_com   # spent, never aggregated
             en_cmp += p.strat.E_cmp
             en_com += p.strat.E_com
+            if tel.enabled:
+                tel.instant(f"device/{p.client_id}", "STALE_REJECT",
+                            now, staleness=p.staleness)
+                tel.counter("cost.energy_j", p.strat.E_cmp,
+                            device=p.client_id, phase="train")
+                tel.counter("cost.energy_j", p.strat.E_com,
+                            device=p.client_id, phase="uplink")
             if orch.staleness_mode == STALE_REQUEUE:
                 requeue(p, now)
             else:
@@ -1001,14 +1161,50 @@ def _run_fedbuff(sim: Simulation, policy, orch: OrchestratorConfig,
             en_com += b.e_com
             fl += b.update.flops
             cb += b.update.bits
+            if tel.enabled:
+                sim.learn.record_device(
+                    tel, b.client_id, n_agg,
+                    sim.learn.device_stats(b.alpha, j.sub_params, tr,
+                                           b.update.values,
+                                           b.update.mask))
+                tel.span(f"device/{b.client_id}", "train",
+                         b.dispatched_at, b.dispatched_at + b.t_cmp,
+                         version=b.version, staleness=b.staleness,
+                         alpha=b.update.alpha, energy_j=b.e_cmp)
+                tel.span(f"device/{b.client_id}", "uplink",
+                         b.dispatched_at + b.t_cmp,
+                         b.dispatched_at + b.duration,
+                         version=b.version, bits=b.update.bits,
+                         energy_j=b.e_com)
+                tel.counter("cost.energy_j", b.e_cmp,
+                            device=b.client_id, phase="train")
+                tel.counter("cost.energy_j", b.e_com,
+                            device=b.client_id, phase="uplink")
+                tel.counter("cost.comm_bits", b.update.bits,
+                            device=b.client_id, phase="uplink")
             w_b = unnormalized_weight(rc.method, rc.use_aio, b.update,
                                       b.fedhq_level) \
                 * staleness_scales([b.staleness], gamma)[0]
             stream_acc.absorb(b.update.values, b.update.mask, w_b)
-            b.update = dataclasses.replace(b.update, values=None,
-                                           mask=None)
+            if tel.enabled:
+                # keep the decoded update until the post-merge alignment
+                # pass below: a telemetry-only memory cost of one
+                # buffer's worth of updates
+                sim.learn.note_contribution(b.client_id, float(w_b))
+            else:
+                b.update = dataclasses.replace(b.update, values=None,
+                                               mask=None)
+        prev_current = current
         current = finalize_apply(current, stream_acc.ship(),
                                  sim.server.server_lr)
+        if tel.enabled:
+            agg_delta = tree_sub(prev_current, current)
+            for b in buffer:
+                sim.learn.record_alignment(tel, b.client_id, n_agg,
+                                           b.update.values, agg_delta)
+                b.update = dataclasses.replace(b.update, values=None,
+                                               mask=None)
+            sim.learn.record_round(tel, n_agg, agg_delta)
         version += 1
         version_params[version] = current
         # keep only the versions an in-flight client still trains on
@@ -1016,6 +1212,9 @@ def _run_fedbuff(sim: Simulation, policy, orch: OrchestratorConfig,
         for v in [v for v in version_params if v not in keep]:
             del version_params[v]
         n_agg += 1
+        if tel.enabled:
+            tel.instant("server", "BUFFER_MERGE", now, version=version,
+                        n_updates=len(buffer))
 
         # latency split along the merge's triggering arrival (buffer[-1]):
         # its training inside [last_agg_t, now] is the compute share, the
@@ -1039,6 +1238,8 @@ def _run_fedbuff(sim: Simulation, policy, orch: OrchestratorConfig,
             t_max_effective=sim.effective_T_max(now),
             energy_train_j=en_cmp, energy_uplink_j=en_com,
             latency_train_s=lat_train, latency_uplink_s=lat - lat_train)
+        if tel.enabled and tel.health is not None:
+            tel.health.evaluate(n_agg - 1, now, sim.registry, tel)
         done = orch.max_wallclock_s is None and n_agg >= rc.rounds
         if (n_agg - 1) % rc.eval_every == 0 or done:
             acc, loss = sim.evaluate(current)
@@ -1071,13 +1272,18 @@ def run_orchestrated(run_cfg: FLRunConfig,
                      fleet_cfg: Optional[FleetConfig] = None,
                      orch: Optional[OrchestratorConfig] = None, *,
                      device="cuda", verbose: bool = False,
-                     uniforms: Optional[UniformSource] = None) -> History:
+                     uniforms: Optional[UniformSource] = None,
+                     telemetry=None) -> History:
     """Run federated training under an arrival/aggregation policy (sync,
     semisync or fedbuff) on ``device`` (``cuda`` unless the caller asks
     for the CPU), on a flat or a hierarchical fleet; ``uniforms``
-    replaces the default uniform source."""
+    replaces the default uniform source.  ``telemetry`` is an optional
+    :class:`repro_torch.telemetry.Telemetry` session; without one (or
+    with ``NULL_TELEMETRY``) the run records only the always-live
+    registry and gives the same result bit for bit."""
     orch = orch or OrchestratorConfig()
-    sim = Simulation(run_cfg, fleet_cfg, device=device, uniforms=uniforms)
+    sim = Simulation(run_cfg, fleet_cfg, device=device, uniforms=uniforms,
+                     telemetry=telemetry)
     sim.agg_route = sim.resolve_agg_route(orch.agg_route)
     policy = make_policy(orch, fleet_T_max=sim.fleet_cfg.T_max)
     if not policy.round_based and sim.topo is not None:
@@ -1086,4 +1292,7 @@ def run_orchestrated(run_cfg: FLRunConfig,
             "(sync/semisync): fedbuff's cross-version stream has no "
             "per-cell round barrier to ship partials at")
     runner = _run_round_based if policy.round_based else _run_fedbuff
+    if sim.tel.enabled and sim.tel.torch_profile:
+        with profile_trace(sim.tel.out_dir):
+            return runner(sim, policy, orch, verbose)
     return runner(sim, policy, orch, verbose)

@@ -17,10 +17,12 @@ from __future__ import annotations
 
 from typing import Any, Optional
 
+import torch
+
 from repro_torch.core import aggregation
 from repro_torch.topology.codec import (EncodedPartial, decode_partial,
                                         encode_partial)
-from repro_torch.utils.pytree import tree_map
+from repro_torch.utils.pytree import split_vector, tree_leaves, tree_map
 
 PyTree = Any
 
@@ -64,7 +66,7 @@ class CodecErrorFeedback:
     dropped rather than added into the wrong channels."""
 
     def __init__(self):
-        # cell_id -> (frame, num_res, den_res)
+        # cell_id -> (frame, num_res, den_res, template)
         self._res: dict[int, tuple] = {}
 
     def encode_ship(self, cell_id: int, part: aggregation.PartialAgg,
@@ -82,8 +84,24 @@ class CodecErrorFeedback:
         enc = encode_partial(part, codec)
         dec = decode_partial(enc)
         self._res[cell_id] = (frame, part.num - dec.num,
-                              part.den - dec.den)
+                              part.den - dec.den, part.template)
         return enc
+
+    def residual_energy(self, cell_id: int) -> tuple[float, float]:
+        """``(||num_res||^2, ||den_res||^2)`` of the cell's stored
+        residual as host floats: per leaf a float32 sum of squares,
+        added in Python, as the reference computes it (one host
+        transfer).  ``(0.0, 0.0)`` when no residual is stored (f32 wire,
+        or the cell never shipped).  Read-only."""
+        stored = self._res.get(cell_id)
+        if stored is None:
+            return 0.0, 0.0
+        _, num, den, template = stored
+        leaves = tree_leaves(split_vector(template, num)) \
+            + tree_leaves(split_vector(template, den))
+        sq = torch.stack([x.square().sum() for x in leaves]).tolist()
+        n = len(sq) // 2
+        return float(sum(sq[:n])), float(sum(sq[n:]))
 
 
 def cloud_merge(partials: list[aggregation.PartialAgg]

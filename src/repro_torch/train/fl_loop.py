@@ -53,10 +53,24 @@ class FLRunConfig:
     use_planner: bool = True
 
 
+# the registry namespace backing RoundLog views: every field of a round
+# record is gauged as ``round.<field>`` with a ``round=<idx>`` label, and
+# RoundLog.from_registry materializes the dataclass by reading those
+# exact stored objects back (bitwise-identical round trip)
+ROUND_METRIC_PREFIX = "round."
+
+# the cost-attribution phases of the AnycostFL pipeline.  ``shrink``
+# (EMS sub-model extraction) and ``compress`` (FGC encode) are explicit
+# zeros under the paper's Eq. 6-9 cost model (their compute rides
+# inside the train term), but the axis carries them so a finer cost
+# model can populate them without a schema change.
+PHASES = ("shrink", "train", "compress", "uplink", "backhaul")
+
+
 @dataclasses.dataclass
 class RoundLog:
-    """One round's (or fedbuff merge's) record: the reference's fields,
-    but its telemetry views."""
+    """One round's (or fedbuff merge's) record, a view over the run's
+    ``MetricsRegistry`` (:meth:`from_registry`)."""
     round: int
     latency_s: float
     energy_j: float
@@ -92,6 +106,41 @@ class RoundLog:
     latency_uplink_s: float = 0.0  # critical path: uplink + barrier wait
     latency_backhaul_s: float = 0.0  # critical path: the cell's shipping
 
+    @classmethod
+    def from_registry(cls, registry, round_idx: int) -> "RoundLog":
+        """Materialize the round record from the exact objects gauged
+        under ``round.<field>{round=round_idx}``; absent fields keep
+        their defaults."""
+        kw = {}
+        for f in dataclasses.fields(cls):
+            if f.name == "round":
+                continue
+            v = registry.value(ROUND_METRIC_PREFIX + f.name,
+                               round=round_idx)
+            if v is not None:
+                kw[f.name] = v
+        return cls(round=round_idx, **kw)
+
+    def phase_energy(self) -> dict:
+        """``{phase: joules}`` over the full phase axis (sums to
+        energy_j)."""
+        return {"shrink": 0.0, "train": self.energy_train_j,
+                "compress": 0.0, "uplink": self.energy_uplink_j,
+                "backhaul": self.energy_backhaul_j}
+
+    def phase_latency(self) -> dict:
+        """``{phase: seconds}`` of the round's critical path (sums to
+        latency_s on every policy)."""
+        return {"shrink": 0.0, "train": self.latency_train_s,
+                "compress": 0.0, "uplink": self.latency_uplink_s,
+                "backhaul": self.latency_backhaul_s}
+
+    def phase_comm(self) -> dict:
+        """``{phase: bits}``: comm_bits is all uplink; backhaul traffic
+        is the separate backhaul_bits."""
+        return {"shrink": 0.0, "train": 0.0, "compress": 0.0,
+                "uplink": self.comm_bits, "backhaul": 0.0}
+
 
 @dataclasses.dataclass
 class History:
@@ -105,13 +154,30 @@ class History:
     # --max-inflight throttle)
     peak_inflight: int = 0
     final_params: Optional[PyTree] = None   # the global model after the run
+    # the MetricsRegistry backing every RoundLog in ``rounds``
+    registry: Optional[Any] = None
 
     def log_round(self, round_idx: int, **fields) -> RoundLog:
-        log = RoundLog(round=round_idx, **fields)
+        """Gauge every field into the registry, then append + return the
+        :meth:`RoundLog.from_registry` view."""
+        for name, value in fields.items():
+            # the registry *is* the RoundLog storage: always live,
+            # host-side, bitwise-invisible to training
+            # repro: ignore[unguarded-telemetry] — RoundLog backing store
+            self.registry.gauge(ROUND_METRIC_PREFIX + name, value,
+                                round=round_idx)
+        log = RoundLog.from_registry(self.registry, round_idx)
         self.rounds.append(log)
         return log
 
     def log_eval(self, log: RoundLog, acc: float, loss: float) -> None:
+        """Attach an eval to a round record (registry + view + best)."""
+        # repro: ignore[unguarded-telemetry] — RoundLog backing store
+        self.registry.gauge(ROUND_METRIC_PREFIX + "test_acc", acc,
+                            round=log.round)
+        # repro: ignore[unguarded-telemetry] — RoundLog backing store
+        self.registry.gauge(ROUND_METRIC_PREFIX + "test_loss", loss,
+                            round=log.round)
         log.test_acc = acc
         log.test_loss = loss
         self.best_acc = max(self.best_acc, acc)
@@ -147,6 +213,22 @@ class History:
                        cum_flops=float(cf), cum_comm_bits=float(cb))
             out.append(row)
         return out
+
+    def phase_totals(self) -> dict:
+        """Whole-run per-phase attribution: ``{metric: {phase: total}}``
+        over energy (J), latency (s, the critical path) and comm
+        (bits)."""
+        totals = {"energy_j": dict.fromkeys(PHASES, 0.0),
+                  "latency_s": dict.fromkeys(PHASES, 0.0),
+                  "comm_bits": dict.fromkeys(PHASES, 0.0)}
+        for r in self.rounds:
+            for phase, v in r.phase_energy().items():
+                totals["energy_j"][phase] += v
+            for phase, v in r.phase_latency().items():
+                totals["latency_s"][phase] += v
+            for phase, v in r.phase_comm().items():
+                totals["comm_bits"][phase] += v
+        return totals
 
 
 def flops_per_sample(arch_cfg) -> float:
@@ -192,10 +274,12 @@ def _device_batches(rng: np.random.Generator, x: np.ndarray, y: np.ndarray,
 
 
 def run_fl(run_cfg: FLRunConfig, fleet_cfg: Optional[FleetConfig] = None,
-           orch=None, *, device="cuda", verbose: bool = False) -> "History":
+           orch=None, *, device="cuda", verbose: bool = False,
+           telemetry=None) -> "History":
     """Federated training on ``device`` (``cuda`` unless the caller asks
     for the CPU) under ``orch``, an ``OrchestratorConfig``; None is the
-    paper's synchronous round."""
+    paper's synchronous round.  ``telemetry`` is an optional
+    ``repro_torch.telemetry.Telemetry`` session."""
     from repro_torch.orchestrator.runner import run_orchestrated
     return run_orchestrated(run_cfg, fleet_cfg, orch, device=device,
-                            verbose=verbose)
+                            verbose=verbose, telemetry=telemetry)

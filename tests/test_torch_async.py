@@ -397,7 +397,7 @@ def test_cli_runs_fedbuff_on_the_cpu(capsys):
                        "--buffer-size", "2", "--n-train", "128",
                        "--n-test", "64", "--eval-every", "1", "--seed", "3"])
     out = capsys.readouterr().out
-    blob = json.loads(out[out.index("{"):])
+    blob = json.JSONDecoder().raw_decode(out, out.index("{"))[0]
     assert blob["policy"] == "fedbuff" and blob["method"] == "anycostfl"
     assert blob["rows"]["round"] == 1 and blob["rows"]["n_clients"] == 2
     assert blob["sim_wallclock_s"] > 0

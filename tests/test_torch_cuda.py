@@ -605,3 +605,44 @@ def test_fleet_paths_launch_their_kernels(cuda, path):
         assert counts["aio_aggregate"] == 0
     assert all(np.isfinite(r.test_loss) for r in hist.rounds
                if r.test_loss is not None)
+
+
+def test_telemetry_on_the_card_is_invisible_and_launches_alike(cuda):
+    """A 3-device flat run with a telemetry session (and the health
+    engine) on the card against the same run without one: every
+    ``RoundLog`` field, the event trace and the final parameters bitwise
+    equal and every kernel launched as often.  Both run on cuDNN's
+    deterministic algorithms: under the default ones two runs of one
+    configuration need not agree bit for bit on the card."""
+    import dataclasses
+
+    from repro_torch import telemetry
+    from repro_torch.sysmodel.population import FleetConfig
+    from repro_torch.train.fl_loop import FLRunConfig, run_fl
+    from repro_torch.utils.pytree import tree_leaves
+    cfg = FLRunConfig(rounds=2, n_train=128, n_test=32, eval_every=1, seed=3)
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        out = {}
+        for on in (False, True):
+            tel = None
+            if on:
+                tel = telemetry.Telemetry()
+                tel.health = telemetry.HealthEngine(telemetry.DEFAULT_RULES)
+            ops.reset_launch_counts()
+            hist = run_fl(cfg, FleetConfig(n_devices=3), device="cuda",
+                          telemetry=tel)
+            out[on] = (hist, ops.launch_counts(), tel)
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    (off, c_off, _), (on, c_on, tel) = out[False], out[True]
+    assert c_on == c_off and c_on["aio_aggregate"] == 2
+    assert [dataclasses.asdict(r) for r in on.rounds] == \
+        [dataclasses.asdict(r) for r in off.rounds]
+    assert on.trace == off.trace
+    for a, b in zip(tree_leaves(on.final_params),
+                    tree_leaves(off.final_params)):
+        assert a.is_cuda and torch.equal(a, b)
+    assert tel.registry.value("learning.update_norm", device=0,
+                              round=0) > 0

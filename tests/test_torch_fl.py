@@ -154,7 +154,8 @@ def test_port_imports_neither_jax_nor_the_reference():
     imported, every module of the port imports (the baselines, gains,
     codec and energy modules among them) and a flat AnycostFL round, a
     flat QSGD round, a hierarchical CPU round, a pooled fedbuff merge, a
-    dynamic round and a mobile hierarchical round run."""
+    dynamic round, a mobile hierarchical round and a round with a
+    telemetry session attached run."""
     code = textwrap.dedent("""
         import importlib, pkgutil, sys
         sys.modules["jax"] = None
@@ -213,6 +214,19 @@ def test_port_imports_neither_jax_nor_the_reference():
                       device="cpu")
         assert hist.rounds[0].n_cells_reporting > 0
         assert hist.rounds[0].max_cell_occupancy > 0
+        from repro_torch import telemetry
+        for name in ("health", "learning", "manifest", "profiler", "query",
+                     "references", "registry", "sampling", "session",
+                     "sketch", "trace"):
+            importlib.import_module("repro_torch.telemetry." + name)
+        tel = telemetry.Telemetry()
+        tel.health = telemetry.HealthEngine(telemetry.DEFAULT_RULES)
+        hist = run_fl(FLRunConfig(rounds=1, n_train=64, n_test=32,
+                                  eval_every=1, seed=1, use_planner=False),
+                      FleetConfig(n_devices=2), device="cpu", telemetry=tel)
+        assert tel.registry.value("learning.update_norm", device=0,
+                                  round=0) > 0
+        assert hist.registry is tel.registry and len(tel.sink) > 0
         assert not [k for k, v in sys.modules.items() if v is not None
                     and (k.split(".")[0] in ("jax", "jaxlib", "repro"))]
         print("ok")
@@ -242,7 +256,7 @@ def test_cli_runs_on_the_cpu_and_prints_the_final_json(capsys):
                        "--n-train", "64", "--n-test", "32",
                        "--eval-every", "1", "--seed", "2"])
     out = capsys.readouterr().out
-    blob = json.loads(out[out.index("{"):])
+    blob = json.JSONDecoder().raw_decode(out, out.index("{"))[0]
     assert blob["policy"] == "sync" and blob["method"] == "anycostfl"
     assert 0.0 <= blob["best_acc"] <= 1.0
     assert blob["rows"]["round"] == 0 and blob["rows"]["comm_bits"] > 0
@@ -256,7 +270,7 @@ def test_cli_runs_a_baseline_on_non_iid_data(capsys):
                        "--n-train", "64", "--n-test", "32",
                        "--eval-every", "1", "--seed", "2"])
     out = capsys.readouterr().out
-    blob = json.loads(out[out.index("{"):])
+    blob = json.JSONDecoder().raw_decode(out, out.index("{"))[0]
     assert blob["arch"] == "fmnist-cnn" and blob["method"] == "qsgd"
     assert blob["rows"]["n_clients"] == 2
     # QSGD keeps 1/16 of the coordinates: far below the raw 32 bits each

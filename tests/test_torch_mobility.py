@@ -345,7 +345,7 @@ def test_cli_runs_dynamics_and_mobility_on_the_cpu(capsys):
         "--availability", "markov", "--battery", "on",
         "--selection", "gain", "--participation", "0.5"])
     out = capsys.readouterr().out
-    blob = json.loads(out[out.index("{"):])
+    blob = json.JSONDecoder().raw_decode(out, out.index("{"))[0]
     assert (blob["availability"], blob["selection"], blob["mobility"],
             blob["handover_policy"]) == ("markov", "gain",
                                          "random_waypoint", "nearest")

@@ -423,7 +423,7 @@ def test_cli_runs_the_hierarchy_on_the_cpu(capsys):
                        "--eval-every", "1", "--backhaul-codec", "int8",
                        "--backhaul-ef"])
     out = capsys.readouterr().out
-    blob = json.loads(out[out.index("{"):])
+    blob = json.JSONDecoder().raw_decode(out, out.index("{"))[0]
     assert blob["topology"] == "hier" and blob["cells"] == 2
     assert blob["backhaul_mb"] > 0
     assert blob["rows"]["n_cells_reporting"] == 2
