@@ -288,3 +288,68 @@ def cnn_shrink_spec(cfg) -> ShrinkSpec:
                  Entry("dense3.w", 0)),
         sort_by=Entry("dense2.w", 1)))
     return ShrinkSpec(tuple(groups))
+
+
+def transformer_shrink_spec(cfg, params_template: PyTree,
+                            round_to: int = 1) -> ShrinkSpec:
+    """Width groups for the decoder-LM families.
+
+    EMS shrinks the hidden widths whose slicing preserves the function:
+    the MLP d_ff, the SSM d_inner, and the q-head count (whole heads,
+    ``wo``'s input tracked).  d_model, the residual stream, is kept.
+    Entries address the stacked-layer arrays (the leading ``layers`` axis
+    shifts each axis by one).
+    """
+    groups = []
+    blocks = params_template.get("blocks", {})
+    if "mlp" in blocks:
+        gate = "w_gate" if "w_gate" in blocks["mlp"] else "w_up"
+        groups.append(WidthGroup(
+            "mlp", cfg.d_ff,
+            entries=tuple([Entry(f"blocks.mlp.{k}", 2)
+                           for k in ("w_gate", "w_up") if k in blocks["mlp"]]
+                          + [Entry("blocks.mlp.w_down", 1)]),
+            sort_by=Entry(f"blocks.mlp.{gate}", 2), round_to=round_to))
+    if "attn" in blocks and cfg.n_kv_heads:
+        # GQA-safe: heads viewed as (kv group, group size, head_dim) and the
+        # group size shrunk, so every kv group keeps as many q heads
+        hd = cfg.resolved_head_dim
+        kv = cfg.n_kv_heads
+        gsz = cfg.n_heads // kv
+        if gsz > 1:
+            entries = [Entry("blocks.attn.wq.w", 2, outer=kv, block=hd),
+                       Entry("blocks.attn.wo.w", 1, outer=kv, block=hd)]
+            if "b" in blocks["attn"]["wq"]:
+                entries.append(Entry("blocks.attn.wq.b", 1, outer=kv,
+                                     block=hd))
+            groups.append(WidthGroup(
+                "heads", gsz, tuple(entries),
+                sort_by=Entry("blocks.attn.wq.w", 2, outer=kv, block=hd)))
+    if "in_x" in blocks:  # mamba
+        s = cfg.ssm
+        groups.append(WidthGroup(
+            "d_inner", s.d_inner,
+            entries=(Entry("blocks.in_x.w", 2), Entry("blocks.in_z.w", 2),
+                     Entry("blocks.conv_w", 2), Entry("blocks.conv_b", 1),
+                     Entry("blocks.w_dt.w", 1), Entry("blocks.w_B.w", 1),
+                     Entry("blocks.w_C.w", 1), Entry("blocks.dt_proj.w", 2),
+                     Entry("blocks.dt_bias", 1), Entry("blocks.A_log", 1),
+                     Entry("blocks.D", 1), Entry("blocks.out.w", 1)),
+            sort_by=Entry("blocks.in_x.w", 2), round_to=round_to))
+    return ShrinkSpec(tuple(groups))
+
+
+def shrunk_config(cfg, alpha: float, spec: ShrinkSpec):
+    """ArchConfig of the alpha sub-model (the LM code reads its dims from
+    the config; the CNN's read them from the params)."""
+    widths = spec.widths(alpha)
+    if "conv1" in widths:
+        return cfg
+    kw = {}
+    if "mlp" in widths:
+        kw["d_ff"] = widths["mlp"]
+    if "heads" in widths and cfg.n_kv_heads:
+        kw["n_heads"] = cfg.n_kv_heads * widths["heads"]
+    if "d_inner" in widths and cfg.ssm is not None:
+        kw["ssm"] = dataclasses.replace(cfg.ssm, d_inner=widths["d_inner"])
+    return dataclasses.replace(cfg, **kw) if kw else cfg

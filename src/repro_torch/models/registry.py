@@ -1,38 +1,86 @@
-"""Model API for the cnn family (the LM families arrive with the pod path).
+"""Model API over the ported families: cnn, and the attention LMs
+(dense, moe, vlm).
 
-``batch`` dicts carry ``images (B,H,W,C)`` and ``labels (B,)``.
+``batch`` dicts carry the model inputs:
+  - the LM families: ``tokens (B,S)`` (int32 or int64)
+  - vlm: + ``patch_embeds (B,P,pd)``  (stubbed vision tower output)
+  - cnn: ``images (B,H,W,C)`` + ``labels (B,)``
+Decode batches carry ``tokens (B,1)``.
 """
 from __future__ import annotations
 
-from typing import Callable, NamedTuple
+from typing import Callable, NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import cnn as cnn_mod
+from repro_torch.models import transformer as T
+from repro_torch.models import vlm as vlm_mod
 from repro_torch.utils.pytree import tree_map
 
 
 class Model(NamedTuple):
     cfg: ArchConfig
-    init: Callable      # (torch.Generator, device) -> params
-    forward: Callable   # (params, batch) -> logits
+    # (torch.Generator, device) -> params; the LM families default the
+    # device to the generator's
+    init: Callable
+    forward: Callable               # (params, batch, **kw) -> logits
+    # (batch_size, cache_len, device) -> cache
+    init_cache: Optional[Callable] = None
+    # (params, cache, batch) -> (logits, cache), the cache written in place
+    decode: Optional[Callable] = None
 
 
 def build_model(cfg: ArchConfig) -> Model:
-    if cfg.family != "cnn":
+    if cfg.family == "cnn":
+        def init(gen: torch.Generator, device="cpu"):
+            return tree_map(lambda t: t.to(device),
+                            cnn_mod.init_cnn(gen, cfg))
+
+        def forward(params, batch, **kw):
+            return cnn_mod.apply_cnn(params, batch["images"])
+
+        return Model(cfg, init, forward)
+
+    if cfg.family not in ("dense", "moe", "vlm"):
         raise NotImplementedError(
-            f"family {cfg.family!r}: the LM families arrive with the pod "
-            f"path (ROADMAP queue 1)")
+            f"family {cfg.family!r} ({cfg.name}) arrives with ROADMAP "
+            f"queue 1, 'Pod path' (a): the recurrent and encoder-decoder "
+            f"families")
+    init_fn = vlm_mod.init_vlm if cfg.family == "vlm" else T.init_lm
 
-    def init(gen: torch.Generator, device="cpu"):
-        return tree_map(lambda t: t.to(device), cnn_mod.init_cnn(gen, cfg))
+    def init(gen: torch.Generator, device=None):
+        """Parameters drawn on ``gen``'s device and left there, or moved
+        to ``device`` where the caller names another."""
+        params = init_fn(gen, cfg)
+        if device is None:
+            return params
+        return tree_map(lambda t: t.to(device), params)
 
-    def forward(params, batch):
-        return cnn_mod.apply_cnn(params, batch["images"])
+    if cfg.family == "vlm":
+        def forward(params, batch, **kw):
+            return vlm_mod.forward_vlm(params, batch["tokens"],
+                                       batch["patch_embeds"], cfg, **kw)
+    else:
+        def forward(params, batch, **kw):
+            return T.forward_lm(params, batch["tokens"], cfg, **kw)
 
-    return Model(cfg, init, forward)
+    def init_cache(batch_size, cache_len, device):
+        return T.init_lm_cache(cfg, batch_size, cache_len, device)
+
+    def decode(params, cache, batch):
+        return T.decode_lm(params, cache, batch["tokens"], cfg)
+
+    return Model(cfg, init, forward, init_cache, decode)
+
+
+def lm_loss(logits: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """Next-token cross entropy. logits:(B,S,V), tokens:(B,S)."""
+    logp = F.log_softmax(logits[:, :-1].float(), dim=-1)
+    targets = tokens[:, 1:].long()
+    return -logp.gather(-1, targets[..., None]).mean()
 
 
 def cls_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -41,5 +89,8 @@ def cls_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     return -logp.gather(-1, labels.long()[:, None]).mean()
 
 
-def loss_fn(model: Model, params, batch) -> torch.Tensor:
-    return cls_loss(model.forward(params, batch), batch["labels"])
+def loss_fn(model: Model, params, batch, **kw) -> torch.Tensor:
+    logits = model.forward(params, batch, **kw)
+    if model.cfg.family == "cnn":
+        return cls_loss(logits, batch["labels"])
+    return lm_loss(logits, batch["tokens"])

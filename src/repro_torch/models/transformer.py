@@ -1,0 +1,256 @@
+"""Decoder-only LM machinery: stacked layers, dense blocks, prefill/decode.
+
+As in the reference (``repro/models/transformer.py``), every per-layer
+leaf is stacked along a leading ``layers`` axis under ``params["blocks"]``
+and the family modules provide (init_block, apply_block,
+init_block_cache, decode_block).  The port walks the stack with a Python
+loop over the layer views ``blocks[...][i]`` where the reference scans.
+
+The decode cache is ``{"blocks": {"k", "v": (L,B,T,Hkv,hd), "k_pos":
+(L,T) int32}, "pos": int}``, the reference's layout with ``pos`` a host
+integer.  Decode writes it in place (the reference returns a new one):
+:func:`decode_lm` returns the cache it was given, advanced by a token.
+"""
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models import layers as L
+from repro_torch.models.attention import (attention_residual,
+                                          decode_residual, init_attention)
+from repro_torch.utils.pytree import PyTree, tree_map
+
+_NEXT_SLICE = "ROADMAP queue 1, 'Pod path' (a): the recurrent and " \
+              "encoder-decoder families"
+
+
+# ------------------------------------------------------------- layer stacking
+
+def init_stack(gen: torch.Generator, n: int,
+               init_fn: Callable[[torch.Generator], PyTree]) -> PyTree:
+    """Stack ``n`` independently initialized blocks along a leading
+    ``layers`` axis, one layer at a time (each layer's fan-in is its own,
+    and only one layer's float32 draws are alive at once)."""
+    first = init_fn(gen)
+    stacked = tree_map(lambda t: t.new_empty((n,) + tuple(t.shape)), first)
+    tree_map(lambda s, t: s[0].copy_(t), stacked, first)
+    del first
+    for i in range(1, n):
+        tree_map(lambda s, t, i=i: s[i].copy_(t), stacked, init_fn(gen))
+    return stacked
+
+
+def layer(stacked: PyTree, i: int) -> PyTree:
+    """Layer ``i``'s views of a stacked tree."""
+    return tree_map(lambda t: t[i], stacked)
+
+
+# ------------------------------------------------------------- dense blocks
+
+def init_block(gen: torch.Generator, cfg: ArchConfig) -> dict:
+    dtype = cfg.param_dtype
+    return {
+        "ln_attn": L.init_norm(gen, cfg.d_model, kind=cfg.norm, dtype=dtype),
+        "attn": init_attention(gen, cfg.d_model, cfg.n_heads,
+                               cfg.n_kv_heads, cfg.resolved_head_dim,
+                               qkv_bias=cfg.qkv_bias, dtype=dtype),
+        "ln_mlp": L.init_norm(gen, cfg.d_model, kind=cfg.norm, dtype=dtype),
+        "mlp": L.init_mlp(gen, cfg.d_model, cfg.d_ff,
+                          activation=cfg.activation, dtype=dtype),
+    }
+
+
+def _mlp_residual(p: dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    h = L.norm(p["ln_mlp"], x, kind=cfg.norm)
+    return x + L.mlp(p["mlp"], h, activation=cfg.activation)
+
+
+def apply_block(p: dict, x: torch.Tensor, positions: torch.Tensor,
+                cfg: ArchConfig, *, causal_skip: bool = False
+                ) -> torch.Tensor:
+    x, _, _ = attention_residual(p, x, positions, cfg,
+                                 causal_skip=causal_skip)
+    return _mlp_residual(p, x, cfg)
+
+
+def cache_len_for(cfg: ArchConfig, cache_len: int) -> int:
+    """Cache slots T: the window under a sliding window, else cache_len."""
+    return cache_len if cfg.sliding_window is None \
+        else min(cache_len, cfg.sliding_window)
+
+
+def init_block_cache(cfg: ArchConfig, batch: int, cache_len: int,
+                     device) -> dict:
+    T = cache_len_for(cfg, cache_len)
+    shape = (batch, T, cfg.n_kv_heads, cfg.resolved_head_dim)
+    return {
+        "k": torch.zeros(shape, dtype=cfg.param_dtype, device=device),
+        "v": torch.zeros(shape, dtype=cfg.param_dtype, device=device),
+        "k_pos": torch.full((T,), -1, dtype=torch.int32, device=device),
+    }
+
+
+def decode_block(p: dict, x: torch.Tensor, cache: dict, pos: int,
+                 cfg: ArchConfig) -> torch.Tensor:
+    """One-token decode. x:(B,1,D); writes the layer's cache in place."""
+    return _mlp_residual(p, decode_residual(p, x, cache, pos, cfg), cfg)
+
+
+def prefill_cache(k: torch.Tensor, v: torch.Tensor, positions: torch.Tensor,
+                  cfg: ArchConfig, cache_len: int) -> dict:
+    """A layer's decode cache from its prompt keys and values, in
+    :func:`init_block_cache`'s layout.  When a sliding window is shorter
+    than the prompt, the tail is kept, ring-aligned so that decode's
+    ``pos % T`` slots continue it."""
+    S = k.shape[1]
+    T = cache_len_for(cfg, cache_len)
+    pos = positions[0].to(torch.int32)
+    if T >= S:
+        pad = (0, 0, 0, 0, 0, T - S)
+        return {"k": torch.nn.functional.pad(k, pad),
+                "v": torch.nn.functional.pad(v, pad),
+                "k_pos": torch.cat([pos, pos.new_full((T - S,), -1)])}
+    start, roll = S - T, S % T
+    return {"k": torch.roll(k[:, start:], roll, dims=1),
+            "v": torch.roll(v[:, start:], roll, dims=1),
+            "k_pos": torch.roll(pos[start:], roll)}
+
+
+def prefill_block(p: dict, x: torch.Tensor, positions: torch.Tensor,
+                  cfg: ArchConfig, cache_len: int, *,
+                  causal_skip: bool = False):
+    """apply_block that also emits the layer's KV cache (batched prefill)."""
+    x, k, v = attention_residual(p, x, positions, cfg,
+                                 causal_skip=causal_skip)
+    return _mlp_residual(p, x, cfg), prefill_cache(k, v, positions, cfg,
+                                                   cache_len)
+
+
+def _moe_prefill_block(p: dict, x: torch.Tensor, positions: torch.Tensor,
+                       cfg: ArchConfig, cache_len: int, causal_skip: bool):
+    from repro_torch.models import moe
+    x, k, v = attention_residual(p, x, positions, cfg,
+                                 causal_skip=causal_skip)
+    h = L.norm(p["ln_mlp"], x, kind=cfg.norm)
+    y, _aux = moe.moe_mlp(p, h, cfg, activation=cfg.activation)
+    return x + y, prefill_cache(k, v, positions, cfg, cache_len)
+
+
+# ----------------------------------------------------------------- LM level
+
+def _family_fns(cfg: ArchConfig):
+    """(init_block, apply_block, init_block_cache, decode_block) per family."""
+    if cfg.family in ("dense", "vlm"):
+        return init_block, apply_block, init_block_cache, decode_block
+    if cfg.family == "moe":
+        from repro_torch.models import moe
+        return (moe.init_block, moe.apply_block, init_block_cache,
+                moe.decode_block)
+    if cfg.family in ("ssm", "hybrid"):
+        raise NotImplementedError(
+            f"family {cfg.family!r} ({cfg.name}) arrives with {_NEXT_SLICE}")
+    raise ValueError(cfg.family)
+
+
+def _positions(B: int, S: int, device) -> torch.Tensor:
+    return torch.arange(S, dtype=torch.int32, device=device).expand(B, S)
+
+
+def _embed_input(params: PyTree, tokens: torch.Tensor, cfg: ArchConfig,
+                 extra_embeds) -> torch.Tensor:
+    x = L.embed(params["embed"], tokens).to(cfg.param_dtype)
+    if extra_embeds is not None:
+        x = x + extra_embeds.to(cfg.param_dtype)
+    return x
+
+
+def _logits(params: PyTree, x: torch.Tensor, cfg: ArchConfig
+            ) -> torch.Tensor:
+    x = L.norm(params["ln_f"], x, kind=cfg.norm)
+    if cfg.tie_embeddings:
+        return L.unembed(params["embed"], x)
+    return L.head_logits(params["unembed"], x, bf16=cfg.logits_bf16)
+
+
+def init_lm(gen: torch.Generator, cfg: ArchConfig) -> PyTree:
+    fns = _family_fns(cfg)
+    p = {
+        "embed": L.init_embedding(gen, cfg.vocab_size, cfg.d_model,
+                                  dtype=cfg.param_dtype),
+        "blocks": init_stack(gen, cfg.n_layers,
+                             lambda g: fns[0](g, cfg)),
+        "ln_f": L.init_norm(gen, cfg.d_model, kind=cfg.norm,
+                            dtype=cfg.param_dtype),
+    }
+    if not cfg.tie_embeddings:
+        p["unembed"] = L.init_linear(gen, cfg.d_model, cfg.vocab_size,
+                                     dtype=cfg.param_dtype)
+    return p
+
+
+def forward_lm(params: PyTree, tokens: torch.Tensor, cfg: ArchConfig, *,
+               causal_skip: bool = False, extra_embeds=None) -> torch.Tensor:
+    """tokens:(B,S) -> float32 logits (B,S,V). extra_embeds: optional
+    (B,S,D) added input embeddings (the VLM's projected patches)."""
+    B, S = tokens.shape
+    x = _embed_input(params, tokens, cfg, extra_embeds)
+    positions = _positions(B, S, x.device)
+    apply = _family_fns(cfg)[1]
+    blocks = params["blocks"]
+    for i in range(cfg.n_layers):
+        x = apply(layer(blocks, i), x, positions, cfg,
+                  causal_skip=causal_skip)
+    return _logits(params, x, cfg)
+
+
+def prefill_lm(params: PyTree, tokens: torch.Tensor, cfg: ArchConfig,
+               cache_len: int, *, causal_skip: bool = False,
+               extra_embeds=None):
+    """Batched prefill: one forward pass -> (logits, ready decode cache).
+    The attention families only (dense, vlm, moe)."""
+    if cfg.family not in ("dense", "vlm", "moe"):
+        raise NotImplementedError(
+            f"prefill of family {cfg.family!r} arrives with {_NEXT_SLICE}")
+    if cache_len < 1:
+        raise ValueError(f"cache_len {cache_len} < 1")
+    B, S = tokens.shape
+    x = _embed_input(params, tokens, cfg, extra_embeds)
+    positions = _positions(B, S, x.device)
+    blocks = params["blocks"]
+    caches = []
+    for i in range(cfg.n_layers):
+        p = layer(blocks, i)
+        if cfg.family == "moe":
+            x, c = _moe_prefill_block(p, x, positions, cfg, cache_len,
+                                      causal_skip)
+        else:
+            x, c = prefill_block(p, x, positions, cfg, cache_len,
+                                 causal_skip=causal_skip)
+        caches.append(c)
+    stacked = {k: torch.stack([c[k] for c in caches]) for k in caches[0]}
+    return _logits(params, x, cfg), {"blocks": stacked, "pos": S}
+
+
+def init_lm_cache(cfg: ArchConfig, batch: int, cache_len: int,
+                  device) -> dict:
+    one = _family_fns(cfg)[2](cfg, batch, cache_len, device)
+    blocks = {k: v.expand((cfg.n_layers,) + tuple(v.shape)).clone()
+              for k, v in one.items()}
+    return {"blocks": blocks, "pos": 0}
+
+
+def decode_lm(params: PyTree, cache: dict, tokens: torch.Tensor,
+              cfg: ArchConfig):
+    """One decode step. tokens:(B,1) -> (logits (B,1,V), cache), the
+    cache written in place and its ``pos`` advanced."""
+    pos = cache["pos"]
+    x = L.embed(params["embed"], tokens).to(cfg.param_dtype)
+    decode = _family_fns(cfg)[3]
+    blocks = params["blocks"]
+    for i in range(cfg.n_layers):
+        x = decode(layer(blocks, i), x, layer(cache["blocks"], i), pos, cfg)
+    cache["pos"] = pos + 1
+    return _logits(params, x, cfg), cache

@@ -223,6 +223,11 @@ class Simulation:
         # after setup must match it
         rng = self.rng = np.random.default_rng(run_cfg.seed)
         arch_cfg = self.arch_cfg = get_config(run_cfg.arch)
+        if arch_cfg.family != "cnn":
+            raise NotImplementedError(
+                f"arch {run_cfg.arch!r}: the FL simulation trains the "
+                f"paper's CNNs; training the LM families arrives with the "
+                f"pod trainer (ROADMAP queue 1, 'Pod path')")
         self.model = build_model(arch_cfg)
         self.spec = shrinking.cnn_shrink_spec(arch_cfg)
         self.train, self.test = make_image_task(

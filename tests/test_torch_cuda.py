@@ -10,7 +10,10 @@ Tolerances: level indices, the kept support, masks, the threshold step
 (batched and streaming) exact (same float32 operations in the same
 order, no FMA contraction); quantized values rtol 1e-6; norms rtol 1e-5
 (the plain version sums in another order), and bitwise equal between two
-calls of the kernel (it sums in a fixed order).
+calls of the kernel (it sums in a fixed order).  LM serving (plain
+PyTorch on the card, no kernel of the port): reduced float32 models
+against the CPU at rtol/atol 1e-4, blockwise attention against dense at
+the reference's 2e-5.
 """
 import numpy as np
 import pytest
@@ -646,3 +649,64 @@ def test_telemetry_on_the_card_is_invisible_and_launches_alike(cuda):
         assert a.is_cuda and torch.equal(a, b)
     assert tel.registry.value("learning.update_norm", device=0,
                               round=0) > 0
+
+
+@pytest.mark.parametrize("arch,kw", [
+    ("qwen2-7b", {}),
+    ("qwen2-7b", dict(n_heads=8, n_kv_heads=2, head_dim=32)),
+    ("granite-moe-1b-a400m", {}),
+    ("pixtral-12b", {})])
+def test_serving_on_the_card_matches_the_cpu(cuda, arch, kw):
+    """A reduced float32 model initialised once on the CPU and copied to
+    the card: prefill (B=2, 12 tokens) and 4 decode steps teacher-forced
+    with the CPU's greedy tokens; logits and caches within rtol/atol 1e-4
+    (TF32 is off), ``k_pos`` exact."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.device import resolve_device
+    from repro_torch.models import transformer as T
+    from repro_torch.models.registry import build_model
+    from repro_torch.utils.pytree import tree_map
+    resolve_device("cuda")
+    cfg = dataclasses.replace(get_config(arch).reduced(), **kw)
+    model = build_model(cfg)
+    cpu = model.init(torch.Generator().manual_seed(0))
+    card = tree_map(lambda t: t.to(cuda), cpu)
+    toks = torch.tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (2, 12)), dtype=torch.int32)
+    cl, cc = T.prefill_lm(cpu, toks, cfg, 16)
+    gl, gc = T.prefill_lm(card, toks.to(cuda), cfg, 16)
+    for _ in range(4):
+        torch.testing.assert_close(gl.cpu(), cl, rtol=1e-4, atol=1e-4)
+        tok = cl[:, -1:].argmax(-1).to(torch.int32)
+        cl, cc = model.decode(cpu, cc, {"tokens": tok})
+        gl, gc = model.decode(card, gc, {"tokens": tok.to(cuda)})
+    torch.testing.assert_close(gl.cpu(), cl, rtol=1e-4, atol=1e-4)
+    assert torch.equal(gc["blocks"]["k_pos"].cpu(), cc["blocks"]["k_pos"])
+    for k in ("k", "v"):
+        torch.testing.assert_close(gc["blocks"][k].cpu(), cc["blocks"][k],
+                                   rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("window", [None, 300])
+@pytest.mark.parametrize("causal_skip", [False, True])
+def test_blockwise_attention_on_the_card_matches_dense(cuda, window,
+                                                       causal_skip):
+    """qwen2-7b's head shapes (28 q-heads over 4 kv-heads, head_dim 128),
+    float32, B=1, S=1024 in blocks of 256: within the reference's 2e-5
+    of the dense path."""
+    from repro_torch.device import resolve_device
+    from repro_torch.models import attention
+    resolve_device("cuda")
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    S = 1024
+    q = torch.randn((1, S, 28, 128), generator=gen, device=cuda)
+    k = torch.randn((1, S, 4, 128), generator=gen, device=cuda)
+    v = torch.randn((1, S, 4, 128), generator=gen, device=cuda)
+    pos = torch.arange(S, device=cuda)
+    want = attention.attention_dense(q, k, v, pos, pos, window=window)
+    got = attention.attention_blockwise(q, k, v, pos, pos, window=window,
+                                        block_q=256, block_kv=256,
+                                        causal_skip=causal_skip)
+    torch.testing.assert_close(got, want, rtol=0, atol=2e-5)

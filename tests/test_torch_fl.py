@@ -154,8 +154,9 @@ def test_port_imports_neither_jax_nor_the_reference():
     imported, every module of the port imports (the baselines, gains,
     codec and energy modules among them) and a flat AnycostFL round, a
     flat QSGD round, a hierarchical CPU round, a pooled fedbuff merge, a
-    dynamic round, a mobile hierarchical round and a round with a
-    telemetry session attached run."""
+    dynamic round, a mobile hierarchical round, a round with a
+    telemetry session attached, and a reduced qwen2-7b's prefill and one
+    decode step run."""
     code = textwrap.dedent("""
         import importlib, pkgutil, sys
         sys.modules["jax"] = None
@@ -227,6 +228,16 @@ def test_port_imports_neither_jax_nor_the_reference():
         assert tel.registry.value("learning.update_norm", device=0,
                                   round=0) > 0
         assert hist.registry is tel.registry and len(tel.sink) > 0
+        from repro_torch.configs import get_config
+        from repro_torch.launch.serve import prefill_into_cache
+        from repro_torch.models.registry import build_model
+        model = build_model(get_config("qwen2-7b").reduced())
+        params = model.init(torch.Generator().manual_seed(0), "cpu")
+        toks = torch.arange(4, dtype=torch.int32)[None]
+        logits, cache = prefill_into_cache(model, params, toks, 6)
+        logits, cache = model.decode(params, cache, {"tokens": toks[:, :1]})
+        assert cache["pos"] == 5 and logits.shape == (1, 1, 512)
+        assert bool(torch.isfinite(logits).all())
         assert not [k for k, v in sys.modules.items() if v is not None
                     and (k.split(".")[0] in ("jax", "jaxlib", "repro"))]
         print("ok")
