@@ -210,6 +210,48 @@ Phases, in order; any failure exits non-zero:
     (f) pixtral-12b: ``forward_vlm`` (B=1, 1024 patches, S=2048) finite;
         text serve B=4, a 256-token prompt, 32 tokens.
     It prints its wall time.
+11. The recurrent and encoder-decoder LMs, with every launch counter
+    zeroed just before and read just after: none of #1-#8 may launch.
+    Full published configs, no depth cut, bf16 parameters from a seeded
+    generator on the card:
+    (a) card against CPU, float32, reduced falcon-mamba-7b (a 256-token
+        prompt: two scan chunks), recurrentgemma-9b at 5 layers (one
+        superblock and a two-layer tail; an 80-token prompt wraps its
+        64-slot attention ring) and seamless-m4t-large-v2 (16 tokens),
+        one initialisation copied: the forward, the serve path's
+        decode-loop prefill, 8 decode steps teacher-forced with the
+        CPU's tokens (seamless also ``prefill_encdec_cache``); every
+        cache's ``k_pos`` exact, logits and every other cache leaf at
+        ``SERVE_CARD_CPU_TOL``;
+    (b) falcon-mamba-7b (64 layers, d_inner 8192): ``forward_lm`` at
+        B=8, S=512 (ms, the median of 3; peak memory; host and kernel
+        ms and the idle share under ``torch.profiler``; the doubling
+        scan's and the unembedding's shares of the device time from
+        CUDA events around each call, :func:`event_ms`, since the
+        profiler can count a range of thousands of kernels twice);
+        ``generate`` at B=8, a 128-token prompt
+        through the decode-loop prefill and 32 greedy tokens (one run,
+        whose prefill is 128 decode steps and whose decode ms is the
+        mean of 31: at 70-85 ms a host-bound step, medians of 3 runs
+        took the phase to 256 s); the last prompt position's logits from
+        ``forward_lm`` against the decode loop's within
+        ``SSM_LOOP_ATOL`` (argmax agreement printed); its alpha 0.5
+        sub-model as ``launch/serve.submodel`` cuts it, the full model
+        dropped, served the same way;
+    (c) recurrentgemma-9b (12 superblocks and a 2-layer tail, window
+        2048, vocab 256000): as (b), within ``HYBRID_LOOP_ATOL``, also
+        the attention's share; no sub-model (no shrinkable group);
+    (d) seamless-m4t-large-v2 (24 + 24 layers): ``encode`` at B=2 over
+        4096 frames (blockwise attention) and ``forward_encdec`` at
+        B=2, S=256 (ms and peak); ``prefill_encdec_cache`` and 32
+        teacher-forced ``decode_encdec`` steps against
+        ``forward_encdec`` within ``ENCDEC_DECODE_ATOL``; ``generate``
+        from zero encoder memory, as the reference serves it, B=8,
+        128 + 32;
+    (e) one decode step of each arch (B=8, position 128) under
+        ``torch.profiler``: host and kernel ms, the device's idle share,
+        top-level aten ops and device kernels a layer.
+    It prints its wall time.
 
 The last lines are the card's name and power limit, one JSON object of
 kernels, and the result line.  Without a card, or without the rest of
@@ -283,6 +325,25 @@ PREFILL_DECODE_ATOL = 0.25
 SORTED_ATOL = 0.3
 GATHER_ATOL = 1e-2
 ATTN_ATOL = 2e-5
+#: phase 11, the recurrent and encoder-decoder LMs.  11a: float32 reduced
+#: configs, card against CPU at SERVE_CARD_CPU_TOL, at the shapes of the
+#: CPU tests: (arch, config overrides, prompt length), the SSM over two
+#: scan chunks, the hybrid with a superblock, a two-layer tail and its
+#: 64-slot attention ring wrapped.  The bf16 bounds at full width, each an
+#: absolute bound on float32 logits: 11b forward_lm's last prompt position
+#: against the decode-loop prefill SSM_LOOP_ATOL, 11c the same for the
+#: hybrid HYBRID_LOOP_ATOL, 11d teacher-forced decode_encdec after
+#: prefill_encdec_cache against forward_encdec ENCDEC_DECODE_ATOL; set
+#: from the first card run's readings on an H100 (0.393 of logits up to
+#: 4.62, argmax agreement 0.875: the forward's causal conv accumulates its
+#: taps in bf16, the decode step's in float32, through 64 layers; 0.345,
+#: agreement 0.75; 0.0685, agreement 1.0).
+RECURRENT_CASES = (("falcon-mamba-7b", {}, 256),
+                   ("recurrentgemma-9b", {"n_layers": 5}, 80),
+                   ("seamless-m4t-large-v2", {}, 16))
+SSM_LOOP_ATOL = 1.0
+HYBRID_LOOP_ATOL = 1.0
+ENCDEC_DECODE_ATOL = 0.25
 
 
 def fail(msg: str) -> None:
@@ -1629,10 +1690,12 @@ def profiled(fn, ranges: dict) -> dict:
     """``fn()`` once under ``torch.profiler``, with each function in
     ``ranges`` (name -> (module, attribute)) wrapped in a
     ``record_function`` range of its name: the host ms of the call (it
-    ends in a synchronize), the device ms of all its kernels (summed over
-    the host ops that launched them, so none is counted twice) and of
-    each range's kernels, the device's idle share of the host time, and
-    the counts of the top-level aten ops and of the device's kernels."""
+    ends in a synchronize), the device ms of all its kernels (the
+    device's own events) and of each range's kernels, the device's idle
+    share of the host time, and the counts of the top-level aten ops and
+    of the device's kernels.  A range inside which thousands of kernels
+    run (the SSM scan) can come out with its kernels' time twice; time
+    such a range with :func:`event_ms`."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
@@ -1658,11 +1721,15 @@ def profiled(fn, ranges: dict) -> dict:
     finally:
         for name, (mod, call) in real.items():
             setattr(mod, ranges[name][1], call)
-    avg = [e for e in prof.key_averages() if e.device_type == DeviceType.CPU]
-    total = sum(e.self_device_time_total for e in avg) / 1e3
+    # the device's own events (kernels, memory copies and sets), without
+    # the device-side annotations of the ranges' spans; a range's time is
+    # the device time of the host ops inside it
+    dev = [e for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA and e.key not in real]
+    total = sum(e.self_device_time_total for e in dev) / 1e3
     got = dict.fromkeys(real, 0.0)
-    got.update({e.key: e.device_time_total / 1e3 for e in avg
-                if e.key in real})
+    got.update({e.key: e.device_time_total / 1e3 for e in prof.key_averages()
+                if e.device_type == DeviceType.CPU and e.key in real})
     if total <= 0:
         fail(f"profiler: no device time recorded ({total} ms)")
     if total > host:
@@ -1675,19 +1742,112 @@ def profiled(fn, ranges: dict) -> dict:
                and e.name.startswith("aten::")
                and not (e.cpu_parent is not None
                         and e.cpu_parent.name.startswith("aten::")))
-    kernels = sum(e.count for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA)
+    kernels = sum(e.count for e in dev)
     return {"host_ms": host, "device_ms": total,
             "idle_share": 1 - total / host, "aten_ops": aten,
             "device_kernels": kernels,
             **{f"{k}_ms": v for k, v in got.items()}}
 
 
+def event_ms(fn, ranges: dict) -> dict:
+    """``fn()`` once, with each function in ``ranges`` (name -> (module,
+    attribute)) bracketed by CUDA events at every call: the device ms
+    between each call's two events, summed per range, and between two
+    events around the whole call (``"total"``).  On a device that is
+    busy throughout (idle share near 0), that is the range's share of the
+    kernel time."""
+    import torch
+    real = {name: (mod, getattr(mod, attr))
+            for name, (mod, attr) in ranges.items()}
+    marks = {name: [] for name in ranges}
+
+    def bracketed(name, call):
+        def wrapped(*a, **kw):
+            pair = (torch.cuda.Event(enable_timing=True),
+                    torch.cuda.Event(enable_timing=True))
+            pair[0].record()
+            result = call(*a, **kw)
+            pair[1].record()
+            marks[name].append(pair)
+            return result
+        return wrapped
+
+    for name, (mod, call) in real.items():
+        setattr(mod, ranges[name][1], bracketed(name, call))
+    whole = (torch.cuda.Event(enable_timing=True),
+             torch.cuda.Event(enable_timing=True))
+    try:
+        torch.cuda.synchronize()
+        whole[0].record()
+        fn()
+        whole[1].record()
+        torch.cuda.synchronize()
+    finally:
+        for name, (mod, call) in real.items():
+            setattr(mod, ranges[name][1], call)
+    out = {name: sum(a.elapsed_time(b) for a, b in pairs)
+           for name, pairs in marks.items()}
+    out["total"] = whole[0].elapsed_time(whole[1])
+    return out
+
+
+def free() -> None:
+    """Collect garbage, return the card's cached blocks and restart its
+    peak-memory count."""
+    import gc
+
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def build_full(arch: str, **kw):
+    """``arch``'s published config (fields replaced by ``kw``) and its
+    parameters, drawn on the card from a seeded generator; prints their
+    size and build time."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import build_model
+    from repro_torch.utils.pytree import tree_leaves
+    cfg = dataclasses.replace(get_config(arch), **kw)
+    model = build_model(cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device="cuda").manual_seed(0),
+                        "cuda")
+    torch.cuda.synchronize()
+    gib = sum(t.numel() * t.element_size()
+              for t in tree_leaves(params)) / 2**30
+    print(f"[serve] {arch} full config ({cfg.n_layers} layers, d "
+          f"{cfg.d_model}, {cfg.dtype}): {gib:.3f} GiB of parameters "
+          f"({cfg.n_params()} by n_params) built on the card from a "
+          f"seeded generator in {time.perf_counter() - t0:.3f} s",
+          flush=True)
+    return model, params
+
+
+def report_serve(label: str, r: dict, B: int, S: int, n_dec: int) -> dict:
+    """Print one :func:`serve_timed` result with the peak memory since the
+    last :func:`free`; fails on non-finite logits."""
+    import torch
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if not bool(torch.isfinite(r["logits"]).all()):
+        fail(f"{label}: non-finite logits")
+    print(f"[serve] {label}: B={B}, prompt {S}, {n_dec} greedy tokens: "
+          f"prefill {r['prefill_ms']:.3f} ms (runs "
+          f"{[round(x, 3) for x in r['prefill_runs_ms']]}), decode "
+          f"{r['decode_ms']:.3f} ms a step (runs "
+          f"{[round(x, 3) for x in r['decode_runs_ms']]}), "
+          f"{r['tok_s']:.1f} tok/s; peak memory {peak:.3f} GiB; sample "
+          f"{r['tokens'][0, :8].tolist()}", flush=True)
+    return {k: r[k] for k in ("prefill_ms", "decode_ms", "tok_s")} | {
+        "peak_gib": peak}
+
+
 def serving_phase() -> dict:
     """Phase 10: LM serving (see the module docstring).  Returns the
     numbers it printed."""
-    import gc
-
     import numpy as np
     import torch
     from repro_torch.configs import get_config
@@ -1707,42 +1867,6 @@ def serving_phase() -> dict:
     ops.reset_launch_counts()
     out = {}
 
-    def free():
-        gc.collect()
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-
-    def build(arch, **kw):
-        cfg = dataclasses.replace(get_config(arch), **kw)
-        model = build_model(cfg)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        params = model.init(torch.Generator(device="cuda").manual_seed(0),
-                            "cuda")
-        torch.cuda.synchronize()
-        gib = sum(t.numel() * t.element_size()
-                  for t in tree_leaves(params)) / 2**30
-        print(f"[serve] {arch} full config ({cfg.n_layers} layers, d "
-              f"{cfg.d_model}, {cfg.dtype}): {gib:.3f} GiB of parameters "
-              f"({cfg.n_params()} by n_params) built on the card from a "
-              f"seeded generator in {time.perf_counter() - t0:.3f} s",
-              flush=True)
-        return model, params
-
-    def report(label, r, B, S, n_dec):
-        peak = torch.cuda.max_memory_allocated() / 2**30
-        if not bool(torch.isfinite(r["logits"]).all()):
-            fail(f"{label}: non-finite logits")
-        print(f"[serve] {label}: B={B}, prompt {S}, {n_dec} greedy tokens: "
-              f"prefill {r['prefill_ms']:.3f} ms (runs "
-              f"{[round(x, 3) for x in r['prefill_runs_ms']]}), decode "
-              f"{r['decode_ms']:.3f} ms a step (runs "
-              f"{[round(x, 3) for x in r['decode_runs_ms']]}), "
-              f"{r['tok_s']:.1f} tok/s; peak memory {peak:.3f} GiB; sample "
-              f"{r['tokens'][0, :8].tolist()}", flush=True)
-        return {k: r[k] for k in ("prefill_ms", "decode_ms", "tok_s")} | {
-            "peak_gib": peak}
-
     # ---- 10a: card against CPU, float32, reduced configs
     for label, arch, kw in (("qwen2-7b", "qwen2-7b", {}),
                             ("qwen2-7b grouped heads", "qwen2-7b",
@@ -1755,9 +1879,9 @@ def serving_phase() -> dict:
 
     # ---- 10b: qwen2-7b, full config
     free()
-    model, params = build("qwen2-7b")
+    model, params = build_full("qwen2-7b")
     cfg = model.cfg
-    out["10b qwen2-7b"] = full = report(
+    out["10b qwen2-7b"] = full = report_serve(
         "10b qwen2-7b", serve_timed(model, params, 8, 512, 64), 8, 512, 64)
     prompt = torch.tensor(np.random.default_rng(3).integers(
         0, cfg.vocab_size, (2, 64)), dtype=torch.int32, device="cuda")
@@ -1834,7 +1958,7 @@ def serving_phase() -> dict:
     # of 8, the 16-byte alignment cuBLAS's fastest tensor-core paths need
     for label, round_to in (("", 1), (" round_to=128", 128)):
         if params is None:
-            model, params = build("qwen2-7b")
+            model, params = build_full("qwen2-7b")
         scfg, sub, widths = submodel(cfg, params, alpha, round_to=round_to)
         if round_to == 1 and widths != {"mlp": 13396, "heads": 5}:
             fail(f"10c widths {widths}")
@@ -1845,7 +1969,7 @@ def serving_phase() -> dict:
         gib = sum(t.untyped_storage().nbytes()
                   for t in tree_leaves(sub)) / 2**30
         smodel = build_model(scfg)
-        out[f"10c qwen2-7b alpha 0.5{label}"] = half = report(
+        out[f"10c qwen2-7b alpha 0.5{label}"] = half = report_serve(
             f"10c qwen2-7b alpha={alpha}{label} sub-model (widths: "
             f"{widths}, {gib:.3f} GiB held by its parameters)",
             serve_timed(smodel, sub, 8, 512, 64), 8, 512, 64)
@@ -1887,7 +2011,7 @@ def serving_phase() -> dict:
     free()
 
     # ---- 10e: granite-moe-1b-a400m, full config
-    model, params = build("granite-moe-1b-a400m")
+    model, params = build_full("granite-moe-1b-a400m")
     cfg = model.cfg
     routes = []
     with recording_routes(routes):
@@ -1903,7 +2027,7 @@ def serving_phase() -> dict:
           f"capacity {cap} an expert): {dropped} of {total} (token, k) "
           f"assignments dropped ({dropped / total:.4f}) over "
           f"{len(routes)} routing calls", flush=True)
-    out["10e granite"] = report("10e granite-moe-1b-a400m",
+    out["10e granite"] = report_serve("10e granite-moe-1b-a400m",
                                 serve_timed(model, params, 8, 512, 64),
                                 8, 512, 64)
     out["10e granite"]["dropped"] = dropped
@@ -1929,7 +2053,7 @@ def serving_phase() -> dict:
     free()
 
     # ---- 10f: pixtral-12b, full config
-    model, params = build("pixtral-12b")
+    model, params = build_full("pixtral-12b")
     cfg = model.cfg
     patches = torch.randn((1, cfg.vlm.n_patches, cfg.vlm.patch_embed_dim),
                           generator=gen, device="cuda").to(cfg.param_dtype)
@@ -1948,7 +2072,7 @@ def serving_phase() -> dict:
           f"patches, S=2048: finite logits {tuple(logits.shape)} in "
           f"{ms:.3f} ms (first call)", flush=True)
     del logits
-    out["10f pixtral"] = report("10f pixtral-12b text",
+    out["10f pixtral"] = report_serve("10f pixtral-12b text",
                                 serve_timed(model, params, 4, 256, 32),
                                 4, 256, 32)
     del model, params, patches
@@ -1961,6 +2085,320 @@ def serving_phase() -> dict:
     wall = time.perf_counter() - t_phase
     out["wall_s"] = wall
     print(f"[serve] phase 10: launches of #1-#8 {json.dumps(got)}; "
+          f"{wall:.3f} s of wall time", flush=True)
+    return out
+
+
+def cache_leaves(tree, prefix: str = "") -> list:
+    """(path, tensor) of every leaf of a decode cache, ``pos`` aside, in
+    sorted-key order."""
+    if isinstance(tree, dict):
+        return [kv for k, v in sorted(tree.items()) if k != "pos"
+                for kv in cache_leaves(v, f"{prefix}/{k}")]
+    return [(prefix, tree)]
+
+
+def recurrent_card_cpu(label: str, cfg, S: int, n_dec: int = 8) -> float:
+    """Phase 11a: one float32 model initialised once on the CPU and copied
+    to the card; the forward logits, the serve path's decode-loop prefill
+    of an ``S``-token prompt (B=2), then ``n_dec`` decode steps
+    teacher-forced with the CPU's greedy tokens, on both (encdec: also
+    ``prefill_encdec_cache`` from frames).  Every cache's ``k_pos``
+    exact, logits and every other cache leaf at ``SERVE_CARD_CPU_TOL``.
+    Returns the largest difference."""
+    import numpy as np
+    import torch
+    from repro_torch.launch.serve import prefill_into_cache
+    from repro_torch.models import encdec
+    from repro_torch.models.registry import build_model
+    from repro_torch.utils.pytree import tree_map
+    model = build_model(cfg)
+    cpu = model.init(torch.Generator().manual_seed(0), "cpu")
+    card = tree_map(lambda t: t.to("cuda"), cpu)
+    prompt = torch.tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (2, S)), dtype=torch.int32)
+    batch = {"tokens": prompt}
+    if cfg.family == "encdec":
+        batch["frames"] = torch.tensor(np.random.default_rng(2)
+                                       .standard_normal((2, cfg.encdec
+                                                         .n_frames,
+                                                         cfg.d_model)),
+                                       dtype=torch.float32)
+    err = 0.0
+
+    def check(what, got, want):
+        nonlocal err
+        got, want = got.cpu(), want.cpu()
+        if what.endswith("k_pos"):
+            if not torch.equal(got, want):
+                fail(f"11a {label} {what}, card against CPU: differ")
+            return
+        try:
+            torch.testing.assert_close(got.float(), want.float(),
+                                       rtol=SERVE_CARD_CPU_TOL,
+                                       atol=SERVE_CARD_CPU_TOL)
+        except AssertionError as e:
+            fail(f"11a {label} {what}, card against CPU: {e}")
+        err = max(err, float((got.float() - want.float()).abs().max()))
+
+    def check_cache(what, got, want):
+        g, w = cache_leaves(got), cache_leaves(want)
+        if [k for k, _ in g] != [k for k, _ in w] or got["pos"] != \
+                want["pos"]:
+            fail(f"11a {label} {what}: the caches' layouts differ")
+        for (k, a), (_, b) in zip(g, w):
+            check(f"{what} {k}", a, b)
+
+    check("forward", model.forward(card, {k: v.cuda() for k, v in
+                                          batch.items()}),
+          model.forward(cpu, batch))
+    if cfg.family == "encdec":
+        check_cache("prefill_encdec_cache",
+                    encdec.prefill_encdec_cache(card, batch["frames"].cuda(),
+                                                cfg, 2, S + n_dec),
+                    encdec.prefill_encdec_cache(cpu, batch["frames"], cfg,
+                                                2, S + n_dec))
+    cl, cc = prefill_into_cache(model, cpu, prompt, S + n_dec)
+    gl, gc = prefill_into_cache(model, card, prompt.cuda(), S + n_dec)
+    check("decode-loop prefill logits", gl, cl)
+    for step in range(n_dec):
+        tok = cl[:, -1:].argmax(-1).to(torch.int32)
+        cl, cc = model.decode(cpu, cc, {"tokens": tok})
+        gl, gc = model.decode(card, gc, {"tokens": tok.cuda()})
+        check(f"decode step {step} logits", gl, cl)
+    check_cache("decode cache", gc, cc)
+    print(f"[recurrent] 11a {label} (reduced, float32, prompt {S}): "
+          f"forward, decode-loop prefill + {n_dec} teacher-forced decode "
+          f"steps and every cache leaf, card against CPU: k_pos exact, "
+          f"largest difference {err!r}", flush=True)
+    return err
+
+
+def timed_ms(fn, runs: int = 3) -> tuple[float, list, object]:
+    """``fn()`` ``runs`` times, each timed on the host's clock ending in a
+    synchronize (the median drops the first call's allocations): (median
+    ms, every run's ms, the last call's result)."""
+    import statistics
+
+    import torch
+    times = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times), times, result
+
+
+def print_profile(label: str, prof: dict, n_layers: int) -> None:
+    print(f"[recurrent] {label} under torch.profiler: "
+          f"{prof['host_ms']:.3f} ms of host time, {prof['device_ms']:.3f} "
+          f"ms of kernel time (device idle {prof['idle_share']:.4f}); "
+          f"{prof['aten_ops']} top-level aten ops and "
+          f"{prof['device_kernels']} device kernels, "
+          f"{prof['aten_ops'] / n_layers:.1f} and "
+          f"{prof['device_kernels'] / n_layers:.1f} a layer ({n_layers} "
+          f"layers)", flush=True)
+
+
+def recurrent_lm(tag: str, model, params, ranges: dict, bound: float,
+                 out: dict) -> None:
+    """Phases 11b and 11c on one decoder LM at full width: ``forward_lm``
+    at B=8, S=512 (ms, the median of 3; peak memory; one run under
+    ``torch.profiler``; the shares of ``ranges`` from :func:`event_ms`);
+    ``generate`` at B=8, a 128-token prompt through the decode-loop
+    prefill and 32 greedy tokens; the last prompt
+    position's logits from ``forward_lm`` against the decode loop's,
+    within ``bound``; and one decode step from that prefilled cache under
+    ``torch.profiler``."""
+    import numpy as np
+    import torch
+    from repro_torch.launch.serve import prefill_into_cache
+    from repro_torch.models import transformer as T
+    cfg = model.cfg
+    name = cfg.name
+    prompt = torch.tensor(np.random.default_rng(7).integers(
+        0, cfg.vocab_size, (8, 512)), dtype=torch.int32, device="cuda")
+    free()
+    ms, runs, logits = timed_ms(lambda: T.forward_lm(params, prompt, cfg))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if not bool(torch.isfinite(logits).all()):
+        fail(f"{tag} {name} forward_lm: non-finite logits")
+    del logits
+    print(f"[recurrent] {tag} {name} forward_lm B=8, S=512: {ms:.3f} ms "
+          f"(runs {[round(x, 3) for x in runs]}); peak memory {peak:.3f} "
+          f"GiB", flush=True)
+    prof = profiled(lambda: T.forward_lm(params, prompt, cfg), {})
+    print_profile(f"{tag} {name} forward_lm B=8, S=512", prof,
+                  cfg.n_layers)
+    ev = event_ms(lambda: T.forward_lm(params, prompt, cfg), ranges)
+    print(f"[recurrent] {tag} {name} forward_lm B=8, S=512, CUDA events "
+          f"around each call: {ev['total']:.3f} ms, "
+          + ", ".join(f"{k} {ev[k]:.3f} ms ({ev[k] / ev['total']:.4f})"
+                      for k in ranges), flush=True)
+    out[f"{tag} {name} forward"] = {"ms": ms, "peak_gib": peak,
+                                    "profile": prof, "events": ev}
+    free()
+    out[f"{tag} {name} serve"] = report_serve(
+        f"{tag} {name}", serve_timed(model, params, 8, 128, 32, runs=1), 8,
+        128, 32)
+    # the forward's last prompt position against the decode loop's
+    p128 = prompt[:, :128].contiguous()
+    fwd = T.forward_lm(params, p128, cfg)[:, -1]
+    loop, cache = prefill_into_cache(model, params, p128, 129)
+    loop = loop[:, 0]
+    err = float((fwd - loop).abs().max())
+    agree = float((fwd.argmax(-1) == loop.argmax(-1)).float().mean())
+    print(f"[recurrent] {tag} {name} forward_lm against the decode-loop "
+          f"prefill (B=8, 128 tokens), last position: logits differ by up "
+          f"to {err!r} (largest |logit| {float(loop.abs().max())!r}), "
+          f"argmax agreement {agree}; bound {bound}", flush=True)
+    if not err <= bound:
+        fail(f"{tag} {name} forward against the decode loop: {err} > "
+             f"{bound}")
+    out[f"{tag} {name} loop_err"] = err
+    tok = loop.argmax(-1)[:, None].to(torch.int32)
+    del fwd, loop
+    prof = profiled(lambda: model.decode(params, cache, {"tokens": tok}),
+                    {})
+    print_profile(f"11e {name} one decode step (B=8, position 128)", prof,
+                  cfg.n_layers)
+    out[f"11e {name} decode step"] = prof
+    del cache
+
+
+def recurrent_phase() -> dict:
+    """Phase 11: the recurrent and encoder-decoder LMs (see the module
+    docstring).  Returns the numbers it printed."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.device import resolve_device
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import submodel
+    from repro_torch.models import attention, encdec, ssm
+    from repro_torch.models import layers as L
+    from repro_torch.models.registry import build_model
+    from repro_torch.utils.pytree import tree_leaves
+
+    resolve_device("cuda")
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    out = {}
+
+    # ---- 11a: card against CPU, float32, reduced configs
+    for arch, kw, S in RECURRENT_CASES:
+        cfg = dataclasses.replace(get_config(arch).reduced(), **kw)
+        label = arch + "".join(f" {k}={v}" for k, v in kw.items())
+        out[f"11a {label}"] = recurrent_card_cpu(label, cfg, S)
+
+    # ---- 11b: falcon-mamba-7b, full config, and its alpha 0.5 sub-model
+    free()
+    model, params = build_full("falcon-mamba-7b")
+    recurrent_lm("11b", model, params,
+                 {"scan": (ssm, "_scan_chunk"),
+                  "unembedding": (L, "head_logits")}, SSM_LOOP_ATOL, out)
+    scfg, sub, widths = submodel(model.cfg, params, 0.5)
+    del model, params
+    free()
+    gib = sum(t.untyped_storage().nbytes()
+              for t in tree_leaves(sub)) / 2**30
+    out["11b falcon-mamba-7b alpha 0.5"] = report_serve(
+        f"11b falcon-mamba-7b alpha=0.5 sub-model (widths: {widths}, "
+        f"{gib:.3f} GiB held by its parameters)",
+        serve_timed(build_model(scfg), sub, 8, 128, 32, runs=1), 8, 128,
+        32)
+    del sub
+    free()
+
+    # ---- 11c: recurrentgemma-9b, full config
+    model, params = build_full("recurrentgemma-9b")
+    recurrent_lm("11c", model, params,
+                 {"scan": (ssm, "_scan_chunk"),
+                  "attention": (attention, "attention_dense"),
+                  "unembedding": (L, "head_logits")},
+                 HYBRID_LOOP_ATOL, out)
+    del model, params
+    free()
+
+    # ---- 11d: seamless-m4t-large-v2, full config
+    model, params = build_full("seamless-m4t-large-v2")
+    cfg = model.cfg
+    F = cfg.encdec.n_frames
+    frames = torch.tensor(np.random.default_rng(8).standard_normal(
+        (2, F, cfg.d_model)), dtype=cfg.param_dtype, device="cuda")
+    free()
+    ms, runs, _ = timed_ms(lambda: encdec.encode(params, frames, cfg))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[recurrent] 11d seamless encode B=2, {F} frames (blockwise "
+          f"attention above 2048): {ms:.3f} ms (runs "
+          f"{[round(x, 3) for x in runs]}); peak memory {peak:.3f} GiB",
+          flush=True)
+    out["11d encode"] = {"ms": ms, "peak_gib": peak}
+    toks = torch.tensor(np.random.default_rng(9).integers(
+        0, cfg.vocab_size, (2, 256)), dtype=torch.int32, device="cuda")
+    free()
+    ms, runs, logits = timed_ms(lambda: encdec.forward_encdec(
+        params, frames, toks, cfg))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if tuple(logits.shape) != (2, 256, cfg.vocab_size) or not bool(
+            torch.isfinite(logits).all()):
+        fail(f"11d forward_encdec logits {tuple(logits.shape)}, finite "
+             f"{bool(torch.isfinite(logits).all())}")
+    print(f"[recurrent] 11d seamless forward_encdec B=2, {F} frames, S=256: "
+          f"{ms:.3f} ms (runs {[round(x, 3) for x in runs]}); peak memory "
+          f"{peak:.3f} GiB", flush=True)
+    out["11d forward_encdec"] = {"ms": ms, "peak_gib": peak}
+    # the cross-attention cache from the frames, then teacher-forced
+    # decode against forward_encdec at every position
+    S = 32
+    fwd = encdec.forward_encdec(params, frames, toks[:, :S], cfg)
+    cache = encdec.prefill_encdec_cache(params, frames, cfg, 2, S)
+    err = 0.0
+    agree = []
+    for t in range(S):
+        logits, cache = encdec.decode_encdec(params, cache,
+                                             toks[:, t:t + 1], cfg)
+        err = max(err, float((logits[:, 0] - fwd[:, t]).abs().max()))
+        agree.append(logits[:, 0].argmax(-1) == fwd[:, t].argmax(-1))
+    agree = float(torch.stack(agree).float().mean())
+    print(f"[recurrent] 11d seamless prefill_encdec_cache + {S} "
+          f"teacher-forced decode_encdec steps against forward_encdec "
+          f"(B=2): logits differ by up to {err!r} (largest |logit| "
+          f"{float(fwd.abs().max())!r}), argmax agreement {agree}; bound "
+          f"{ENCDEC_DECODE_ATOL}", flush=True)
+    if not err <= ENCDEC_DECODE_ATOL:
+        fail(f"11d decode_encdec against forward_encdec: {err} > "
+             f"{ENCDEC_DECODE_ATOL}")
+    out["11d decode_err"] = err
+    del fwd, cache, frames, logits
+    free()
+    out["11d seamless serve"] = report_serve(
+        "11d seamless-m4t-large-v2 (zero encoder memory, as the reference "
+        "serves it)", serve_timed(model, params, 8, 128, 32, runs=1), 8,
+        128, 32)
+
+    # ---- 11e: one decode step under torch.profiler (b and c above)
+    cache = model.init_cache(8, 129, "cuda")
+    cache["pos"] = 128
+    tok = toks[:, :1].repeat(4, 1)
+    prof = profiled(lambda: model.decode(params, cache, {"tokens": tok}),
+                    {})
+    print_profile("11e seamless-m4t-large-v2 one decode step (B=8, position "
+                  "128)", prof, cfg.encdec.n_dec_layers)
+    out["11e seamless decode step"] = prof
+    del model, params, cache
+    free()
+
+    torch.cuda.synchronize()
+    got = ops.launch_counts()
+    if any(got.values()):
+        fail(f"phase 11 launched kernels of the FL path: {json.dumps(got)}")
+    wall = time.perf_counter() - t_phase
+    out["wall_s"] = wall
+    print(f"[recurrent] phase 11: launches of #1-#8 {json.dumps(got)}; "
           f"{wall:.3f} s of wall time", flush=True)
     return out
 
@@ -2611,6 +3049,8 @@ def main() -> None:
     by_path.update(tel_launched)
     # --------------------------------------------------------------- 10
     serving_phase()
+    # --------------------------------------------------------------- 11
+    recurrent_phase()
     for k in kernels:
         k["launches_by_path"] = {path: c[k["name"]]
                                  for path, c in by_path.items()}

@@ -88,6 +88,13 @@ def aio_aggregate(updates: Sequence[PyTree], masks: Sequence[PyTree],
     return unflatten(ops.aio_aggregate_op(u, m, w))
 
 
+def aio_aggregate_stacked(u: torch.Tensor, m: torch.Tensor,
+                          weights) -> torch.Tensor:
+    """Eq. 5 in vector form. u, m: (I, N); weights: (I,) -> (N,)."""
+    w = torch.as_tensor(weights, dtype=F32).to(u.device)
+    return ops.aio_aggregate_op(u, m, w)
+
+
 # --------------------------------------------------------------- PartialAgg
 
 @dataclasses.dataclass

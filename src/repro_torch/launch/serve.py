@@ -8,9 +8,14 @@ a width-shrunk sub-model cut from the same weights without retraining
       [--device cpu] [--full] --batch 2 --prompt-len 32 \\
       --decode-tokens 16 --alpha 0.5
 
-Runs on the CUDA card unless ``--device cpu`` is given, and raises
-without one.  ``--reduced`` (the default) serves the config's smoke
-variant; ``--full`` its published widths.
+Every LM arch serves: the attention families (dense, moe, vlm) prefill
+in one pass, the recurrent ones (falcon-mamba-7b, recurrentgemma-9b) and
+encdec (seamless-m4t-large-v2, from zero encoder memory, as the
+reference) through the decode loop.  An arch with no shrinkable width
+group (recurrentgemma-9b, seamless) serves the full model at ``--alpha``
+below 1.  Runs on the CUDA card unless ``--device cpu`` is given, and
+raises without one.  ``--reduced`` (the default) serves the config's
+smoke variant; ``--full`` its published widths.
 """
 from __future__ import annotations
 
@@ -30,9 +35,24 @@ from repro_torch.utils.pytree import tree_map
 
 def prefill_into_cache(model: Model, params, tokens: torch.Tensor,
                        cache_len: int):
-    """Fill the decode cache from the prompt with the batched one-pass
-    prefill (``transformer.prefill_lm``; the attention families)."""
-    return T.prefill_lm(params, tokens, model.cfg, cache_len)
+    """Fill the decode cache from the prompt.
+
+    The attention families use the batched one-pass prefill
+    (``transformer.prefill_lm``); the others step the decode path over
+    the prompt, as the reference does: the recurrent families carry O(1)
+    state, and encdec starts from ``init_cache``'s zero cross-attention
+    K/V (``encdec.prefill_encdec_cache`` fills them for a caller that
+    has frames)."""
+    cfg = model.cfg
+    if cfg.family in ("dense", "vlm", "moe"):
+        return T.prefill_lm(params, tokens, cfg, cache_len)
+    B, S = tokens.shape
+    cache = model.init_cache(B, cache_len, tokens.device)
+    logits = None
+    for t in range(S):
+        logits, cache = model.decode(params, cache,
+                                     {"tokens": tokens[:, t:t + 1]})
+    return logits, cache
 
 
 def _owned(t: torch.Tensor) -> torch.Tensor:

@@ -18,7 +18,9 @@ or moving.
        --trace-sample 0.25 --torch-profile]
 
 ``--method`` is one of ``train/fl_loop.METHODS``; ``--arch`` names one of
-the paper's two models (an LM family raises ``NotImplementedError``).
+the paper's two CNNs (an LM arch raises ``NotImplementedError``: the FL
+simulation trains CNNs only); ``--mode`` takes ``fl`` only, the pod
+trainer not being ported.
 
 Runs on the CUDA card unless ``--device cpu`` is given, and prints the
 reference launcher's final JSON fields and the per-phase cost
@@ -185,9 +187,11 @@ def main(argv=None):
                          "log-uniformly from [LO, HI] bit/s (seeded per "
                          "cell id; overrides --backhaul-rate)")
     ap.add_argument("--agg-route", default="streaming",
-                    choices=["streaming", "batched"],
+                    choices=["streaming", "batched", "mesh"],
                     help="hierarchical aggregation route: the streaming "
-                         "edge fold, or the batched (I, N) Eq. 5")
+                         "edge fold, the batched (I, N) Eq. 5, or cells "
+                         "over a mesh of devices (on one device: a "
+                         "warning and the streaming fold)")
     # ---- mobility and handover
     ap.add_argument("--mobility", default="static",
                     choices=["static", "random_waypoint", "gauss_markov",

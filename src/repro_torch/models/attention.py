@@ -183,15 +183,17 @@ def attend(q, k, v, q_pos, k_pos, *, causal=True, window=None,
 # ------------------------------------------------ the blocks' attention half
 
 def attention_residual(p: dict, x: torch.Tensor, positions: torch.Tensor,
-                       cfg, *, causal_skip: bool = False):
-    """``x + wo(attend(qkv(norm(x))))`` of one decoder block ``p`` (its
-    ``ln_attn`` and ``attn``), with the layer's new keys and values.
-    x:(B,S,D), positions:(B,S) -> (x, k (B,S,Hkv,hd), v)."""
+                       cfg, *, causal: bool = True,
+                       causal_skip: bool = False):
+    """``x + wo(attend(qkv(norm(x))))`` of one block ``p`` (its
+    ``ln_attn`` and ``attn``), with the layer's new keys and values;
+    ``causal=False`` for an encoder.  x:(B,S,D), positions:(B,S) ->
+    (x, k (B,S,Hkv,hd), v)."""
     h = L.norm(p["ln_attn"], x, kind=cfg.norm)
     q, k, v = qkv(p["attn"], h, positions, n_heads=cfg.n_heads,
                   n_kv_heads=cfg.n_kv_heads, head_dim=cfg.resolved_head_dim,
                   rope_theta=cfg.rope_theta)
-    o = attend(q, k, v, positions[0], positions[0], causal=True,
+    o = attend(q, k, v, positions[0], positions[0], causal=causal,
                window=cfg.sliding_window, causal_skip=causal_skip)
     B, S = x.shape[:2]
     return x + L.linear(p["attn"]["wo"], o.reshape(B, S, -1)), k, v

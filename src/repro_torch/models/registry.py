@@ -1,9 +1,10 @@
-"""Model API over the ported families: cnn, and the attention LMs
-(dense, moe, vlm).
+"""Model API over every architecture family: cnn, and the LMs (dense,
+moe, vlm, ssm, hybrid, encdec).
 
 ``batch`` dicts carry the model inputs:
   - the LM families: ``tokens (B,S)`` (int32 or int64)
   - vlm: + ``patch_embeds (B,P,pd)``  (stubbed vision tower output)
+  - encdec: + ``frames (B,F,D)``      (stubbed audio frontend output)
   - cnn: ``images (B,H,W,C)`` + ``labels (B,)``
 Decode batches carry ``tokens (B,1)``.
 """
@@ -16,6 +17,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import cnn as cnn_mod
+from repro_torch.models import encdec as encdec_mod
 from repro_torch.models import transformer as T
 from repro_torch.models import vlm as vlm_mod
 from repro_torch.utils.pytree import tree_map
@@ -44,12 +46,8 @@ def build_model(cfg: ArchConfig) -> Model:
 
         return Model(cfg, init, forward)
 
-    if cfg.family not in ("dense", "moe", "vlm"):
-        raise NotImplementedError(
-            f"family {cfg.family!r} ({cfg.name}) arrives with ROADMAP "
-            f"queue 1, 'Pod path' (a): the recurrent and encoder-decoder "
-            f"families")
-    init_fn = vlm_mod.init_vlm if cfg.family == "vlm" else T.init_lm
+    init_fn = {"vlm": vlm_mod.init_vlm,
+               "encdec": encdec_mod.init_encdec}.get(cfg.family, T.init_lm)
 
     def init(gen: torch.Generator, device=None):
         """Parameters drawn on ``gen``'s device and left there, or moved
@@ -59,11 +57,26 @@ def build_model(cfg: ArchConfig) -> Model:
             return params
         return tree_map(lambda t: t.to(device), params)
 
+    if cfg.family == "encdec":
+        def forward(params, batch, **kw):
+            return encdec_mod.forward_encdec(params, batch["frames"],
+                                             batch["tokens"], cfg)
+
+        def init_cache(batch_size, cache_len, device):
+            return encdec_mod.init_encdec_cache(cfg, batch_size, cache_len,
+                                                device)
+
+        def decode(params, cache, batch):
+            return encdec_mod.decode_encdec(params, cache, batch["tokens"],
+                                            cfg)
+
+        return Model(cfg, init, forward, init_cache, decode)
+
     if cfg.family == "vlm":
         def forward(params, batch, **kw):
             return vlm_mod.forward_vlm(params, batch["tokens"],
                                        batch["patch_embeds"], cfg, **kw)
-    else:
+    else:   # dense / moe / ssm / hybrid
         def forward(params, batch, **kw):
             return T.forward_lm(params, batch["tokens"], cfg, **kw)
 

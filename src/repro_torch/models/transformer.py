@@ -3,13 +3,19 @@
 As in the reference (``repro/models/transformer.py``), every per-layer
 leaf is stacked along a leading ``layers`` axis under ``params["blocks"]``
 and the family modules provide (init_block, apply_block,
-init_block_cache, decode_block).  The port walks the stack with a Python
-loop over the layer views ``blocks[...][i]`` where the reference scans.
+init_block_cache, decode_block): dense and vlm here, moe in ``moe.py``,
+ssm in ``ssm.py``, and hybrid in ``rglru.py``, whose stack entries are
+superblocks (one repeat of the block pattern) with the remainder layers
+stacked under ``params["tail"]`` (recurrentgemma: 38 = 12 x 3 + 2).  The
+port walks the stacks with a Python loop over the layer views
+``blocks[...][i]`` where the reference scans.
 
-The decode cache is ``{"blocks": {"k", "v": (L,B,T,Hkv,hd), "k_pos":
-(L,T) int32}, "pos": int}``, the reference's layout with ``pos`` a host
-integer.  Decode writes it in place (the reference returns a new one):
-:func:`decode_lm` returns the cache it was given, advanced by a token.
+The decode cache is ``{"blocks": <the family's cache, stacked>, "pos":
+int}`` (+ ``"tail"`` for hybrid), the reference's layout with ``pos`` a
+host integer; the attention families' is ``{"k", "v": (L,B,T,Hkv,hd),
+"k_pos": (L,T) int32}``.  Decode writes it in place (the reference
+returns a new one): :func:`decode_lm` returns the cache it was given,
+advanced by a token.
 """
 from __future__ import annotations
 
@@ -23,19 +29,18 @@ from repro_torch.models.attention import (attention_residual,
                                           decode_residual, init_attention)
 from repro_torch.utils.pytree import PyTree, tree_map
 
-_NEXT_SLICE = "ROADMAP queue 1, 'Pod path' (a): the recurrent and " \
-              "encoder-decoder families"
-
-
 # ------------------------------------------------------------- layer stacking
 
 def init_stack(gen: torch.Generator, n: int,
                init_fn: Callable[[torch.Generator], PyTree]) -> PyTree:
     """Stack ``n`` independently initialized blocks along a leading
     ``layers`` axis, one layer at a time (each layer's fan-in is its own,
-    and only one layer's float32 draws are alive at once)."""
+    and only one layer's float32 draws are alive at once).  ``n`` may be
+    0 (a hybrid stack shorter than one pattern)."""
     first = init_fn(gen)
     stacked = tree_map(lambda t: t.new_empty((n,) + tuple(t.shape)), first)
+    if n == 0:
+        return stacked
     tree_map(lambda s, t: s[0].copy_(t), stacked, first)
     del first
     for i in range(1, n):
@@ -63,7 +68,8 @@ def init_block(gen: torch.Generator, cfg: ArchConfig) -> dict:
     }
 
 
-def _mlp_residual(p: dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+def mlp_residual(p: dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """``x + mlp(norm(x))`` of a block ``p`` (its ``ln_mlp`` and ``mlp``)."""
     h = L.norm(p["ln_mlp"], x, kind=cfg.norm)
     return x + L.mlp(p["mlp"], h, activation=cfg.activation)
 
@@ -73,7 +79,7 @@ def apply_block(p: dict, x: torch.Tensor, positions: torch.Tensor,
                 ) -> torch.Tensor:
     x, _, _ = attention_residual(p, x, positions, cfg,
                                  causal_skip=causal_skip)
-    return _mlp_residual(p, x, cfg)
+    return mlp_residual(p, x, cfg)
 
 
 def cache_len_for(cfg: ArchConfig, cache_len: int) -> int:
@@ -96,7 +102,7 @@ def init_block_cache(cfg: ArchConfig, batch: int, cache_len: int,
 def decode_block(p: dict, x: torch.Tensor, cache: dict, pos: int,
                  cfg: ArchConfig) -> torch.Tensor:
     """One-token decode. x:(B,1,D); writes the layer's cache in place."""
-    return _mlp_residual(p, decode_residual(p, x, cache, pos, cfg), cfg)
+    return mlp_residual(p, decode_residual(p, x, cache, pos, cfg), cfg)
 
 
 def prefill_cache(k: torch.Tensor, v: torch.Tensor, positions: torch.Tensor,
@@ -125,8 +131,8 @@ def prefill_block(p: dict, x: torch.Tensor, positions: torch.Tensor,
     """apply_block that also emits the layer's KV cache (batched prefill)."""
     x, k, v = attention_residual(p, x, positions, cfg,
                                  causal_skip=causal_skip)
-    return _mlp_residual(p, x, cfg), prefill_cache(k, v, positions, cfg,
-                                                   cache_len)
+    return mlp_residual(p, x, cfg), prefill_cache(k, v, positions, cfg,
+                                                  cache_len)
 
 
 def _moe_prefill_block(p: dict, x: torch.Tensor, positions: torch.Tensor,
@@ -149,13 +155,32 @@ def _family_fns(cfg: ArchConfig):
         from repro_torch.models import moe
         return (moe.init_block, moe.apply_block, init_block_cache,
                 moe.decode_block)
-    if cfg.family in ("ssm", "hybrid"):
-        raise NotImplementedError(
-            f"family {cfg.family!r} ({cfg.name}) arrives with {_NEXT_SLICE}")
+    if cfg.family == "ssm":
+        from repro_torch.models import ssm
+        return (ssm.init_block, ssm.apply_block, ssm.init_block_cache,
+                ssm.decode_block)
+    if cfg.family == "hybrid":
+        from repro_torch.models import rglru
+        return (rglru.init_superblock, rglru.apply_superblock,
+                rglru.init_superblock_cache, rglru.decode_superblock)
     raise ValueError(cfg.family)
 
 
-def _positions(B: int, S: int, device) -> torch.Tensor:
+def _n_stack(cfg: ArchConfig) -> tuple[int, int]:
+    """(number of stack entries, remainder layers)."""
+    if cfg.family == "hybrid":
+        plen = len(cfg.hybrid.pattern)
+        return cfg.n_layers // plen, cfg.n_layers % plen
+    return cfg.n_layers, 0
+
+
+def _tail_kind(cfg: ArchConfig) -> str:
+    """The remainder layers' block kind: the pattern's first."""
+    return cfg.hybrid.pattern[0]
+
+
+def seq_positions(B: int, S: int, device) -> torch.Tensor:
+    """int32 positions 0..S-1 of each of B sequences, (B, S)."""
     return torch.arange(S, dtype=torch.int32, device=device).expand(B, S)
 
 
@@ -177,14 +202,18 @@ def _logits(params: PyTree, x: torch.Tensor, cfg: ArchConfig
 
 def init_lm(gen: torch.Generator, cfg: ArchConfig) -> PyTree:
     fns = _family_fns(cfg)
+    n_stack, n_rem = _n_stack(cfg)
     p = {
         "embed": L.init_embedding(gen, cfg.vocab_size, cfg.d_model,
                                   dtype=cfg.param_dtype),
-        "blocks": init_stack(gen, cfg.n_layers,
-                             lambda g: fns[0](g, cfg)),
+        "blocks": init_stack(gen, n_stack, lambda g: fns[0](g, cfg)),
         "ln_f": L.init_norm(gen, cfg.d_model, kind=cfg.norm,
                             dtype=cfg.param_dtype),
     }
+    if n_rem:
+        from repro_torch.models import rglru
+        p["tail"] = init_stack(gen, n_rem, lambda g: rglru.init_block_kind(
+            g, cfg, _tail_kind(cfg)))
     if not cfg.tie_embeddings:
         p["unembed"] = L.init_linear(gen, cfg.d_model, cfg.vocab_size,
                                      dtype=cfg.param_dtype)
@@ -197,12 +226,18 @@ def forward_lm(params: PyTree, tokens: torch.Tensor, cfg: ArchConfig, *,
     (B,S,D) added input embeddings (the VLM's projected patches)."""
     B, S = tokens.shape
     x = _embed_input(params, tokens, cfg, extra_embeds)
-    positions = _positions(B, S, x.device)
+    positions = seq_positions(B, S, x.device)
     apply = _family_fns(cfg)[1]
-    blocks = params["blocks"]
-    for i in range(cfg.n_layers):
-        x = apply(layer(blocks, i), x, positions, cfg,
+    n_stack, n_rem = _n_stack(cfg)
+    for i in range(n_stack):
+        x = apply(layer(params["blocks"], i), x, positions, cfg,
                   causal_skip=causal_skip)
+    if n_rem:
+        from repro_torch.models import rglru
+        for i in range(n_rem):
+            x = rglru.apply_block_kind(layer(params["tail"], i), x,
+                                       positions, cfg, _tail_kind(cfg),
+                                       causal_skip=causal_skip)
     return _logits(params, x, cfg)
 
 
@@ -210,15 +245,18 @@ def prefill_lm(params: PyTree, tokens: torch.Tensor, cfg: ArchConfig,
                cache_len: int, *, causal_skip: bool = False,
                extra_embeds=None):
     """Batched prefill: one forward pass -> (logits, ready decode cache).
-    The attention families only (dense, vlm, moe)."""
+    The attention families only (dense, vlm, moe); the recurrent ones
+    prefill through the decode loop (``launch/serve.prefill_into_cache``),
+    as in the reference, whose ``prefill_lm`` asserts the same."""
     if cfg.family not in ("dense", "vlm", "moe"):
-        raise NotImplementedError(
-            f"prefill of family {cfg.family!r} arrives with {_NEXT_SLICE}")
+        raise ValueError(
+            f"prefill_lm: family {cfg.family!r} has no batched prefill; "
+            f"step its decode path (serve.prefill_into_cache)")
     if cache_len < 1:
         raise ValueError(f"cache_len {cache_len} < 1")
     B, S = tokens.shape
     x = _embed_input(params, tokens, cfg, extra_embeds)
-    positions = _positions(B, S, x.device)
+    positions = seq_positions(B, S, x.device)
     blocks = params["blocks"]
     caches = []
     for i in range(cfg.n_layers):
@@ -234,12 +272,21 @@ def prefill_lm(params: PyTree, tokens: torch.Tensor, cfg: ArchConfig,
     return _logits(params, x, cfg), {"blocks": stacked, "pos": S}
 
 
+def repeat_stack(n: int, one: PyTree) -> PyTree:
+    """``n`` copies of a tree stacked along a new leading axis."""
+    return tree_map(lambda v: v.expand((n,) + tuple(v.shape)).clone(), one)
+
+
 def init_lm_cache(cfg: ArchConfig, batch: int, cache_len: int,
                   device) -> dict:
+    n_stack, n_rem = _n_stack(cfg)
     one = _family_fns(cfg)[2](cfg, batch, cache_len, device)
-    blocks = {k: v.expand((cfg.n_layers,) + tuple(v.shape)).clone()
-              for k, v in one.items()}
-    return {"blocks": blocks, "pos": 0}
+    out = {"blocks": repeat_stack(n_stack, one), "pos": 0}
+    if n_rem:
+        from repro_torch.models import rglru
+        out["tail"] = repeat_stack(n_rem, rglru.init_block_kind_cache(
+            cfg, batch, cache_len, _tail_kind(cfg), device))
+    return out
 
 
 def decode_lm(params: PyTree, cache: dict, tokens: torch.Tensor,
@@ -249,8 +296,15 @@ def decode_lm(params: PyTree, cache: dict, tokens: torch.Tensor,
     pos = cache["pos"]
     x = L.embed(params["embed"], tokens).to(cfg.param_dtype)
     decode = _family_fns(cfg)[3]
-    blocks = params["blocks"]
-    for i in range(cfg.n_layers):
-        x = decode(layer(blocks, i), x, layer(cache["blocks"], i), pos, cfg)
+    n_stack, n_rem = _n_stack(cfg)
+    for i in range(n_stack):
+        x = decode(layer(params["blocks"], i), x,
+                   layer(cache["blocks"], i), pos, cfg)
+    if n_rem:
+        from repro_torch.models import rglru
+        for i in range(n_rem):
+            x = rglru.decode_block_kind(layer(params["tail"], i), x,
+                                        layer(cache["tail"], i), pos, cfg,
+                                        _tail_kind(cfg))
     cache["pos"] = pos + 1
     return _logits(params, x, cfg), cache

@@ -67,7 +67,8 @@ class OrchestratorConfig:
     # --- hierarchical aggregation route -- streaming: per-cell edge fold
     # and cloud merge (aio_absorb / aio_merge, the wire codec's numerics);
     # batched: the flat (I, N) Eq. 5 over every accepted update
-    # (aio_aggregate), backhaul costs still charged per cell
+    # (aio_aggregate), backhaul costs still charged per cell; mesh: cells
+    # over a mesh of devices (on one device it falls back to streaming)
     agg_route: str = "streaming"
     # --- stopping / execution
     max_wallclock_s: Optional[float] = None    # simulated seconds
@@ -99,10 +100,6 @@ class OrchestratorConfig:
         if self.agg_route not in AGG_ROUTES:
             raise ValueError(f"unknown agg_route {self.agg_route!r}; "
                              f"expected one of {AGG_ROUTES}")
-        if self.agg_route == "mesh":
-            raise NotImplementedError(
-                "agg_route 'mesh': cells over a mesh of cards is not "
-                "ported; ROADMAP queue 1, 'Pod path', brings it")
 
 
 def base_weights(method: str, use_aio: bool, updates: Sequence,

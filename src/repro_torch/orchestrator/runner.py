@@ -43,7 +43,8 @@ the cloud merges the partials (EDGE_MERGE events, ``aio_merge`` in
 place) and finalizes Eq. 5 once (:func:`_hier_round_merge`).
 ``OrchestratorConfig.agg_route`` ``batched`` aggregates the same
 accepted updates with the flat Eq. 5 (``aio_aggregate``) instead,
-charging the same backhaul costs.
+charging the same backhaul costs; ``mesh`` falls back to the streaming
+fold on one device (:meth:`Simulation.resolve_agg_route`).
 
 **Fleet dynamics** (``FleetConfig.dynamics``): at each round start only
 the devices the availability trace has in the cell and whose battery
@@ -530,9 +531,23 @@ class Simulation:
         return encode_partial(part, codec)
 
     def resolve_agg_route(self, route: str) -> str:
-        """The batched route aggregates in exact float32: only the
-        streaming edge fold passes the numerics through the wire codec
-        (the bits are charged at the codec's size on both)."""
+        """The mesh route maps cells onto a mesh of devices, counted as
+        the ``torch.distributed`` process group's size (1 without one);
+        with a single device there is nothing to shard over, so it falls
+        back, loudly, to the streaming edge fold, which computes the same
+        aggregate.  The batched route aggregates in exact float32: only
+        the streaming edge fold passes the numerics through the wire
+        codec (the bits are charged at the codec's size on both)."""
+        if route == "mesh":
+            if _n_mesh_devices() >= 2:
+                raise NotImplementedError(
+                    "agg_route 'mesh' over two or more devices: the cell "
+                    "mesh on torch.distributed arrives with ROADMAP queue "
+                    "1, item 5, 'Pod path' (c)")
+            print("[topology] warning: --agg-route mesh needs >= 2 "
+                  "devices to map cells onto a mesh axis; falling back "
+                  "to the streaming edge fold")
+            route = "streaming"
         if route != "streaming" and self.topo is not None \
                 and (self.topo.backhaul.codec != "f32"
                      or self.codec_ef is not None):
@@ -541,6 +556,15 @@ class Simulation:
                   f"ignores --backhaul-ef); use the streaming route to "
                   f"study codec/EF effects")
         return route
+
+
+def _n_mesh_devices() -> int:
+    """The devices a mesh route could span: the ``torch.distributed``
+    process group's size, or 1 without one."""
+    dist = torch.distributed
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size()
+    return 1
 
 
 # ---------------------------------------------------------------- round mode

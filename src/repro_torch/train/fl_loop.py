@@ -234,8 +234,8 @@ class History:
 def flops_per_sample(arch_cfg) -> float:
     """Training FLOPs (fwd+bwd ~ 3x fwd) per sample — the paper's W."""
     if arch_cfg.family != "cnn":
-        raise NotImplementedError("the LM families arrive with the pod "
-                                  "path (ROADMAP queue 1)")
+        # transformer-ish: 6 * params per token
+        return 6.0 * arch_cfg.n_active_params()
     c = arch_cfg.d_model
     if arch_cfg.name.startswith("fmnist"):
         fwd = (28 * 28 * 5 * 5 * 1 * c + 14 * 14 * 5 * 5 * c * 2 * c

@@ -710,3 +710,52 @@ def test_blockwise_attention_on_the_card_matches_dense(cuda, window,
                                         block_q=256, block_kv=256,
                                         causal_skip=causal_skip)
     torch.testing.assert_close(got, want, rtol=0, atol=2e-5)
+
+
+@pytest.mark.parametrize("arch,kw,S", [
+    ("falcon-mamba-7b", {}, 256), ("recurrentgemma-9b", {"n_layers": 5}, 80),
+    ("seamless-m4t-large-v2", {}, 16)])
+def test_recurrent_and_encdec_serving_on_the_card_match_the_cpu(cuda, arch,
+                                                                kw, S):
+    """Reduced float32 models: the forward, the serve path's decode-loop
+    prefill and 4 decode steps teacher-forced with the CPU's tokens, card
+    against CPU at rtol/atol 1e-4 (the SSM over two scan chunks, the
+    hybrid's attention ring wrapped); every cache leaf too, positions
+    exact."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.device import resolve_device
+    from repro_torch.launch.serve import prefill_into_cache
+    from repro_torch.models.registry import build_model
+    from repro_torch.utils.pytree import tree_leaves, tree_map
+    resolve_device("cuda")
+    cfg = dataclasses.replace(get_config(arch).reduced(), **kw)
+    model = build_model(cfg)
+    cpu = model.init(torch.Generator().manual_seed(0))
+    card = tree_map(lambda t: t.to(cuda), cpu)
+    rng = np.random.default_rng(1)
+    batch = {"tokens": torch.tensor(rng.integers(0, cfg.vocab_size, (2, S)),
+                                    dtype=torch.int32)}
+    if cfg.family == "encdec":
+        batch["frames"] = torch.tensor(rng.standard_normal(
+            (2, cfg.encdec.n_frames, cfg.d_model)), dtype=torch.float32)
+    torch.testing.assert_close(
+        model.forward(card, {k: v.to(cuda) for k, v in batch.items()}).cpu(),
+        model.forward(cpu, batch), rtol=1e-4, atol=1e-4)
+    toks = batch["tokens"]
+    cl, cc = prefill_into_cache(model, cpu, toks, S + 4)
+    gl, gc = prefill_into_cache(model, card, toks.to(cuda), S + 4)
+    for _ in range(4):
+        torch.testing.assert_close(gl.cpu(), cl, rtol=1e-4, atol=1e-4)
+        tok = cl[:, -1:].argmax(-1).to(torch.int32)
+        cl, cc = model.decode(cpu, cc, {"tokens": tok})
+        gl, gc = model.decode(card, gc, {"tokens": tok.to(cuda)})
+    torch.testing.assert_close(gl.cpu(), cl, rtol=1e-4, atol=1e-4)
+    assert gc["pos"] == cc["pos"] == S + 4
+    gc.pop("pos"), cc.pop("pos")
+    for g, c in zip(tree_leaves(gc), tree_leaves(cc)):
+        if c.dtype == torch.int32:
+            assert torch.equal(g.cpu(), c)
+        else:
+            torch.testing.assert_close(g.cpu(), c, rtol=1e-4, atol=1e-4)

@@ -155,8 +155,9 @@ def test_port_imports_neither_jax_nor_the_reference():
     codec and energy modules among them) and a flat AnycostFL round, a
     flat QSGD round, a hierarchical CPU round, a pooled fedbuff merge, a
     dynamic round, a mobile hierarchical round, a round with a
-    telemetry session attached, and a reduced qwen2-7b's prefill and one
-    decode step run."""
+    telemetry session attached, and the prefill and one decode step of
+    a reduced qwen2-7b, falcon-mamba-7b, recurrentgemma-9b and
+    seamless-m4t-large-v2 run."""
     code = textwrap.dedent("""
         import importlib, pkgutil, sys
         sys.modules["jax"] = None
@@ -231,13 +232,16 @@ def test_port_imports_neither_jax_nor_the_reference():
         from repro_torch.configs import get_config
         from repro_torch.launch.serve import prefill_into_cache
         from repro_torch.models.registry import build_model
-        model = build_model(get_config("qwen2-7b").reduced())
-        params = model.init(torch.Generator().manual_seed(0), "cpu")
-        toks = torch.arange(4, dtype=torch.int32)[None]
-        logits, cache = prefill_into_cache(model, params, toks, 6)
-        logits, cache = model.decode(params, cache, {"tokens": toks[:, :1]})
-        assert cache["pos"] == 5 and logits.shape == (1, 1, 512)
-        assert bool(torch.isfinite(logits).all())
+        for arch in ("qwen2-7b", "falcon-mamba-7b", "recurrentgemma-9b",
+                     "seamless-m4t-large-v2"):
+            model = build_model(get_config(arch).reduced())
+            params = model.init(torch.Generator().manual_seed(0), "cpu")
+            toks = torch.arange(4, dtype=torch.int32)[None]
+            logits, cache = prefill_into_cache(model, params, toks, 6)
+            logits, cache = model.decode(params, cache,
+                                         {"tokens": toks[:, :1]})
+            assert cache["pos"] == 5 and logits.shape == (1, 1, 512)
+            assert bool(torch.isfinite(logits).all())
         assert not [k for k, v in sys.modules.items() if v is not None
                     and (k.split(".")[0] in ("jax", "jaxlib", "repro"))]
         print("ok")
@@ -290,9 +294,13 @@ def test_cli_runs_a_baseline_on_non_iid_data(capsys):
         launch_train.main(["--device", "cpu", "--arch", "qwen2-7b"])
 
 
-def test_outside_the_slice_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        policies.OrchestratorConfig(agg_route="mesh")
+def test_outside_the_slice_raises(capsys):
+    # the mesh route is accepted and, on one device, falls back to the
+    # streaming edge fold with the reference's warning
+    assert policies.OrchestratorConfig(agg_route="mesh").agg_route == "mesh"
+    sim = runner.Simulation(FLRunConfig(**TINY), device="cpu")
+    assert sim.resolve_agg_route("mesh") == "streaming"
+    assert "--agg-route mesh needs >= 2 devices" in capsys.readouterr().out
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         runner.Simulation(dataclasses.replace(
             FLRunConfig(**TINY), arch="qwen2-7b"), device="cpu")

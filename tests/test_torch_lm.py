@@ -470,13 +470,39 @@ def test_forward_vlm_matches():
 
 
 def test_unported_families_raise():
+    """Every family builds, serves a decode step and has a forward; what
+    still raises: the batched prefill of the recurrent families (the
+    reference asserts; they prefill through the decode loop) and an FL
+    simulation on an LM arch (its trainer is the pod path's)."""
+    from repro_torch.orchestrator import runner
+    from repro_torch.train.fl_loop import FLRunConfig
     for arch in ("falcon-mamba-7b", "recurrentgemma-9b",
                  "seamless-m4t-large-v2"):
-        with pytest.raises(NotImplementedError, match="Pod path"):
-            build_model(configs.get_config(arch).reduced())
+        cfg = configs.get_config(arch).reduced()
+        model = build_model(cfg)
+        p = model.init(torch.Generator().manual_seed(0))
+        cache = model.init_cache(1, 4, "cpu")
+        logits, cache = model.decode(p, cache, {"tokens": torch.zeros(
+            (1, 1), dtype=torch.int32)})
+        assert logits.shape == (1, 1, cfg.vocab_size) and cache["pos"] == 1
+        if cfg.family != "encdec":
+            with pytest.raises(ValueError, match="decode"):
+                T.prefill_lm(p, torch.zeros((1, 4), dtype=torch.int32), cfg,
+                             4)
     with pytest.raises(NotImplementedError, match="Pod path"):
-        T.init_lm(torch.Generator(),
-                  configs.get_config("falcon-mamba-7b").reduced())
+        runner.Simulation(FLRunConfig(arch="falcon-mamba-7b"), device="cpu")
+
+
+@pytest.mark.parametrize("arch", sorted(configs.ASSIGNED_ARCHS))
+def test_flops_per_sample_matches(arch):
+    from repro.train.fl_loop import flops_per_sample as jflops
+    from repro_torch.train.fl_loop import flops_per_sample
+    got = flops_per_sample(configs.get_config(arch))
+    assert got == jflops(jconfigs.get_config(arch))
+    if arch == "qwen2-7b":
+        assert got == 45692903424.0
+    if arch == "granite-moe-1b-a400m":
+        assert got == 2873954304.0
 
 
 def test_bf16_model_against_the_reference_bf16_run():

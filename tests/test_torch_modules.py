@@ -169,9 +169,10 @@ def test_data_and_fleet_draws_match(fleet_kw):
     assert a.bit_generator.state == b.bit_generator.state
 
 
-def test_fleet_features_outside_the_slice_raise():
+def test_fleet_features_outside_the_slice_raise(monkeypatch, capsys):
     """Fleet dynamics, device motion and handover are ported (they build
-    and attach their state); the mesh route of the hierarchy is not."""
+    and attach their state); the mesh route of the hierarchy falls back
+    to the streaming fold on one device and raises over two or more."""
     from repro_torch.fleet import AvailabilityConfig, FleetDynamicsConfig
     from repro_torch.mobility import HandoverConfig, MobilityConfig
     from repro_torch.orchestrator.policies import OrchestratorConfig
@@ -185,8 +186,20 @@ def test_fleet_features_outside_the_slice_raise():
     fleet = population.make_fleet(np.random.default_rng(0), cfg,
                                   np.array([1, 1]))
     assert fleet.trace is not None and fleet.mobility is not None
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        OrchestratorConfig(agg_route="mesh")
+    from repro_torch.orchestrator import runner
+    from repro_torch.train.fl_loop import FLRunConfig
+    sim = runner.Simulation(FLRunConfig(rounds=1, n_train=64, n_test=32,
+                                        use_planner=False),
+                            cfg, device="cpu")
+    assert OrchestratorConfig(agg_route="mesh").agg_route == "mesh"
+    assert sim.resolve_agg_route("mesh") == "streaming"
+    assert "falling back to the streaming edge fold" \
+        in capsys.readouterr().out
+    # a process group of two: the many-device mesh is not ported
+    monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
+    monkeypatch.setattr(torch.distributed, "get_world_size", lambda: 2)
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 5"):
+        sim.resolve_agg_route("mesh")
 
 
 # ------------------------------------------------------------------------ EMS
@@ -366,6 +379,23 @@ def test_coefficients_and_aggregate_match():
                     jax.tree_util.tree_leaves(want)):
         np.testing.assert_allclose(g.numpy(), np.asarray(x), rtol=1e-5,
                                    atol=1e-7)
+
+
+@pytest.mark.parametrize("n_dev", [1, 5])
+def test_aio_aggregate_stacked_matches(n_dev):
+    """The vector form over (I, N), uncovered coordinates (0) and
+    coordinates quantized to zero (still in the denominator) included."""
+    rng = np.random.default_rng(17 + n_dev)
+    u = rng.standard_normal((n_dev, 1000)).astype(np.float32)
+    m = (rng.uniform(size=u.shape) > 0.4).astype(np.float32)
+    u[0, :50] = 0.0
+    w = rng.uniform(0.1, 1.0, n_dev).astype(np.float32)
+    want = np.asarray(jagg.aio_aggregate_stacked(
+        jnp.asarray(u), jnp.asarray(m), jnp.asarray(w)))
+    got = aggregation.aio_aggregate_stacked(torch.tensor(u), torch.tensor(m),
+                                            w)
+    assert got.dtype == torch.float32 and (want == 0).any()
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-7)
 
 
 # ------------------------------------------------------------ a device round

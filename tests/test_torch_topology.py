@@ -57,7 +57,9 @@ BACKHAUL = dict(rate_bps=1e8, latency_s=0.2, energy_per_bit=1e-10)
 RUNS = {"f32_streaming": (dict(), "streaming"),
         "int8_ef_streaming": (dict(codec="int8", error_feedback=True),
                               "streaming"),
-        "f32_batched": (dict(), "batched")}
+        "f32_batched": (dict(), "batched"),
+        # one device: both packages warn and fold at the edge
+        "f32_mesh": (dict(), "mesh")}
 
 
 class JaxKeyChain:
@@ -421,13 +423,14 @@ def test_cli_runs_the_hierarchy_on_the_cpu(capsys):
                        "hier", "--cells", "2", "--devices", "4", "--rounds",
                        "1", "--n-train", "64", "--n-test", "32",
                        "--eval-every", "1", "--backhaul-codec", "int8",
-                       "--backhaul-ef"])
+                       "--backhaul-ef", "--agg-route", "mesh"])
     out = capsys.readouterr().out
     blob = json.JSONDecoder().raw_decode(out, out.index("{"))[0]
     assert blob["topology"] == "hier" and blob["cells"] == 2
     assert blob["backhaul_mb"] > 0
     assert blob["rows"]["n_cells_reporting"] == 2
-    with pytest.raises(SystemExit):
-        launch_train.main(["--device", "cpu", "--agg-route", "mesh"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        policies.OrchestratorConfig(agg_route="mesh")
+    # the mesh route on one device: the reference's warning, then the
+    # streaming fold, which passes the codec's numerics (no codec warning)
+    assert "[topology] warning: --agg-route mesh needs >= 2 devices" in out
+    assert "models the backhaul codec's cost" not in out
+    assert policies.OrchestratorConfig(agg_route="mesh").agg_route == "mesh"
