@@ -253,6 +253,32 @@ Phases, in order; any failure exits non-zero:
         top-level aten ops and device kernels a layer.
     It prints its wall time.
 
+12. The pod trainer (``launch/steps.make_train_step``, ``adamw(3e-3,
+    warmup=10)``, ``remat="full"``), with every launch counter zeroed
+    just before and read just after: none of #1-#8 may launch.
+    (a) card against CPU, every assigned arch's reduced float32 config,
+        one initialisation copied, B=2, S=64: the loss and every
+        gradient leaf (``TRAIN_LOSS_ATOL``, ``TRAIN_GRAD_RTOL``), the
+        three remat policies on the card against each other, then one
+        train step each (loss, and every parameter within 2 lr);
+    (b) phi3-mini-3.8b at its published widths, no depth cut, bf16
+        parameters from a seeded card generator, B=4, S=1024: six steps
+        on one batch of uniform tokens from a seeded card generator;
+        every loss finite, the sixth below the first, every leaf changed
+        but the bf16 norm scales still at their initial 1.0 (steps below
+        half a bf16 ulp there); step ms (CUDA events, the median of
+        steps 2-6) split into forward+backward and optimizer, tokens/s,
+        ``6 * n_active_params * tokens`` a second, peak memory; a
+        seventh step under ``torch.profiler`` for the device's idle
+        share;
+    (c) granite-moe-1b-a400m at its published widths, B=8, S=512, as
+        (b), backward through the capacity dispatch, and the (token, k)
+        assignments the first step's forward drops;
+    (d) ``launch/train.main`` with ``--mode pod --arch qwen2-7b
+        --reduced --steps 3`` on the card, whose checkpoint must load as
+        the trained parameters bit for bit.
+    It prints its wall time.
+
 The last lines are the card's name and power limit, one JSON object of
 kernels, and the result line.  Without a card, or without the rest of
 the repository beside this file, it exits non-zero and prints no result.
@@ -344,6 +370,21 @@ RECURRENT_CASES = (("falcon-mamba-7b", {}, 256),
 SSM_LOOP_ATOL = 1.0
 HYBRID_LOOP_ATOL = 1.0
 ENCDEC_DECODE_ATOL = 0.25
+#: phase 12, the pod trainer.  12a: float32 reduced configs, card against
+#: CPU: the loss at TRAIN_LOSS_ATOL and each gradient leaf within
+#: TRAIN_GRAD_RTOL of the leaf's largest |g| (phases 10a and 11a's bound);
+#: after one AdamW step (warmup 10, so lr 3e-4 at step 1, and an update of
+#: about lr * sign(g)) each parameter within 2 lr, the most a flipped
+#: sign can move it; the three remat policies on the card against each
+#: other bit for bit or, where an atomic add sums in another order,
+#: within REMAT_GRAD_RTOL of the leaf's largest |g|.  12b and 12c train
+#: at published widths on the pod trainer's recipe.
+TRAIN_LOSS_ATOL = 1e-4
+TRAIN_GRAD_RTOL = 1e-4
+REMAT_GRAD_RTOL = 1e-5
+POD_LR = 3e-3
+POD_WARMUP = 10
+POD_STEPS = 6
 
 
 def fail(msg: str) -> None:
@@ -1641,8 +1682,10 @@ def serve_card_cpu(label: str, cfg, n_dec: int = 8) -> float:
             (2, cfg.vlm.n_patches, cfg.vlm.patch_embed_dim)),
             dtype=torch.float32)
         check("forward_vlm", vlm.forward_vlm(card, prompt.cuda(),
-                                             patches.cuda(), cfg),
-              vlm.forward_vlm(cpu, prompt, patches, cfg))
+                                             patches.cuda(), cfg,
+                                             remat="none"),
+              vlm.forward_vlm(cpu, prompt, patches, cfg,
+                                remat="none"))
         extra = patches
     cl, cc = T.prefill_lm(cpu, prompt, cfg, 16 + n_dec,
                           extra_embeds=None if extra is None else
@@ -1802,10 +1845,10 @@ def free() -> None:
     torch.cuda.reset_peak_memory_stats()
 
 
-def build_full(arch: str, **kw):
+def build_full(arch: str, *, tag: str = "serve", **kw):
     """``arch``'s published config (fields replaced by ``kw``) and its
     parameters, drawn on the card from a seeded generator; prints their
-    size and build time."""
+    size and build time on a ``[tag]`` line."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models.registry import build_model
@@ -1819,7 +1862,7 @@ def build_full(arch: str, **kw):
     torch.cuda.synchronize()
     gib = sum(t.numel() * t.element_size()
               for t in tree_leaves(params)) / 2**30
-    print(f"[serve] {arch} full config ({cfg.n_layers} layers, d "
+    print(f"[{tag}] {arch} full config ({cfg.n_layers} layers, d "
           f"{cfg.d_model}, {cfg.dtype}): {gib:.3f} GiB of parameters "
           f"({cfg.n_params()} by n_params) built on the card from a "
           f"seeded generator in {time.perf_counter() - t0:.3f} s",
@@ -1942,8 +1985,8 @@ def serving_phase() -> dict:
     alpha = 0.5
     spec = shrinking.transformer_shrink_spec(cfg, params)
     sorted_p = shrinking.sort_channels(params, spec)
-    a = T.forward_lm(params, prompt, cfg)
-    b = T.forward_lm(sorted_p, prompt, cfg)
+    a = T.forward_lm(params, prompt, cfg, remat="none")
+    b = T.forward_lm(sorted_p, prompt, cfg, remat="none")
     err = float((a - b).abs().max())
     agree = float((a.argmax(-1) == b.argmax(-1)).float().mean())
     print(f"[serve] 10c sorted against unsorted qwen2-7b (B=2, 64 tokens): "
@@ -2061,7 +2104,7 @@ def serving_phase() -> dict:
         0, cfg.vocab_size, (1, 2048)), dtype=torch.int32, device="cuda")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    logits = vlm.forward_vlm(params, toks, patches, cfg)
+    logits = vlm.forward_vlm(params, toks, patches, cfg, remat="none")
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3
     if tuple(logits.shape) != (1, 2048, cfg.vocab_size) or not bool(
@@ -2090,8 +2133,8 @@ def serving_phase() -> dict:
 
 
 def cache_leaves(tree, prefix: str = "") -> list:
-    """(path, tensor) of every leaf of a decode cache, ``pos`` aside, in
-    sorted-key order."""
+    """(path, tensor) of every leaf of a decode cache (``pos`` aside) or
+    of a parameter tree, in sorted-key order."""
     if isinstance(tree, dict):
         return [kv for k, v in sorted(tree.items()) if k != "pos"
                 for kv in cache_leaves(v, f"{prefix}/{k}")]
@@ -2150,8 +2193,8 @@ def recurrent_card_cpu(label: str, cfg, S: int, n_dec: int = 8) -> float:
             check(f"{what} {k}", a, b)
 
     check("forward", model.forward(card, {k: v.cuda() for k, v in
-                                          batch.items()}),
-          model.forward(cpu, batch))
+                                          batch.items()}, remat="none"),
+          model.forward(cpu, batch, remat="none"))
     if cfg.family == "encdec":
         check_cache("prefill_encdec_cache",
                     encdec.prefill_encdec_cache(card, batch["frames"].cuda(),
@@ -2221,7 +2264,8 @@ def recurrent_lm(tag: str, model, params, ranges: dict, bound: float,
     prompt = torch.tensor(np.random.default_rng(7).integers(
         0, cfg.vocab_size, (8, 512)), dtype=torch.int32, device="cuda")
     free()
-    ms, runs, logits = timed_ms(lambda: T.forward_lm(params, prompt, cfg))
+    ms, runs, logits = timed_ms(
+        lambda: T.forward_lm(params, prompt, cfg, remat="none"))
     peak = torch.cuda.max_memory_allocated() / 2**30
     if not bool(torch.isfinite(logits).all()):
         fail(f"{tag} {name} forward_lm: non-finite logits")
@@ -2229,10 +2273,12 @@ def recurrent_lm(tag: str, model, params, ranges: dict, bound: float,
     print(f"[recurrent] {tag} {name} forward_lm B=8, S=512: {ms:.3f} ms "
           f"(runs {[round(x, 3) for x in runs]}); peak memory {peak:.3f} "
           f"GiB", flush=True)
-    prof = profiled(lambda: T.forward_lm(params, prompt, cfg), {})
+    prof = profiled(
+        lambda: T.forward_lm(params, prompt, cfg, remat="none"), {})
     print_profile(f"{tag} {name} forward_lm B=8, S=512", prof,
                   cfg.n_layers)
-    ev = event_ms(lambda: T.forward_lm(params, prompt, cfg), ranges)
+    ev = event_ms(
+        lambda: T.forward_lm(params, prompt, cfg, remat="none"), ranges)
     print(f"[recurrent] {tag} {name} forward_lm B=8, S=512, CUDA events "
           f"around each call: {ev['total']:.3f} ms, "
           + ", ".join(f"{k} {ev[k]:.3f} ms ({ev[k] / ev['total']:.4f})"
@@ -2245,7 +2291,7 @@ def recurrent_lm(tag: str, model, params, ranges: dict, bound: float,
         128, 32)
     # the forward's last prompt position against the decode loop's
     p128 = prompt[:, :128].contiguous()
-    fwd = T.forward_lm(params, p128, cfg)[:, -1]
+    fwd = T.forward_lm(params, p128, cfg, remat="none")[:, -1]
     loop, cache = prefill_into_cache(model, params, p128, 129)
     loop = loop[:, 0]
     err = float((fwd - loop).abs().max())
@@ -2330,7 +2376,8 @@ def recurrent_phase() -> dict:
     frames = torch.tensor(np.random.default_rng(8).standard_normal(
         (2, F, cfg.d_model)), dtype=cfg.param_dtype, device="cuda")
     free()
-    ms, runs, _ = timed_ms(lambda: encdec.encode(params, frames, cfg))
+    ms, runs, _ = timed_ms(
+        lambda: encdec.encode(params, frames, cfg, remat="none"))
     peak = torch.cuda.max_memory_allocated() / 2**30
     print(f"[recurrent] 11d seamless encode B=2, {F} frames (blockwise "
           f"attention above 2048): {ms:.3f} ms (runs "
@@ -2341,7 +2388,7 @@ def recurrent_phase() -> dict:
         0, cfg.vocab_size, (2, 256)), dtype=torch.int32, device="cuda")
     free()
     ms, runs, logits = timed_ms(lambda: encdec.forward_encdec(
-        params, frames, toks, cfg))
+        params, frames, toks, cfg, remat="none"))
     peak = torch.cuda.max_memory_allocated() / 2**30
     if tuple(logits.shape) != (2, 256, cfg.vocab_size) or not bool(
             torch.isfinite(logits).all()):
@@ -2354,7 +2401,8 @@ def recurrent_phase() -> dict:
     # the cross-attention cache from the frames, then teacher-forced
     # decode against forward_encdec at every position
     S = 32
-    fwd = encdec.forward_encdec(params, frames, toks[:, :S], cfg)
+    fwd = encdec.forward_encdec(params, frames, toks[:, :S], cfg,
+                                remat="none")
     cache = encdec.prefill_encdec_cache(params, frames, cfg, 2, S)
     err = 0.0
     agree = []
@@ -2399,6 +2447,260 @@ def recurrent_phase() -> dict:
     wall = time.perf_counter() - t_phase
     out["wall_s"] = wall
     print(f"[recurrent] phase 11: launches of #1-#8 {json.dumps(got)}; "
+          f"{wall:.3f} s of wall time", flush=True)
+    return out
+
+
+def train_card_cpu(arch: str) -> dict:
+    """Phase 12a on one reduced float32 arch: one initialisation on the
+    CPU copied to the card, one batch (B=2, S=64 tokens from a seeded
+    numpy generator, the launcher's modality extras); the loss and
+    gradients card against CPU, the remat policies against each other on
+    the card, then one train step on each.  Returns the differences."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_train_step, value_and_grad
+    from repro_torch.launch.train import _modality_extras
+    from repro_torch.models.registry import build_model
+    from repro_torch.train.optimizer import adamw
+    from repro_torch.utils.pytree import tree_leaves, tree_map
+    cfg = get_config(arch).reduced()
+    model = build_model(cfg)
+    cpu = model.init(torch.Generator().manual_seed(0), "cpu")
+    card = tree_map(lambda t: t.to("cuda"), cpu)
+    batch = {"tokens": torch.tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (2, 64)), dtype=torch.int32)}
+    batch.update(_modality_extras(cfg, 2, 64, "cpu"))
+    gbatch = {k: v.cuda() for k, v in batch.items()}
+    want_loss, want = value_and_grad(model, cpu, batch, remat="full")
+    got = {r: value_and_grad(model, card, gbatch, remat=r)
+           for r in ("full", "dots", "none")}
+
+    def worst(a, b):
+        """The largest leaf difference over the leaf's largest |g|."""
+        out = 0.0
+        for x, y in zip(tree_leaves(a), tree_leaves(b)):
+            x, y = x.float().cpu(), y.float().cpu()
+            scale = float(y.abs().max())
+            err = float((x - y).abs().max())
+            out = max(out, err / scale if scale > 0 else err)
+        return out
+
+    loss_err = abs(float(got["full"][0]) - float(want_loss))
+    grad_err = worst(got["full"][1], want)
+    if not (loss_err <= TRAIN_LOSS_ATOL and grad_err <= TRAIN_GRAD_RTOL):
+        fail(f"12a {arch}: card against CPU, loss {loss_err} (bound "
+             f"{TRAIN_LOSS_ATOL}), gradients {grad_err} of a leaf's "
+             f"largest |g| (bound {TRAIN_GRAD_RTOL})")
+    remat = {}
+    for r in ("dots", "none"):
+        same = torch.equal(got[r][0], got["full"][0]) and all(
+            torch.equal(x, y) for x, y in zip(tree_leaves(got[r][1]),
+                                              tree_leaves(got["full"][1])))
+        remat[r] = 0.0 if same else max(
+            worst(got[r][1], got["full"][1]),
+            abs(float(got[r][0]) - float(got["full"][0])))
+        if not remat[r] <= REMAT_GRAD_RTOL:
+            fail(f"12a {arch}: remat {r} against full on the card: "
+                 f"{remat[r]} > {REMAT_GRAD_RTOL}")
+    del got
+    opt = adamw(POD_LR, warmup=POD_WARMUP)
+    step = make_train_step(model, opt, remat="full")
+    cpu, _, cl = step(cpu, opt.init(cpu), batch)
+    card, _, gl = step(card, opt.init(card), gbatch)
+    step_loss = abs(float(gl) - float(cl))
+    lr1 = POD_LR * min(1.0, 1 / POD_WARMUP)
+    moved = max(float((x.float().cpu() - y.float()).abs().max())
+                for x, y in zip(tree_leaves(card), tree_leaves(cpu)))
+    if not (step_loss <= TRAIN_LOSS_ATOL and moved <= 2 * lr1 * 1.001):
+        fail(f"12a {arch}: train step card against CPU, loss {step_loss} "
+             f"(bound {TRAIN_LOSS_ATOL}), parameters {moved} (bound "
+             f"{2 * lr1})")
+    print(f"[pod] 12a {arch} ({cfg.family}, reduced, float32), card "
+          f"against CPU: loss {loss_err!r}, gradients {grad_err!r} of a "
+          f"leaf's largest |g|; remat dots / none against full on the "
+          f"card {remat['dots']!r} / {remat['none']!r} (0.0: bit for "
+          f"bit); after one AdamW step, loss {step_loss!r}, parameters "
+          f"{moved!r} (2 lr = {2 * lr1!r})", flush=True)
+    return {"loss": loss_err, "grads": grad_err, "remat": remat,
+            "step_loss": step_loss, "params": moved}
+
+
+def train_full(label: str, arch: str, B: int, S: int) -> dict:
+    """Phases 12b and 12c: ``POD_STEPS`` pod-trainer steps of ``arch`` at
+    its published widths on one batch of seeded uniform tokens, timed
+    with CUDA events, then a step under ``torch.profiler``.  Fails on a
+    non-finite loss, a loss that does not fall or a leaf that did not
+    move (see the module docstring).  Returns the numbers it printed."""
+    import statistics
+
+    import torch
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import moe
+    from repro_torch.train.optimizer import Optimizer, adamw
+    from repro_torch.utils.pytree import tree_leaves
+    free()
+    model, params = build_full(arch, tag="pod")
+    cfg = model.cfg
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, S),
+                                     generator=gen, device="cuda",
+                                     dtype=torch.int32)}
+    out = {}
+    if cfg.family == "moe":     # the drops of the first step's forward
+        routes = []
+        with torch.no_grad(), recording_routes(routes):
+            model.forward(params, batch, remat="none")
+        cap = moe.capacity(cfg, min(moe.MOE_CHUNK, S))
+        dropped = total = 0
+        for idx in routes:
+            onehot = torch.nn.functional.one_hot(
+                idx, cfg.moe.n_experts).float()
+            dropped += int(((moe.capacity_slots(onehot) >= cap)
+                            * onehot).sum())
+            total += idx.numel()
+        out["dropped"] = dropped
+        print(f"[pod] {label} {arch} first step's forward (B={B}, S={S}, "
+              f"capacity {cap} an expert a chunk): {dropped} of {total} "
+              f"(token, k) assignments dropped ({dropped / total:.4f})",
+              flush=True)
+        del routes
+    opt = adamw(POD_LR, warmup=POD_WARMUP)
+    marks, fb_peaks = [], []
+
+    def update(p, g, s):
+        # an event where the optimizer starts, and the allocator's peak
+        # so far (host-side accounting, no synchronize)
+        marks.append(torch.cuda.Event(enable_timing=True))
+        marks[-1].record()
+        fb_peaks.append(torch.cuda.max_memory_allocated())
+        return opt.update(p, g, s)
+
+    state = opt.init(params)
+    step = make_train_step(model, Optimizer(opt.init, update),
+                           remat="full")
+    paths = [p for p, _ in cache_leaves(params)]
+    before = [t.to("cpu", copy=True) for t in tree_leaves(params)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    starts, ends, losses = [], [], []
+    for _ in range(POD_STEPS):
+        starts.append(torch.cuda.Event(enable_timing=True))
+        ends.append(torch.cuda.Event(enable_timing=True))
+        starts[-1].record()
+        params, state, loss = step(params, state, batch)
+        ends[-1].record()
+        losses.append(loss)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    step_ms = [a.elapsed_time(b) for a, b in zip(starts, ends)]
+    fb_ms = [a.elapsed_time(m) for a, m in zip(starts, marks)]
+    opt_ms = [m.elapsed_time(b) for m, b in zip(marks, ends)]
+    losses = [float(x) for x in torch.stack(losses).cpu()]
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"{label} {arch}: non-finite loss {losses}")
+    if not losses[-1] < losses[0]:
+        fail(f"{label} {arch}: the loss did not fall on its batch: "
+             f"{losses}")
+    # every leaf moved, but a bf16 leaf of ones (a norm scale): there a
+    # step below half a bf16 ulp (2^-9 below 1.0) rounds back to 1.0, and
+    # the schedule stays below it for the first steps
+    m_leaves = tree_leaves(state["m"])
+    still = []
+    for path, a, b, m in zip(paths, tree_leaves(params), before, m_leaves):
+        if torch.equal(a.cpu(), b):
+            if not (a.dtype == torch.bfloat16 and bool((b == 1).all())
+                    and bool((m != 0).any())):
+                fail(f"{label} {arch}: leaf {path} did not move")
+            still.append(path)
+    del before
+    ms = statistics.median(step_ms[1:])
+    tokens = B * S
+    flops = 6 * cfg.n_active_params() * tokens
+    out.update({"step_ms": ms, "fb_ms": statistics.median(fb_ms[1:]),
+                "opt_ms": statistics.median(opt_ms[1:]),
+                "tok_s": tokens * 1e3 / ms,
+                "tflop_s": flops / (ms / 1e3) / 1e12, "peak_gib": peak,
+                "fb_peak_gib": fb_peaks[0] / 2**30, "losses": losses})
+    print(f"[pod] {label} {arch} B={B}, S={S}, remat full, adamw("
+          f"{POD_LR}, warmup={POD_WARMUP}), {POD_STEPS} steps in "
+          f"{wall:.3f} s: losses {[round(x, 4) for x in losses]}; step "
+          f"{ms:.3f} ms (median of steps 2-{POD_STEPS}; all "
+          f"{[round(x, 3) for x in step_ms]}), forward+backward "
+          f"{out['fb_ms']:.3f} ms and optimizer {out['opt_ms']:.3f} ms "
+          f"(steps: {[round(x, 3) for x in fb_ms]} / "
+          f"{[round(x, 3) for x in opt_ms]}); {out['tok_s']:.1f} tokens/s, "
+          f"6 * n_active_params * tokens {flops:.4e} FLOP = "
+          f"{out['tflop_s']:.3f} TFLOP/s; peak memory {peak:.3f} GiB "
+          f"({out['fb_peak_gib']:.3f} GiB before the first optimizer "
+          f"update); "
+          f"{len(paths) - len(still)} of {len(paths)} leaves moved, "
+          f"unmoved bf16 ones {still}", flush=True)
+    prof = profiled(lambda: step(params, state, batch), {})
+    out["profile"] = prof
+    print(f"[pod] {label} {arch} step {POD_STEPS + 1} under torch.profiler: "
+          f"{prof['host_ms']:.3f} ms of host time, {prof['device_ms']:.3f} "
+          f"ms of kernel time (device idle {prof['idle_share']:.4f}); "
+          f"{prof['aten_ops']} top-level aten ops, {prof['device_kernels']} "
+          f"device kernels", flush=True)
+    del model, params, state, step, batch, m_leaves
+    free()
+    return out
+
+
+def pod_phase() -> dict:
+    """Phase 12: the pod trainer (see the module docstring).  Returns the
+    numbers it printed."""
+    import tempfile
+
+    import torch
+    from repro_torch.configs import ASSIGNED_ARCHS
+    from repro_torch.device import resolve_device
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launch_train
+    from repro_torch.train.checkpoint import load_checkpoint
+    from repro_torch.utils.pytree import tree_leaves
+
+    resolve_device("cuda")
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    out = {}
+    # ---- 12a: card against CPU, float32, reduced configs
+    for arch in ASSIGNED_ARCHS:
+        out[f"12a {arch}"] = train_card_cpu(arch)
+    # ---- 12b, 12c: published widths
+    out["12b"] = train_full("12b", "phi3-mini-3.8b", 4, 1024)
+    out["12c"] = train_full("12c", "granite-moe-1b-a400m", 8, 512)
+    # ---- 12d: the launcher's --mode pod on the card
+    with tempfile.TemporaryDirectory() as d:
+        losses, params = launch_train.main([
+            "--mode", "pod", "--arch", "qwen2-7b", "--reduced", "--steps",
+            "3", "--batch", "2", "--seq-len", "64", "--checkpoint", d])
+        loaded, step, _ = load_checkpoint(d)
+    got, want = tree_leaves(loaded), tree_leaves(params)
+    if step != 3 or len(got) != len(want) or not all(
+            a.dtype == b.dtype and torch.equal(a, b.cpu())
+            for a, b in zip(got, want)):
+        fail("12d: the checkpoint does not load as the trained parameters")
+    if want[0].device.type != "cuda":
+        fail("12d: the launcher did not train on the card")
+    print(f"[pod] 12d launch.train --mode pod --arch qwen2-7b --reduced on "
+          f"the card: losses {losses}; the checkpoint loads as the "
+          f"trained parameters bit for bit ({len(got)} leaves)", flush=True)
+    del loaded, params
+    free()
+
+    torch.cuda.synchronize()
+    got = ops.launch_counts()
+    if any(got.values()):
+        fail(f"phase 12 launched kernels of the FL path: {json.dumps(got)}")
+    wall = time.perf_counter() - t_phase
+    out["wall_s"] = wall
+    print(f"[pod] phase 12: launches of #1-#8 {json.dumps(got)}; "
           f"{wall:.3f} s of wall time", flush=True)
     return out
 
@@ -3051,6 +3353,8 @@ def main() -> None:
     serving_phase()
     # --------------------------------------------------------------- 11
     recurrent_phase()
+    # --------------------------------------------------------------- 12
+    pod_phase()
     for k in kernels:
         k["launches_by_path"] = {path: c[k["name"]]
                                  for path, c in by_path.items()}

@@ -1,10 +1,12 @@
-"""Offline-safe synthetic image datasets (numpy only).
+"""Offline-safe synthetic datasets (numpy only).
 
-Class-conditional data with the exact shapes of the paper's datasets
+Class-conditional images with the exact shapes of the paper's datasets
 (FMNIST 28x28x1 / CIFAR 32x32x3, 10 classes): each class is a fixed
-random template plus structured noise and random shifts.  The draws
-consume the caller's numpy generator exactly as the reference's
-``repro/data/synthetic.py`` does, so one seed gives the same arrays.
+random template plus structured noise and random shifts.  Token
+documents for the LM trainer: a mixture of bigram models with a topic
+per document.  The draws consume the caller's numpy generator exactly
+as the reference's ``repro/data/synthetic.py`` does, so one seed gives
+the same arrays.
 """
 from __future__ import annotations
 
@@ -55,3 +57,29 @@ def make_image_task(rng: np.random.Generator, n_train: int, n_test: int, *,
     train = _sample_from_templates(rng, templates, n_train, noise)
     test = _sample_from_templates(rng, templates, n_test, noise)
     return train, test
+
+
+def make_image_dataset(rng: np.random.Generator, n: int, *, shape,
+                       n_classes: int = 10, noise: float = 0.25
+                       ) -> ImageDataset:
+    templates = _class_templates(rng, n_classes, shape)
+    return _sample_from_templates(rng, templates, n, noise)
+
+
+def make_token_dataset(rng: np.random.Generator, n_docs: int, seq_len: int,
+                       vocab: int, n_topics: int = 8) -> np.ndarray:
+    """(n_docs, seq_len) int32 token documents from topic bigram models.
+    The bigram table is ``(n_topics, vocab, vocab)`` float64, as in the
+    reference: 16 MB at the reduced configs' vocab of 512, but 66 GB at
+    phi3-mini-3.8b's 32064, so the published vocabularies train on other
+    tokens."""
+    probs = rng.dirichlet(np.full(vocab, 0.05), size=(n_topics, vocab))
+    topics = rng.integers(0, n_topics, size=n_docs)
+    docs = np.zeros((n_docs, seq_len), np.int32)
+    docs[:, 0] = rng.integers(0, vocab, size=n_docs)
+    for t in range(1, seq_len):
+        rows = probs[topics, docs[:, t - 1]]
+        cum = np.cumsum(rows, axis=-1)
+        u = rng.uniform(size=(n_docs, 1))
+        docs[:, t] = (u > cum).sum(-1)
+    return np.clip(docs, 0, vocab - 1)

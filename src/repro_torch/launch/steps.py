@@ -1,18 +1,26 @@
-"""Step functions and input specs for the server.
+"""Step functions and input specs for the trainer and the server.
 
-  prefill_step(params, batch)        -> logits              (prefill)
-  serve_step(params, cache, batch)   -> (logits, cache)     (1-token decode)
+  train_step(params, opt_state, batch)   -> (params, opt_state, loss)
+  prefill_step(params, batch)            -> logits        (prefill)
+  serve_step(params, cache, batch)       -> (logits, cache)  (1-token decode)
 
-The reference's training step, its sharding helpers and its per-shape
-rules (``repro/launch/steps.py``) arrive with the pod trainer and the
-multi-card slice (ROADMAP queue 1, 'Pod path' (b) and (c)).
+The train step writes the parameters and the optimizer state in place
+(``train/optimizer.py``) and returns them with the loss, a tensor on the
+device.  ``grad_sync="auto"`` is the one-card step; the reference's
+compressed ``"anycost"`` sync over a pod axis, its sharding helpers
+(``param_shardings``, ``opt_state_shardings``, ``batch_shardings``,
+``cache_shardings``, ``grads_spec``) and its per-shape rules
+(``rules_for``, ``make_step_and_args``) arrive with the multi-card
+slice (ROADMAP queue 1, item 5, 'Pod path' (c)).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs.base import ArchConfig, InputShape
-from repro_torch.models.registry import Model
+from repro_torch.models.registry import Model, loss_fn
+from repro_torch.train.optimizer import Optimizer
+from repro_torch.utils.pytree import tree_leaves, tree_unflatten
 
 
 def input_specs(cfg: ArchConfig, shape: InputShape) -> dict:
@@ -34,9 +42,46 @@ def input_specs(cfg: ArchConfig, shape: InputShape) -> dict:
     return specs
 
 
+def value_and_grad(model: Model, params, batch, **kw):
+    """(loss, grads): the loss on ``batch`` and its gradient with respect
+    to every parameter leaf, in the parameters' tree and dtypes (a leaf
+    the loss does not reach gets zeros, as ``jax.value_and_grad`` gives
+    it).  ``kw`` goes to the model's forward (``remat``,
+    ``causal_skip``).  The loss is detached and stays on the device."""
+    leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
+    loss = loss_fn(model, tree_unflatten(params, leaves), batch, **kw)
+    grads = torch.autograd.grad(loss, leaves, materialize_grads=True)
+    return loss.detach(), tree_unflatten(params, grads)
+
+
+def make_train_step(model: Model, opt: Optimizer, *, remat: str = "full",
+                    causal_skip: bool = False, grad_sync: str = "auto",
+                    keep_frac: float = 1.0 / 16.0, mesh=None):
+    """The reference's train step on one device: the loss and gradients
+    under ``remat`` (``"full"``, ``"dots"`` or ``"none"``), then
+    ``opt.update`` in place.  ``keep_frac`` and ``mesh`` belong to the
+    ``"anycost"`` sync, which is not ported."""
+    if grad_sync == "anycost":
+        raise NotImplementedError(
+            "grad_sync='anycost' (the compressed gradient sync over a pod "
+            "axis of several cards) arrives with ROADMAP queue 1, item 5, "
+            "'Pod path' (c)")
+    if grad_sync != "auto":
+        raise ValueError(grad_sync)
+
+    def train_step(params, opt_state, batch):
+        loss, grads = value_and_grad(model, params, batch, remat=remat,
+                                     causal_skip=causal_skip)
+        params, opt_state = opt.update(params, grads, opt_state)
+        return params, opt_state, loss
+
+    return train_step
+
+
 def make_prefill_step(model: Model, *, causal_skip: bool = False):
     def prefill_step(params, batch):
-        return model.forward(params, batch, causal_skip=causal_skip)
+        return model.forward(params, batch, remat="none",
+                             causal_skip=causal_skip)
 
     return prefill_step
 

@@ -1,11 +1,17 @@
-"""FL training entry point: AnycostFL and the Table I baselines under the
-sync, semisync or fedbuff policy, on a flat fleet or (round-based
-policies) a client -> edge -> cloud hierarchy, static or dynamic, fixed
-or moving.
+"""Training entry point, the reference's two modes:
+
+  * ``--mode fl`` (the default): AnycostFL and the Table I baselines
+    under the sync, semisync or fedbuff policy, on a flat fleet or
+    (round-based policies) a client -> edge -> cloud hierarchy, static
+    or dynamic, fixed or moving.
+  * ``--mode pod``: the LM trainer on one card: AdamW steps (warmup 10)
+    on synthetic token documents (``data/synthetic.make_token_dataset``)
+    for any LM ``--arch``, ``--reduced`` for the reduced config, with
+    ``--remat full|dots|none`` and a ``--checkpoint`` directory.
 
   PYTHONPATH=src python -m repro_torch.launch.train --mode fl \\
       --method anycostfl --rounds 40 --devices 12 [--device cpu] \\
-      [--arch vgg9-cifar] [--non-iid] \\
+      [--arch vgg9-cifar] [--non-iid] [--lr 0.1] \\
       [--async-mode semisync --deadline 8 --straggler-mode downweight] \\
       [--async-mode fedbuff --buffer-size 8 --max-wallclock 300] \\
       [--topology hier --cells 4 --backhaul-codec int8 --backhaul-ef] \\
@@ -13,30 +19,45 @@ or moving.
        --participation 0.5] \\
       [--mobility random_waypoint --speed 30 --handover-policy nearest] \\
       [--mobility replay --scenario-trace world.json \\
-       --availability replay] \\
+       --availability replay] [--event-trace-limit 1000] \\
       [--telemetry-dir out/ --health --telemetry-rollup 64 \\
        --trace-sample 0.25 --torch-profile]
+  PYTHONPATH=src python -m repro_torch.launch.train --mode pod \\
+      --arch qwen2-7b --reduced --steps 20 [--device cpu] \\
+      [--batch 4 --seq-len 128 --remat full --checkpoint ckpt/]
 
-``--method`` is one of ``train/fl_loop.METHODS``; ``--arch`` names one of
-the paper's two CNNs (an LM arch raises ``NotImplementedError``: the FL
-simulation trains CNNs only); ``--mode`` takes ``fl`` only, the pod
-trainer not being ported.
+In ``--mode fl``, ``--method`` is one of ``train/fl_loop.METHODS`` and
+``--arch`` names one of the paper's two CNNs (an LM arch raises
+``NotImplementedError``: the FL simulation trains CNNs only).  ``--lr``
+defaults by mode, 0.05 for fl's SGD and 3e-3 for pod's AdamW, and the
+default is printed.
 
-Runs on the CUDA card unless ``--device cpu`` is given, and prints the
-reference launcher's final JSON fields and the per-phase cost
+Runs on the CUDA card unless ``--device cpu`` is given.  ``--mode fl``
+prints the reference launcher's final JSON fields and the per-phase cost
 attribution.  ``--telemetry-dir`` attaches a telemetry session and
 writes its bundle there (``trace.perfetto.json``, ``trace.jsonl``,
 ``metrics.jsonl``, ``manifest.json``, and ``alerts.jsonl`` under
 ``--health``); ``python -m repro_torch.telemetry.query`` reads it.
+``--mode pod`` prints the reference's step lines, the final loss and
+the checkpoint's path.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import time
 
+import numpy as np
+import torch
+
+from repro_torch.configs import get_config
+from repro_torch.data.synthetic import make_token_dataset
+from repro_torch.device import resolve_device
 from repro_torch.fleet import (AvailabilityConfig, BatteryConfig,
                                FleetDynamicsConfig)
+from repro_torch.launch.steps import make_train_step
 from repro_torch.mobility import HandoverConfig, MobilityConfig
+from repro_torch.models.registry import build_model
 from repro_torch.orchestrator.policies import POLICIES, OrchestratorConfig
 from repro_torch.orchestrator.runner import run_orchestrated
 from repro_torch.sysmodel.population import FleetConfig
@@ -44,7 +65,67 @@ from repro_torch.telemetry import (DEFAULT_RULES, NULL_TELEMETRY,
                                    HealthEngine, RollupPolicy, Telemetry,
                                    build_manifest, load_rules)
 from repro_torch.topology import BackhaulConfig, TopologyConfig
+from repro_torch.train.checkpoint import save_checkpoint
 from repro_torch.train.fl_loop import METHODS, PHASES, FLRunConfig
+from repro_torch.train.optimizer import adamw
+
+
+def run_pod(args):
+    """The reference's pod trainer on one device: ``args.steps`` AdamW
+    steps on batches drawn from seeded token documents.  Returns the
+    losses and the trained parameters."""
+    dev = resolve_device(args.device)
+    cfg = get_config(args.arch)
+    if cfg.family == "cnn":
+        raise ValueError(f"--mode pod trains the LM archs; {args.arch!r} "
+                         f"is one of the FL simulation's CNNs")
+    if args.reduced:
+        cfg = cfg.reduced()
+    model = build_model(cfg)
+    opt = adamw(args.lr, warmup=10)
+    rng = np.random.default_rng(args.seed)
+    docs = make_token_dataset(rng, max(args.batch * 4, 16), args.seq_len,
+                              cfg.vocab_size)
+    params = model.init(torch.Generator(device=dev).manual_seed(args.seed))
+    opt_state = opt.init(params)
+    step = make_train_step(model, opt, remat=args.remat)
+    losses = []
+    # repro: ignore[unseeded-randomness] — operator progress timing only;
+    # never feeds model or simulation state
+    t0 = time.perf_counter()
+    for i in range(args.steps):
+        idx = rng.integers(0, docs.shape[0], args.batch)
+        batch = {"tokens": torch.tensor(docs[idx], device=dev)}
+        batch.update(_modality_extras(cfg, args.batch, args.seq_len, dev))
+        params, opt_state, loss = step(params, opt_state, batch)
+        losses.append(float(loss))
+        if i % max(args.steps // 10, 1) == 0:
+            print(f"step {i:4d} loss {losses[-1]:.4f} "
+                  # repro: ignore[unseeded-randomness] — progress
+                  f"({time.perf_counter() - t0:.1f}s)")
+    print(f"final loss {losses[-1]:.4f} (first {losses[0]:.4f})")
+    if args.checkpoint:
+        save_checkpoint(args.checkpoint, params, step=args.steps)
+        print(f"checkpoint -> {args.checkpoint}")
+    return losses, params
+
+
+def _modality_extras(cfg, batch: int, seq_len: int, device) -> dict:
+    """The stub vision tower's patch embeddings (vlm) or audio frontend's
+    frames (encdec), standard normal in the parameter dtype.  Every call
+    draws them from a generator seeded 7, as the reference draws them
+    from ``PRNGKey(7)``: the same values at every step."""
+    gen = torch.Generator(device=device).manual_seed(7)
+    if cfg.family == "vlm":
+        v = cfg.vlm
+        return {"patch_embeds": torch.randn(
+            (batch, min(v.n_patches, seq_len), v.patch_embed_dim),
+            generator=gen, device=device, dtype=cfg.param_dtype)}
+    if cfg.family == "encdec":
+        return {"frames": torch.randn(
+            (batch, cfg.encdec.n_frames, cfg.d_model), generator=gen,
+            device=device, dtype=cfg.param_dtype)}
+    return {}
 
 
 def _dynamics_config(args):
@@ -108,12 +189,98 @@ def _topology_config(args):
             error_feedback=args.backhaul_ef))
 
 
+def run_fl(args):
+    run_cfg = FLRunConfig(arch=args.arch, method=args.method,
+                          rounds=args.rounds, lr=args.lr, seed=args.seed,
+                          iid=not args.non_iid, n_train=args.n_train,
+                          n_test=args.n_test, eval_every=args.eval_every)
+    fleet = FleetConfig(n_devices=args.devices,
+                        dynamics=_dynamics_config(args),
+                        topology=_topology_config(args),
+                        mobility=_mobility_config(args))
+    orch = OrchestratorConfig(
+        policy=args.async_mode, max_wallclock_s=args.max_wallclock,
+        deadline_s=args.deadline, buffer_size=args.buffer_size,
+        staleness_exponent=args.staleness_exp,
+        staleness_cap=args.staleness_cap,
+        staleness_mode=args.staleness_mode,
+        straggler_mode=args.straggler_mode,
+        max_inflight=args.max_inflight, agg_route=args.agg_route,
+        use_pool=False if args.no_pool else None,
+        event_trace_limit=args.event_trace_limit)
+    if args.torch_profile and not args.telemetry_dir:
+        raise SystemExit("--torch-profile needs --telemetry-dir: the "
+                         "profile is written under "
+                         "<telemetry-dir>/torch_profile")
+    tel = NULL_TELEMETRY
+    if args.telemetry_dir:
+        rollup = None
+        if args.telemetry_rollup is not None:
+            rollup = RollupPolicy(device_threshold=args.telemetry_rollup,
+                                  seed=args.seed)
+        tel = Telemetry(args.telemetry_dir,
+                        torch_profile=args.torch_profile, rollup=rollup,
+                        trace_sample=args.trace_sample,
+                        trace_seed=args.seed)
+    if args.health:
+        if not tel.enabled:
+            raise SystemExit("--health needs --telemetry-dir: the health "
+                             "engine evaluates the learning.* series a "
+                             "telemetry session records")
+        rules = load_rules(args.health_rules) if args.health_rules \
+            else DEFAULT_RULES
+        tel.health = HealthEngine(rules)
+    hist = run_orchestrated(run_cfg, fleet, orch, device=args.device,
+                            verbose=True, telemetry=tel)
+    tta = {f"acc>={th:.2f}": hist.time_to_acc(th)
+           for th in (0.3, 0.5, 0.7, 0.9) if hist.best_acc >= th}
+    print(json.dumps({"arch": args.arch, "method": args.method,
+                      "policy": args.async_mode,
+                      "availability": args.availability,
+                      "selection": args.selection,
+                      "topology": args.topology,
+                      "cells": args.cells if args.topology == "hier" else 1,
+                      "mobility": args.mobility,
+                      "handover_policy": args.handover_policy,
+                      "n_handovers": hist.total_handovers(),
+                      "best_acc": hist.best_acc,
+                      "sim_wallclock_s": hist.wallclock(),
+                      "backhaul_mb": float(sum(r.backhaul_bits
+                                               for r in hist.rounds) / 8e6),
+                      "time_to_acc_s": tta,
+                      "rows": hist.to_rows()[-1]}, indent=1))
+    # per-phase cost attribution (always available: the registry backs
+    # every RoundLog whether or not a telemetry dir was given)
+    totals = hist.phase_totals()
+    print("[cost attribution]")
+    print(f"  {'phase':>9s} {'energy_j':>12s} {'latency_s':>12s} "
+          f"{'comm_mb':>12s}")
+    for phase in PHASES:
+        print(f"  {phase:>9s} {totals['energy_j'][phase]:12.3f} "
+              f"{totals['latency_s'][phase]:12.3f} "
+              f"{totals['comm_bits'][phase] / 8e6:12.3f}")
+    if tel.enabled:
+        if tel.health is not None:
+            for line in tel.health.summary_table():
+                print(line)
+        manifest = build_manifest(
+            run_cfg, fleet, orch, trace_signature=hist.trace,
+            device=args.device,
+            extra={"phase_totals": totals, "best_acc": hist.best_acc,
+                   "n_alerts": (len(tel.health.alerts())
+                                if tel.health is not None else None)})
+        paths = tel.flush(manifest=manifest)
+        for kind, path in sorted(paths.items()):
+            print(f"[telemetry] {kind}: {path}")
+    return hist
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--mode", default="fl", choices=["fl"])
+    ap.add_argument("--mode", default="fl", choices=["fl", "pod"])
     ap.add_argument("--arch", default="fmnist-cnn",
-                    help="fmnist-cnn or vgg9-cifar (the LM families "
-                         "arrive with the pod path)")
+                    help="fl: fmnist-cnn or vgg9-cifar; pod: any LM arch "
+                         "of repro_torch.configs")
     ap.add_argument("--method", default="anycostfl", choices=METHODS)
     ap.add_argument("--rounds", type=int, default=30)
     ap.add_argument("--devices", type=int, default=12)
@@ -280,89 +447,35 @@ def main(argv=None):
                     help="keep only this fraction of device/<id> trace "
                          "rows, chosen by the deterministic hash "
                          "blake2b(seed, device_id) < RATE")
+    ap.add_argument("--event-trace-limit", type=int, default=None,
+                    help="bound the in-memory event pop trace to the "
+                         "newest N records (evicted records fold into a "
+                         "rolling hash; the replay signature stays "
+                         "deterministic). Default: retain everything")
+    # ---- pod trainer
+    ap.add_argument("--steps", type=int, default=20)
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--seq-len", type=int, default=128)
+    ap.add_argument("--lr", type=float, default=None,
+                    help="learning rate (default: 0.05 for fl SGD, "
+                         "3e-3 for pod AdamW)")
+    ap.add_argument("--remat", default="none",
+                    help="pod: full, dots or none (models/transformer."
+                         "scan_blocks)")
+    ap.add_argument("--reduced", action="store_true",
+                    help="pod: train the arch's reduced config")
+    ap.add_argument("--checkpoint", default=None,
+                    help="pod: save the trained parameters here")
     args = ap.parse_args(argv)
-    run_cfg = FLRunConfig(arch=args.arch, method=args.method,
-                          rounds=args.rounds, seed=args.seed,
-                          iid=not args.non_iid, n_train=args.n_train,
-                          n_test=args.n_test, eval_every=args.eval_every)
-    fleet = FleetConfig(n_devices=args.devices,
-                        dynamics=_dynamics_config(args),
-                        topology=_topology_config(args),
-                        mobility=_mobility_config(args))
-    orch = OrchestratorConfig(
-        policy=args.async_mode, max_wallclock_s=args.max_wallclock,
-        deadline_s=args.deadline, buffer_size=args.buffer_size,
-        staleness_exponent=args.staleness_exp,
-        staleness_cap=args.staleness_cap,
-        staleness_mode=args.staleness_mode,
-        straggler_mode=args.straggler_mode,
-        max_inflight=args.max_inflight, agg_route=args.agg_route,
-        use_pool=False if args.no_pool else None)
-    if args.torch_profile and not args.telemetry_dir:
-        raise SystemExit("--torch-profile needs --telemetry-dir: the "
-                         "profile is written under "
-                         "<telemetry-dir>/torch_profile")
-    tel = NULL_TELEMETRY
-    if args.telemetry_dir:
-        rollup = None
-        if args.telemetry_rollup is not None:
-            rollup = RollupPolicy(device_threshold=args.telemetry_rollup,
-                                  seed=args.seed)
-        tel = Telemetry(args.telemetry_dir,
-                        torch_profile=args.torch_profile, rollup=rollup,
-                        trace_sample=args.trace_sample,
-                        trace_seed=args.seed)
-    if args.health:
-        if not tel.enabled:
-            raise SystemExit("--health needs --telemetry-dir: the health "
-                             "engine evaluates the learning.* series a "
-                             "telemetry session records")
-        rules = load_rules(args.health_rules) if args.health_rules \
-            else DEFAULT_RULES
-        tel.health = HealthEngine(rules)
-    hist = run_orchestrated(run_cfg, fleet, orch, device=args.device,
-                            verbose=True, telemetry=tel)
-    tta = {f"acc>={th:.2f}": hist.time_to_acc(th)
-           for th in (0.3, 0.5, 0.7, 0.9) if hist.best_acc >= th}
-    print(json.dumps({"arch": args.arch, "method": args.method,
-                      "policy": args.async_mode,
-                      "availability": args.availability,
-                      "selection": args.selection,
-                      "topology": args.topology,
-                      "cells": args.cells if args.topology == "hier" else 1,
-                      "mobility": args.mobility,
-                      "handover_policy": args.handover_policy,
-                      "n_handovers": hist.total_handovers(),
-                      "best_acc": hist.best_acc,
-                      "sim_wallclock_s": hist.wallclock(),
-                      "backhaul_mb": float(sum(r.backhaul_bits
-                                               for r in hist.rounds) / 8e6),
-                      "time_to_acc_s": tta,
-                      "rows": hist.to_rows()[-1]}, indent=1))
-    # per-phase cost attribution (always available: the registry backs
-    # every RoundLog whether or not a telemetry dir was given)
-    totals = hist.phase_totals()
-    print("[cost attribution]")
-    print(f"  {'phase':>9s} {'energy_j':>12s} {'latency_s':>12s} "
-          f"{'comm_mb':>12s}")
-    for phase in PHASES:
-        print(f"  {phase:>9s} {totals['energy_j'][phase]:12.3f} "
-              f"{totals['latency_s'][phase]:12.3f} "
-              f"{totals['comm_bits'][phase] / 8e6:12.3f}")
-    if tel.enabled:
-        if tel.health is not None:
-            for line in tel.health.summary_table():
-                print(line)
-        manifest = build_manifest(
-            run_cfg, fleet, orch, trace_signature=hist.trace,
-            device=args.device,
-            extra={"phase_totals": totals, "best_acc": hist.best_acc,
-                   "n_alerts": (len(tel.health.alerts())
-                                if tel.health is not None else None)})
-        paths = tel.flush(manifest=manifest)
-        for kind, path in sorted(paths.items()):
-            print(f"[telemetry] {kind}: {path}")
-    return hist
+    # the mode's default lr behind a None sentinel, so an explicit --lr
+    # equal to the other mode's default is kept
+    if args.lr is None:
+        args.lr = 3e-3 if args.mode == "pod" else 0.05
+        print(f"[train] using the {args.mode}-mode default lr {args.lr:g} "
+              f"(pass --lr to override)")
+    if args.mode == "pod":
+        return run_pod(args)
+    return run_fl(args)
 
 
 if __name__ == "__main__":

@@ -121,15 +121,15 @@ def init_encdec(gen: torch.Generator, cfg: ArchConfig) -> PyTree:
     }
 
 
-def encode(params: PyTree, frames: torch.Tensor,
-           cfg: ArchConfig) -> torch.Tensor:
+def encode(params: PyTree, frames: torch.Tensor, cfg: ArchConfig, *,
+           remat: str = "full") -> torch.Tensor:
     """frames:(B,F,D) -> memory (B,F,D)."""
     B, F, _ = frames.shape
     x = L.linear(params["frontend_proj"], frames.to(cfg.param_dtype))
     # the frames carry the frontend's positional information; RoPE too
     pos = T.seq_positions(B, F, x.device)
-    for i in range(cfg.encdec.n_enc_layers):
-        x = apply_enc_block(T.layer(params["enc"], i), x, pos, cfg)
+    x = T.scan_blocks(lambda p, x: apply_enc_block(p, x, pos, cfg),
+                      params["enc"], x, remat=remat)
     return L.norm(params["ln_enc"], x, kind=cfg.norm)
 
 
@@ -139,14 +139,15 @@ def _head(params: PyTree, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
 
 
 def forward_encdec(params: PyTree, frames: torch.Tensor,
-                   tokens: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+                   tokens: torch.Tensor, cfg: ArchConfig, *,
+                   remat: str = "full") -> torch.Tensor:
     """(frames (B,F,D), tokens (B,S)) -> float32 logits (B,S,V)."""
-    memory = encode(params, frames, cfg)
+    memory = encode(params, frames, cfg, remat=remat)
     B, S = tokens.shape
     x = L.embed(params["embed"], tokens).to(cfg.param_dtype)
     pos = T.seq_positions(B, S, x.device)
-    for i in range(cfg.encdec.n_dec_layers):
-        x = apply_dec_block(T.layer(params["dec"], i), x, pos, memory, cfg)
+    x = T.scan_blocks(lambda p, x: apply_dec_block(p, x, pos, memory, cfg),
+                      params["dec"], x, remat=remat)
     return _head(params, x, cfg)
 
 
@@ -174,7 +175,7 @@ def prefill_encdec_cache(params: PyTree, frames: torch.Tensor,
                          cfg: ArchConfig, batch: int, cache_len: int
                          ) -> dict:
     """Run the encoder and fill the cross-attention K/V of every layer."""
-    memory = encode(params, frames, cfg)
+    memory = encode(params, frames, cfg, remat="none")
     cache = init_encdec_cache(cfg, batch, cache_len, memory.device)
     kv = [_cross_kv(T.layer(params["dec"], i)["cross_attn"], memory, cfg)
           for i in range(cfg.encdec.n_dec_layers)]

@@ -60,7 +60,8 @@ def build_model(cfg: ArchConfig) -> Model:
     if cfg.family == "encdec":
         def forward(params, batch, **kw):
             return encdec_mod.forward_encdec(params, batch["frames"],
-                                             batch["tokens"], cfg)
+                                             batch["tokens"], cfg,
+                                             remat=kw.get("remat", "full"))
 
         def init_cache(batch_size, cache_len, device):
             return encdec_mod.init_encdec_cache(cfg, batch_size, cache_len,

@@ -7,8 +7,9 @@ init_block_cache, decode_block): dense and vlm here, moe in ``moe.py``,
 ssm in ``ssm.py``, and hybrid in ``rglru.py``, whose stack entries are
 superblocks (one repeat of the block pattern) with the remainder layers
 stacked under ``params["tail"]`` (recurrentgemma: 38 = 12 x 3 + 2).  The
-port walks the stacks with a Python loop over the layer views
-``blocks[...][i]`` where the reference scans.
+port walks the stacks with a Python loop over the layer views where the
+reference scans (:func:`scan_blocks`, which also applies the reference's
+``remat`` policy to each block).
 
 The decode cache is ``{"blocks": <the family's cache, stacked>, "pos":
 int}`` (+ ``"tail"`` for hybrid), the reference's layout with ``pos`` a
@@ -22,12 +23,14 @@ from __future__ import annotations
 from typing import Callable
 
 import torch
+from torch.utils.checkpoint import (checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
 from repro_torch.models.attention import (attention_residual,
                                           decode_residual, init_attention)
-from repro_torch.utils.pytree import PyTree, tree_map
+from repro_torch.utils.pytree import PyTree, tree_leaves, tree_map
 
 # ------------------------------------------------------------- layer stacking
 
@@ -51,6 +54,42 @@ def init_stack(gen: torch.Generator, n: int,
 def layer(stacked: PyTree, i: int) -> PyTree:
     """Layer ``i``'s views of a stacked tree."""
     return tree_map(lambda t: t[i], stacked)
+
+
+REMAT = ("full", "dots", "none")
+
+
+def _save_dots():
+    """Selective checkpointing that keeps the matrix products' outputs and
+    recomputes the rest, the reference's ``checkpoint_dots`` policy."""
+    aten = torch.ops.aten
+    return create_selective_checkpoint_contexts(
+        [aten.mm.default, aten.bmm.default, aten.addmm.default])
+
+
+def scan_blocks(apply_fn: Callable, stacked: PyTree, x: torch.Tensor, *,
+                remat: str = "full") -> torch.Tensor:
+    """``x`` through ``apply_fn(layer_i, x)`` for each layer of the stacked
+    tree in order, the reference's ``scan_blocks`` as a Python loop.
+    ``remat``: ``"full"`` recomputes each block's activations in the
+    backward pass (``torch.utils.checkpoint``), ``"dots"`` keeps its
+    matrix products' outputs and recomputes the rest, ``"none"`` keeps
+    everything autograd saves."""
+    if remat not in REMAT:
+        raise ValueError(remat)
+    # the layers as one unbind of each leaf: its backward stacks the
+    # layers' gradients once, where a select per layer would write a
+    # zero tensor of the whole stack for each layer and add them up
+    per_layer = tree_map(lambda t: t.unbind(0), stacked)
+    for i in range(len(tree_leaves(per_layer)[0])):
+        p = tree_map(lambda u: u[i], per_layer)
+        if remat == "none":
+            x = apply_fn(p, x)
+        else:
+            x = checkpoint(apply_fn, p, x, use_reentrant=False,
+                           **({"context_fn": _save_dots}
+                              if remat == "dots" else {}))
+    return x
 
 
 # ------------------------------------------------------------- dense blocks
@@ -221,23 +260,24 @@ def init_lm(gen: torch.Generator, cfg: ArchConfig) -> PyTree:
 
 
 def forward_lm(params: PyTree, tokens: torch.Tensor, cfg: ArchConfig, *,
-               causal_skip: bool = False, extra_embeds=None) -> torch.Tensor:
+               remat: str = "full", causal_skip: bool = False,
+               extra_embeds=None) -> torch.Tensor:
     """tokens:(B,S) -> float32 logits (B,S,V). extra_embeds: optional
-    (B,S,D) added input embeddings (the VLM's projected patches)."""
+    (B,S,D) added input embeddings (the VLM's projected patches).
+    ``remat`` (:func:`scan_blocks`) covers the block stack and the hybrid
+    ``tail``; a caller that takes no gradient passes ``"none"``."""
     B, S = tokens.shape
     x = _embed_input(params, tokens, cfg, extra_embeds)
     positions = seq_positions(B, S, x.device)
     apply = _family_fns(cfg)[1]
-    n_stack, n_rem = _n_stack(cfg)
-    for i in range(n_stack):
-        x = apply(layer(params["blocks"], i), x, positions, cfg,
-                  causal_skip=causal_skip)
-    if n_rem:
+    x = scan_blocks(lambda p, x: apply(p, x, positions, cfg,
+                                       causal_skip=causal_skip),
+                    params["blocks"], x, remat=remat)
+    if "tail" in params:
         from repro_torch.models import rglru
-        for i in range(n_rem):
-            x = rglru.apply_block_kind(layer(params["tail"], i), x,
-                                       positions, cfg, _tail_kind(cfg),
-                                       causal_skip=causal_skip)
+        x = scan_blocks(lambda p, x: rglru.apply_block_kind(
+            p, x, positions, cfg, _tail_kind(cfg), causal_skip=causal_skip),
+            params["tail"], x, remat=remat)
     return _logits(params, x, cfg)
 
 

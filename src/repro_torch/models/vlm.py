@@ -35,7 +35,8 @@ def project_patches(params: dict, patch_embeds: torch.Tensor, seq_len: int,
 
 def forward_vlm(params: dict, tokens: torch.Tensor,
                 patch_embeds: torch.Tensor, cfg: ArchConfig, *,
-                causal_skip: bool = False) -> torch.Tensor:
+                remat: str = "full", causal_skip: bool = False
+                ) -> torch.Tensor:
     extra = project_patches(params, patch_embeds, tokens.shape[1], cfg)
-    return T.forward_lm(params, tokens, cfg, causal_skip=causal_skip,
-                        extra_embeds=extra)
+    return T.forward_lm(params, tokens, cfg, remat=remat,
+                        causal_skip=causal_skip, extra_embeds=extra)

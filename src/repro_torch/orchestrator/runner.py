@@ -227,8 +227,8 @@ class Simulation:
         if arch_cfg.family != "cnn":
             raise NotImplementedError(
                 f"arch {run_cfg.arch!r}: the FL simulation trains the "
-                f"paper's CNNs; training the LM families arrives with the "
-                f"pod trainer (ROADMAP queue 1, 'Pod path')")
+                f"paper's CNNs; the LM families train with the pod "
+                f"trainer (--mode pod, ROADMAP queue 1, 'Pod path' (b))")
         self.model = build_model(arch_cfg)
         self.spec = shrinking.cnn_shrink_spec(arch_cfg)
         self.train, self.test = make_image_task(

@@ -27,14 +27,16 @@ def tree_leaves(tree: PyTree) -> list:
 def tree_unflatten(template: PyTree, leaves) -> PyTree:
     """Rebuild ``template``'s dict structure around ``leaves`` (sorted-key
     order, as :func:`tree_leaves` returns them)."""
-    it = iter(leaves)
+    return _build(template, iter(leaves))
 
-    def build(node):
-        if isinstance(node, dict):
-            return {k: build(node[k]) for k in sorted(node)}
-        return next(it)
 
-    return build(template)
+def _build(node: PyTree, it) -> PyTree:
+    # a module-level function: a nested one that calls itself would hold
+    # ``it``, and through it every leaf, in a reference cycle until the
+    # garbage collector runs (a train step's gradients outlived the step)
+    if isinstance(node, dict):
+        return {k: _build(node[k], it) for k in sorted(node)}
+    return next(it)
 
 
 def tree_map(fn: Callable, tree: PyTree, *rest: PyTree) -> PyTree:

@@ -13,7 +13,9 @@ order, no FMA contraction); quantized values rtol 1e-6; norms rtol 1e-5
 calls of the kernel (it sums in a fixed order).  LM serving (plain
 PyTorch on the card, no kernel of the port): reduced float32 models
 against the CPU at rtol/atol 1e-4, blockwise attention against dense at
-the reference's 2e-5.
+the reference's 2e-5.  The pod trainer's step (plain PyTorch too): the
+loss at 1e-4 and each gradient leaf within 1e-4 of its largest |g|,
+card against CPU, and one AdamW step's parameters within 2 lr.
 """
 import numpy as np
 import pytest
@@ -759,3 +761,44 @@ def test_recurrent_and_encdec_serving_on_the_card_match_the_cpu(cuda, arch,
             assert torch.equal(g.cpu(), c)
         else:
             torch.testing.assert_close(g.cpu(), c, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("arch", ["qwen2-7b", "granite-moe-1b-a400m",
+                                  "falcon-mamba-7b", "recurrentgemma-9b",
+                                  "pixtral-12b", "seamless-m4t-large-v2"])
+def test_train_step_on_the_card_matches_the_cpu(cuda, arch):
+    """A reduced float32 model initialised once on the CPU and copied to
+    the card, one batch (B=2, S=32): the loss within 1e-4 and every
+    gradient leaf within 1e-4 of the leaf's largest |g|; then one
+    ``make_train_step`` AdamW step (lr 3e-4 at step 1 under warmup 10)
+    on each, the loss within 1e-4 and every parameter within 2 lr."""
+    from repro_torch.configs import get_config
+    from repro_torch.device import resolve_device
+    from repro_torch.launch.steps import make_train_step, value_and_grad
+    from repro_torch.launch.train import _modality_extras
+    from repro_torch.models.registry import build_model
+    from repro_torch.train.optimizer import adamw
+    from repro_torch.utils.pytree import tree_leaves, tree_map
+    resolve_device("cuda")
+    cfg = get_config(arch).reduced()
+    model = build_model(cfg)
+    cpu = model.init(torch.Generator().manual_seed(0))
+    card = tree_map(lambda t: t.to(cuda), cpu)
+    batch = {"tokens": torch.tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (2, 32)), dtype=torch.int32)}
+    batch.update(_modality_extras(cfg, 2, 32, "cpu"))
+    gbatch = {k: v.to(cuda) for k, v in batch.items()}
+    cl, cg = value_and_grad(model, cpu, batch, remat="full")
+    gl, gg = value_and_grad(model, card, gbatch, remat="full")
+    assert abs(float(gl) - float(cl)) <= 1e-4
+    for a, b in zip(tree_leaves(gg), tree_leaves(cg)):
+        assert float((a.cpu() - b).abs().max()) <= 1e-4 * float(
+            b.abs().max())
+    opt = adamw(3e-3, warmup=10)
+    step = make_train_step(model, opt, remat="full")
+    cpu, _, cl = step(cpu, opt.init(cpu), batch)
+    card, state, gl = step(card, opt.init(card), gbatch)
+    assert abs(float(gl) - float(cl)) <= 1e-4
+    assert state["step"].device.type == "cuda"
+    for a, b in zip(tree_leaves(card), tree_leaves(cpu)):
+        assert float((a.cpu() - b).abs().max()) <= 2 * 3e-4 * 1.001

@@ -155,9 +155,11 @@ def test_port_imports_neither_jax_nor_the_reference():
     codec and energy modules among them) and a flat AnycostFL round, a
     flat QSGD round, a hierarchical CPU round, a pooled fedbuff merge, a
     dynamic round, a mobile hierarchical round, a round with a
-    telemetry session attached, and the prefill and one decode step of
-    a reduced qwen2-7b, falcon-mamba-7b, recurrentgemma-9b and
-    seamless-m4t-large-v2 run."""
+    telemetry session attached, the prefill and one decode step of a
+    reduced qwen2-7b, falcon-mamba-7b, recurrentgemma-9b and
+    seamless-m4t-large-v2, and one pod-trainer step of a reduced
+    qwen2-7b (the optimizer, the checkpoint and the token data with it)
+    run."""
     code = textwrap.dedent("""
         import importlib, pkgutil, sys
         sys.modules["jax"] = None
@@ -242,6 +244,26 @@ def test_port_imports_neither_jax_nor_the_reference():
                                          {"tokens": toks[:, :1]})
             assert cache["pos"] == 5 and logits.shape == (1, 1, 512)
             assert bool(torch.isfinite(logits).all())
+        import numpy as np, tempfile
+        from repro_torch.data import pipeline
+        from repro_torch.data.synthetic import make_token_dataset
+        from repro_torch.launch.steps import make_train_step
+        from repro_torch.train import checkpoint, optimizer
+        model = build_model(get_config("qwen2-7b").reduced())
+        params = model.init(torch.Generator().manual_seed(0), "cpu")
+        opt = optimizer.adamw(3e-3, warmup=10)
+        state = opt.init(params)
+        docs = make_token_dataset(np.random.default_rng(0), 4, 16, 512)
+        idx = pipeline.BatchIterator(np.random.default_rng(1), 4,
+                                     2).next_indices()
+        params, state, loss = make_train_step(model, opt)(
+            params, state, {"tokens": torch.tensor(docs[idx])})
+        assert bool(torch.isfinite(loss)) and int(state["step"]) == 1
+        with tempfile.TemporaryDirectory() as d:
+            checkpoint.save_checkpoint(d, params, step=1)
+            back, step, _ = checkpoint.load_checkpoint(d)
+        assert step == 1 and torch.equal(back["embed"]["table"],
+                                         params["embed"]["table"])
         assert not [k for k, v in sys.modules.items() if v is not None
                     and (k.split(".")[0] in ("jax", "jaxlib", "repro"))]
         print("ok")
