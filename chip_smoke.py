@@ -278,6 +278,31 @@ Phases, in order; any failure exits non-zero:
         --reduced --steps 3`` on the card, whose checkpoint must load as
         the trained parameters bit for bit.
     It prints its wall time.
+13. The compressed cross-pod gradient sync (``core/distributed.py``),
+    one rank a pod, with each path's launch counters read:
+    (a) a one-rank NCCL group (``FileStore``): reduced float32
+        qwen2-7b, B=2, S=64, one ``make_train_step(grad_sync=
+        "anycost")`` step at ``SYNC_KEEP`` on the card and on the CPU
+        route (a one-rank gloo group beside it): the pod's loss and
+        gradients at 12a's bounds, the synced values and the count of
+        coordinates whose keep mask or int8 level differs (see
+        ``SYNC_FLIP_SHARE``); #6 once a gradient leaf;
+    (b) two ranks over gloo, spawned, both computing on ``cuda:0`` (the
+        kernels built before the spawn): the reference's
+        ``tests/test_distributed.py`` cases (exact, lossless, int8,
+        sparse at 0.25, the zero collision near 4.0), a seeded Gaussian
+        tree at ``SYNC_KEEP`` and two EF steps, each bit for bit
+        against the plain sync in this process; ``mesh_cell_aggregate``
+        with ``SYNC_CELLS`` rows at vgg9-cifar's N against the stacked
+        Eq. 5, #7 once a row of the rank's block; a 4-cell, 8-device
+        fmnist-cnn hierarchy (2 rounds) on ``agg_route="mesh"`` under
+        cuDNN's deterministic algorithms against the streaming route
+        here; both ranks' outputs bit for bit;
+    (c) phi3-mini-3.8b as 12b with the ``"anycost"`` step at
+        ``SYNC_KEEP`` in the one-rank NCCL group: step ms and tokens/s
+        beside 12b's, the sync's share of a step (CUDA events around it),
+        #6's launches a step, the peak memory, a falling loss.
+    It prints its wall time.
 
 The last lines are the card's name and power limit, one JSON object of
 kernels, and the result line.  Without a card, or without the rest of
@@ -385,6 +410,24 @@ REMAT_GRAD_RTOL = 1e-5
 POD_LR = 3e-3
 POD_WARMUP = 10
 POD_STEPS = 6
+#: phase 13, the compressed cross-pod gradient sync.  13a, one pod in a
+#: one-rank NCCL group, card against the CPU route (a one-rank gloo group
+#: beside it): the loss and the local gradients at 12a's bounds; the
+#: synced values within TRAIN_GRAD_RTOL of a leaf's largest |g| where the
+#: card's and the CPU's keep mask and int8 level agree, and at most
+#: SYNC_FLIP_SHARE of the coordinates where either differs (a level
+#: flips where the gradients' 1e-6 noise crosses a rounding boundary,
+#: about 1e-4 of the kept coordinates).  13b, two ranks over gloo on the
+#: card: each sync case bit for bit against the plain computation in
+#: this process, ``mesh_cell_aggregate`` within the reference's 1e-5,
+#: the mesh-route hierarchy's losses at phase 3's rtol 1e-3 against the
+#: streaming route.  13c trains at SYNC_KEEP, the reference's default,
+#: and holds #6's output at the largest leaf's combine, (1, N) with N up
+#: to 805,306,368, against aio_aggregate_ref on the same tensors bit for
+#: bit.
+SYNC_KEEP = 1.0 / 16.0
+SYNC_FLIP_SHARE = 1e-3
+SYNC_CELLS = 8
 
 
 def fail(msg: str) -> None:
@@ -2527,15 +2570,22 @@ def train_card_cpu(arch: str) -> dict:
             "step_loss": step_loss, "params": moved}
 
 
-def train_full(label: str, arch: str, B: int, S: int) -> dict:
-    """Phases 12b and 12c: ``POD_STEPS`` pod-trainer steps of ``arch`` at
-    its published widths on one batch of seeded uniform tokens, timed
-    with CUDA events, then a step under ``torch.profiler``.  Fails on a
-    non-finite loss, a loss that does not fall or a leaf that did not
-    move (see the module docstring).  Returns the numbers it printed."""
+def train_full(label: str, arch: str, B: int, S: int, mesh=None) -> dict:
+    """Phases 12b, 12c and 13c: ``POD_STEPS`` pod-trainer steps of
+    ``arch`` at its published widths on one batch of seeded uniform
+    tokens, timed with CUDA events, then a step under ``torch.profiler``.
+    With a ``mesh``, the ``"anycost"`` step at ``SYNC_KEEP`` over its
+    "pod" group: the launches of #6 a step, one more step with CUDA
+    events around the sync for its share, and, after the profiled step,
+    one whose largest combine is held against the plain version
+    (:func:`largest_combine`).  Fails on a non-finite loss, a
+    loss that does not fall or a leaf that did not move (see the module
+    docstring).  Returns the numbers it printed."""
     import statistics
 
     import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps
     from repro_torch.launch.steps import make_train_step
     from repro_torch.models import moe
     from repro_torch.train.optimizer import Optimizer, adamw
@@ -2578,12 +2628,15 @@ def train_full(label: str, arch: str, B: int, S: int) -> dict:
         return opt.update(p, g, s)
 
     state = opt.init(params)
+    sync = {} if mesh is None else dict(grad_sync="anycost",
+                                        keep_frac=SYNC_KEEP, mesh=mesh)
     step = make_train_step(model, Optimizer(opt.init, update),
-                           remat="full")
+                           remat="full", **sync)
     paths = [p for p, _ in cache_leaves(params)]
     before = [t.to("cpu", copy=True) for t in tree_leaves(params)]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    launches0 = ops.launch_counts()
     t0 = time.perf_counter()
     starts, ends, losses = [], [], []
     for _ in range(POD_STEPS):
@@ -2595,6 +2648,8 @@ def train_full(label: str, arch: str, B: int, S: int) -> dict:
         losses.append(loss)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    out["launches"] = {k: v - launches0[k]
+                       for k, v in ops.launch_counts().items()}
     peak = torch.cuda.max_memory_allocated() / 2**30
     step_ms = [a.elapsed_time(b) for a, b in zip(starts, ends)]
     fb_ms = [a.elapsed_time(m) for a, m in zip(starts, marks)]
@@ -2639,6 +2694,19 @@ def train_full(label: str, arch: str, B: int, S: int) -> dict:
           f"update); "
           f"{len(paths) - len(still)} of {len(paths)} leaves moved, "
           f"unmoved bf16 ones {still}", flush=True)
+    if mesh is not None:
+        out["sync_launches"] = out["launches"]["aio_aggregate"] / POD_STEPS
+        ev = event_ms(lambda: step(params, state, batch),
+                      {"sync": (steps, "anycost_gradient_sync")})
+        out["sync_ms"], out["sync_share"] = ev["sync"], ev["sync"] / ev[
+            "total"]
+        print(f"[sync] {label} {arch} anycost sync at keep_frac "
+              f"{SYNC_KEEP}: {ev['sync']:.3f} ms of a {ev['total']:.3f} ms "
+              f"step (CUDA events, step {POD_STEPS + 1}), share "
+              f"{out['sync_share']:.4f}; #6 launches a step "
+              f"{out['sync_launches']:.1f} (one per gradient leaf, "
+              f"{len(paths)}); launches over the {POD_STEPS} steps "
+              f"{json.dumps(out['launches'])}", flush=True)
     prof = profiled(lambda: step(params, state, batch), {})
     out["profile"] = prof
     print(f"[pod] {label} {arch} step {POD_STEPS + 1} under torch.profiler: "
@@ -2646,9 +2714,62 @@ def train_full(label: str, arch: str, B: int, S: int) -> dict:
           f"ms of kernel time (device idle {prof['idle_share']:.4f}); "
           f"{prof['aten_ops']} top-level aten ops, {prof['device_kernels']} "
           f"device kernels", flush=True)
+    if mesh is not None:
+        out["largest_combine"] = largest_combine(
+            lambda: step(params, state, batch),
+            max(p.numel() for p in tree_leaves(params)), f"{label} {arch}")
     del model, params, state, step, batch, m_leaves
     free()
     return out
+
+
+def largest_combine(run, n_max: int, label: str) -> dict:
+    """One more ``"anycost"`` step, ``run()``, with #6's wrapper watched:
+    the combine of the first leaf of ``n_max`` elements (the largest)
+    keeps its gathered values, mask, weights and output, and after the
+    step the output must equal ``aio_aggregate_ref`` on those same
+    tensors bit for bit (in column chunks: Eq. 5 is elementwise over
+    ``N``, so chunking changes no bit).  Fails otherwise; returns the
+    shape and the max abs error."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    seen = {}
+    real = ops.aio_aggregate_op
+
+    def watched(u, m, w):
+        out = real(u, m, w)
+        if not seen and u.shape[-1] == n_max:
+            seen.update(u=u, m=m, w=w, out=out)
+        return out
+
+    ops.aio_aggregate_op = watched
+    try:
+        run()
+    finally:
+        ops.aio_aggregate_op = real
+    torch.cuda.synchronize()
+    if not seen:
+        fail(f"{label}: no #6 combine at the largest leaf's N = {n_max}")
+    u, m, w, got = seen["u"], seen["m"], seen["w"], seen["out"]
+    err, differ, chunk = 0.0, 0, 1 << 27
+    for a in range(0, n_max, chunk):
+        b = min(a + chunk, n_max)
+        want = ref.aio_aggregate_ref(u[:, a:b], m[:, a:b], w)
+        differ += int((got[a:b] != want).sum())
+        err = max(err, float((got[a:b] - want).abs().max()))
+        del want
+    kept = int((m != 0).sum())
+    res = {"shape": list(u.shape), "max_abs_err": err, "differ": differ,
+           "kept": kept}
+    print(f"[sync] {label}: #6 at the largest leaf's combine, (I, N) = "
+          f"{tuple(u.shape)}, {kept} coordinates kept, against "
+          f"aio_aggregate_ref on the same tensors: {differ} elements "
+          f"differ, max abs err {err}", flush=True)
+    if differ or kept == 0:
+        fail(f"{label}: #6 at {tuple(u.shape)} is not aio_aggregate_ref "
+             f"bit for bit ({differ} elements differ) or kept nothing")
+    del seen, u, m, w, got
+    return res
 
 
 def pod_phase() -> dict:
@@ -2703,6 +2824,401 @@ def pod_phase() -> dict:
     print(f"[pod] phase 12: launches of #1-#8 {json.dumps(got)}; "
           f"{wall:.3f} s of wall time", flush=True)
     return out
+
+
+class PodGroup:
+    """A stand-in for a ``DeviceMesh`` whose "pod" dimension is a given
+    process group (the CPU route's one-rank gloo group beside NCCL)."""
+
+    def __init__(self, group):
+        self.group = group
+
+    def get_group(self, name: str):
+        return self.group
+
+
+def plain_sync(pods: list, keep_frac: float, quantize: bool) -> tuple:
+    """The compressed sync of one leaf over the pods' values ``pods``, in
+    this process: each pod's local compression, then the plain Eq. 5
+    (``aio_aggregate_ref``) over the stacked dequantized values and masks
+    with unit weights.  Returns ``(synced, [what each pod sent])``."""
+    import torch
+    from repro_torch.core import distributed
+    from repro_torch.kernels import ref
+    vals, masks, sent = [], [], []
+    for g in pods:
+        keep, payload, scale = distributed._local_compress(g, keep_frac,
+                                                           quantize)
+        v = payload.float() * scale if quantize else payload
+        vals.append(v.reshape(-1))
+        sent.append(v)
+        masks.append(torch.ones_like(v.reshape(-1)) if keep_frac >= 1.0
+                     else keep.float().reshape(-1))
+    out = ref.aio_aggregate_ref(torch.stack(vals), torch.stack(masks),
+                                torch.ones(len(pods), device=vals[0].device))
+    return out.view(pods[0].shape).to(pods[0].dtype), sent
+
+
+#: 13b's sync cases: name -> (inputs, keep_frac, quantize); inputs are
+#: the reference's tests/test_distributed.py leaves, its zero-collision
+#: leaf, and a seeded Gaussian tree
+SYNC_CASES = {"lossless": ("script", 1.0, False),
+              "int8": ("script", 1.0, True),
+              "sparse": ("script", 0.25, False),
+              "collision": ("collide", 0.999999, True),
+              "default": ("gauss", SYNC_KEEP, True)}
+
+
+def sync_inputs() -> dict:
+    """13b's stacked (pod-leading) input trees, float32 on the CPU."""
+    import torch
+    gen = torch.Generator().manual_seed(13)
+    return {
+        "script": {"w": (torch.arange(64.0).view(2, 32) + 1.0) / 64.0,
+                   "b": torch.tensor([[1.0, -2.0], [3.0, -4.0]])},
+        "collide": {"w": torch.tensor([[100.0, 0.05, 50.0, -25.0],
+                                       [100.0, 8.0, 50.0, -25.0]])},
+        "gauss": {"a": torch.randn(2, 4096, generator=gen),
+                  "b": torch.randn(2, 96, 128, generator=gen)}}
+
+
+def cell_inputs(n: int) -> tuple:
+    """13b's ``(SYNC_CELLS, n)`` updates, masks and weights (CPU)."""
+    import torch
+    gen = torch.Generator().manual_seed(14)
+    u = torch.randn(SYNC_CELLS, n, generator=gen)
+    m = (torch.rand(SYNC_CELLS, n, generator=gen) > 0.4).float()
+    w = torch.rand(SYNC_CELLS, generator=gen) + 0.5
+    return u, m, w
+
+
+def hier_configs():
+    """13b's hierarchy: fmnist-cnn, 8 devices in 4 cells, 2 rounds."""
+    from repro_torch.sysmodel.population import FleetConfig
+    from repro_torch.topology import TopologyConfig
+    from repro_torch.train.fl_loop import FLRunConfig
+    return (FLRunConfig(rounds=2, n_train=512, n_test=128, eval_every=1,
+                        seed=5, use_planner=False),
+            FleetConfig(n_devices=8,
+                        topology=TopologyConfig(kind="hier", n_cells=4)))
+
+
+def hier_run(route: str) -> tuple:
+    """13b's hierarchy on ``route`` on the card, under cuDNN's
+    deterministic algorithms (the ranks must compute the same updates):
+    ``(round logs, launches)``."""
+    from repro_torch.kernels import ops
+    from repro_torch.orchestrator.policies import OrchestratorConfig
+    from repro_torch.train.fl_loop import run_fl
+    run_cfg, fleet = hier_configs()
+    ops.reset_launch_counts()
+    with deterministic_cudnn():
+        hist = run_fl(run_cfg, fleet, OrchestratorConfig(agg_route=route),
+                      device="cuda")
+    rounds = [(r.test_loss, r.n_clients, r.n_cells_reporting,
+               r.backhaul_bits) for r in hist.rounds]
+    return rounds, ops.launch_counts()
+
+
+def pod_rank(rank: int, store: str, out_dir: str, n_cells: int) -> None:
+    """One of 13b's two ranks: a gloo group over a ``FileStore``, every
+    tensor on ``cuda:0``; what it computed goes to
+    ``out_dir/rank{rank}.pt``."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import distributed
+    from repro_torch.device import resolve_device
+    from repro_torch.kernels import ops
+    resolve_device("cuda")
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(store, 2),
+                            rank=rank, world_size=2)
+    out = {"sync": {}}
+    inputs = sync_inputs()
+
+    def pod(tree):
+        return {k: v[rank].cuda() for k, v in tree.items()}
+
+    def host(tree):
+        return {k: v.cpu() for k, v in tree.items()}
+
+    ops.reset_launch_counts()
+    for name, (inp, keep, quant) in SYNC_CASES.items():
+        out["sync"][name] = host(distributed.anycost_gradient_sync(
+            pod(inputs[inp]), "pod", keep_frac=keep, quantize=quant))
+    out["exact"] = host(distributed.mean_gradient_sync(
+        pod(inputs["gauss"])))
+    g = pod(inputs["gauss"])
+    res = distributed.init_error_feedback(g)
+    out["ef"] = []
+    for _ in range(2):
+        synced, res = distributed.anycost_gradient_sync_ef(
+            g, res, keep_frac=0.25)
+        out["ef"].append((host(synced), host(res)))
+    torch.cuda.synchronize()
+    out["sync_launches"] = ops.launch_counts()
+    u, m, w = (t.cuda() for t in cell_inputs(n_cells))
+    ops.reset_launch_counts()
+    out["cells"] = distributed.mesh_cell_aggregate(u, m, w).cpu()
+    torch.cuda.synchronize()
+    out["cell_launches"] = ops.launch_counts()
+    out["hier"] = hier_run("mesh")
+    torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    dist.destroy_process_group()
+
+
+def sync_card_cpu() -> dict:
+    """Phase 13a (see the module docstring): one pod on the card, in the
+    one-rank NCCL group, against the CPU route.  Returns the numbers it
+    printed and the card step's launches."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.core import distributed
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as pmesh
+    from repro_torch.launch.steps import make_train_step, value_and_grad
+    from repro_torch.models.registry import build_model
+    from repro_torch.train.optimizer import Optimizer, sgd
+    from repro_torch.utils.pytree import tree_leaves, tree_map
+    cpu_pod = PodGroup(dist.new_group([0], backend="gloo"))
+    card_pod = pmesh.make_pod_mesh(1)
+    cfg = get_config("qwen2-7b").reduced()
+    model = build_model(cfg)
+    cpu = model.init(torch.Generator().manual_seed(0), "cpu")
+    card = tree_map(lambda t: t.to("cuda", copy=True), cpu)
+    batch = {"tokens": torch.tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (2, 64)), dtype=torch.int32)}
+    gbatch = {k: v.cuda() for k, v in batch.items()}
+    # the pod's own loss and gradients, before the sync
+    want_loss, want = value_and_grad(model, cpu, batch, remat="full")
+    got_loss, got = value_and_grad(model, card, gbatch, remat="full")
+    loss_err = abs(float(got_loss) - float(want_loss))
+    grad_err = max(float((x.cpu() - y).abs().max()) / float(y.abs().max())
+                   for x, y in zip(tree_leaves(got), tree_leaves(want)))
+    if not (loss_err <= TRAIN_LOSS_ATOL and grad_err <= TRAIN_GRAD_RTOL):
+        fail(f"13a: card against CPU before the sync, loss {loss_err}, "
+             f"gradients {grad_err}")
+    synced = {}
+
+    def recording(where):
+        opt = sgd(POD_LR)
+
+        def update(p, g, s):
+            synced[where] = [x.float().cpu() for x in tree_leaves(g)]
+            return opt.update(p, g, s)
+
+        return Optimizer(opt.init, update)
+
+    launched = {}
+    for where, params, b, mesh in (("cpu", cpu, batch, cpu_pod),
+                                   ("card", card, gbatch, card_pod)):
+        step = make_train_step(model, recording(where), remat="full",
+                               grad_sync="anycost", keep_frac=SYNC_KEEP,
+                               mesh=mesh)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        _, _, loss = step(params, sgd(POD_LR).init(params), b)
+        torch.cuda.synchronize()
+        launched[where] = ops.launch_counts()
+        synced[where + "_loss"] = float(loss)
+    step_loss = abs(synced["card_loss"] - synced["cpu_loss"])
+    n_leaves = len(tree_leaves(cpu))
+    if launched["card"]["aio_aggregate"] != n_leaves:
+        fail(f"13a: #6 launched {launched['card']['aio_aggregate']} times "
+             f"in the card's step, expected one a leaf ({n_leaves})")
+    if any(launched["cpu"].values()):
+        fail(f"13a: the CPU route launched kernels: {launched['cpu']}")
+    # where the card's and the CPU's keep mask and int8 level differ
+    differ = total = 0
+    worst = 0.0
+    for gc, gg, sc, sg in zip(tree_leaves(want), tree_leaves(got),
+                              synced["cpu"], synced["card"]):
+        kc, qc, _ = distributed._local_compress(gc, SYNC_KEEP, True)
+        kg, qg, _ = distributed._local_compress(gg, SYNC_KEEP, True)
+        moved = (kc != kg.cpu()) | (qc != qg.cpu())
+        differ += int(moved.sum())
+        total += moved.numel()
+        same = ~moved.reshape(-1)
+        scale = float(sc.abs().max())
+        if same.any() and scale > 0:
+            worst = max(worst, float((sg.reshape(-1)[same]
+                                      - sc.reshape(-1)[same]).abs().max())
+                        / scale)
+    if not (step_loss <= TRAIN_LOSS_ATOL and worst <= TRAIN_GRAD_RTOL
+            and differ <= SYNC_FLIP_SHARE * total):
+        fail(f"13a: the anycost step, card against CPU: loss {step_loss}, "
+             f"synced values {worst} of a leaf's largest |g| (bound "
+             f"{TRAIN_GRAD_RTOL}), {differ} of {total} coordinates with "
+             f"another keep mask or level (bound {SYNC_FLIP_SHARE})")
+    print(f"[sync] 13a qwen2-7b reduced float32, one pod (NCCL group of "
+          f"1), keep_frac {SYNC_KEEP}, card against CPU: pod loss "
+          f"{loss_err!r}, pod gradients {grad_err!r} of a leaf's largest "
+          f"|g|; after the sync, step loss {step_loss!r}, synced values "
+          f"{worst!r} where mask and level agree; {differ} of {total} "
+          f"coordinates with another keep mask or int8 level; #6 launched "
+          f"{launched['card']['aio_aggregate']} times (one a leaf)",
+          flush=True)
+    return {"loss": loss_err, "grads": grad_err, "step_loss": step_loss,
+            "synced": worst, "differ": differ, "total": total,
+            "launches": launched["card"]}
+
+
+def two_pods_on_one_card() -> dict:
+    """Phase 13b (see the module docstring): spawns :func:`pod_rank`
+    twice and holds what they computed against the plain computation in
+    this process.  Returns the ranks' launches by path."""
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ref
+    from repro_torch.models.registry import build_model
+    from repro_torch.utils.pytree import tree_size
+    n_cells = tree_size(build_model(get_config("vgg9-cifar")).init(
+        torch.Generator().manual_seed(0), "cpu"))
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        mp.start_processes(pod_rank, args=(os.path.join(d, "store"), d,
+                                           n_cells),
+                           nprocs=2, start_method="spawn")
+        outs = [torch.load(os.path.join(d, f"rank{r}.pt"),
+                           weights_only=False) for r in range(2)]
+    spawn_s = time.perf_counter() - t0
+    a, b = outs
+
+    def same(x, y):
+        if isinstance(x, dict):
+            return x.keys() == y.keys() and all(same(x[k], y[k]) for k in x)
+        if isinstance(x, (list, tuple)):
+            return len(x) == len(y) and all(same(u, v) for u, v in zip(x, y))
+        if isinstance(x, torch.Tensor):
+            return torch.equal(x, y)
+        return x == y
+
+    # every output but each rank's own EF residual is the same on both
+    for key in a:
+        if key != "ef" and not same(a[key], b[key]):
+            fail(f"13b: the two ranks' {key} differ")
+    if not same([s for s, _ in a["ef"]], [s for s, _ in b["ef"]]):
+        fail("13b: the two ranks' EF syncs differ")
+    inputs = sync_inputs()
+
+    def pods(tree, k):
+        return [tree[k][r].cuda() for r in range(2)]
+
+    for name, (inp, keep, quant) in SYNC_CASES.items():
+        for k in inputs[inp]:
+            want, _ = plain_sync(pods(inputs[inp], k), keep, quant)
+            for r, out in enumerate(outs):
+                if not torch.equal(out["sync"][name][k], want.cpu()):
+                    fail(f"13b {name} {k}: rank {r} differs from the plain "
+                         f"sync in this process")
+    collision = float(a["sync"]["collision"]["w"][1])
+    if abs(collision - 4.0) > 0.5:
+        fail(f"13b collision: {collision}, expected about 4.0 (the kept "
+             f"zero level counts in the denominator)")
+    gauss = inputs["gauss"]
+    for k in gauss:
+        exact = (gauss[k][0].cuda() + gauss[k][1].cuda()) / 2
+        if not torch.equal(a["exact"][k], exact.cpu()):
+            fail(f"13b exact {k}: the mean sync differs from (g0 + g1) / 2")
+        res = [torch.zeros_like(x) for x in pods(gauss, k)]
+        for i in range(2):
+            corrected = [x + r for x, r in zip(pods(gauss, k), res)]
+            want, sent = plain_sync(corrected, 0.25, True)
+            res = [c - s for c, s in zip(corrected, sent)]
+            for r, out in enumerate(outs):
+                if not (torch.equal(out["ef"][i][0][k], want.cpu())
+                        and torch.equal(out["ef"][i][1][k], res[r].cpu())):
+                    fail(f"13b ef step {i} {k}: rank {r} differs from the "
+                         f"plain EF sync")
+    u, m, w = (t.cuda() for t in cell_inputs(n_cells))
+    cells_err = float((a["cells"].cuda() - ref.aio_aggregate_ref(u, m, w))
+                      .abs().max())
+    if not cells_err <= 1e-5:
+        fail(f"13b: mesh_cell_aggregate {cells_err} from the stacked Eq. 5")
+    if a["cell_launches"]["aio_absorb"] != SYNC_CELLS // 2:
+        fail(f"13b: #7 launched {a['cell_launches']['aio_absorb']} times on "
+             f"a rank, expected {SYNC_CELLS // 2}")
+    if a["sync_launches"]["aio_aggregate"] == 0:
+        fail("13b: the sync launched no #6")
+    want_rounds, stream_launches = hier_run("streaming")
+    got_rounds, mesh_launches = a["hier"]
+    for (gl, gn, gc, gb), (wl, wn, wc, wb) in zip(got_rounds, want_rounds):
+        if (gn, gc, gb) != (wn, wc, wb) or not math.isclose(
+                gl, wl, rel_tol=1e-3):
+            fail(f"13b: the mesh route's rounds {got_rounds} against the "
+                 f"streaming route's {want_rounds}")
+    n_rows = sum(-(-n // 2) for _, n, _, _ in got_rounds)
+    if mesh_launches["aio_absorb"] != n_rows or mesh_launches["aio_merge"] \
+            or mesh_launches["aio_aggregate"]:
+        fail(f"13b: the mesh route launched {json.dumps(mesh_launches)} on a "
+             f"rank, expected #7 {n_rows} times (its block of each round's "
+             f"updates), #6 and #8 never")
+    print(f"[sync] 13b two ranks over gloo on cuda:0 ({spawn_s:.3f} s, the "
+          f"spawn included): {', '.join(SYNC_CASES)}, exact and two EF "
+          f"steps bit for bit against the plain sync here; collision "
+          f"{collision!r}; mesh_cell_aggregate I={SYNC_CELLS}, N={n_cells} "
+          f"(vgg9-cifar) {cells_err!r} from the stacked Eq. 5, #7 "
+          f"{a['cell_launches']['aio_absorb']} a rank; the 4-cell "
+          f"hierarchy on the mesh route: losses "
+          f"{[r[0] for r in got_rounds]} against the streaming route's "
+          f"{[r[0] for r in want_rounds]}, launches a rank "
+          f"{json.dumps(mesh_launches)} (streaming "
+          f"{json.dumps(stream_launches)}); both ranks bit for bit",
+          flush=True)
+    return {"13b sync": a["sync_launches"], "13b cells": a["cell_launches"],
+            "13b mesh route": mesh_launches}
+
+
+def distributed_phase(auto: dict | None = None) -> dict:
+    """Phase 13: the compressed cross-pod sync (see the module docstring).
+    ``auto`` is phase 12b's result, run here when not given.  Returns the
+    launches of each phase-13 path."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.device import resolve_device
+    from repro_torch.kernels import build
+    from repro_torch.launch import mesh as pmesh
+
+    resolve_device("cuda")
+    build.build_all()        # before the spawn: the ranks never build
+    t_phase = time.perf_counter()
+    if auto is None:
+        auto = train_full("12b", "phi3-mini-3.8b", 4, 1024)
+    by_path = {}
+    with tempfile.TemporaryDirectory() as d:
+        dist.init_process_group(
+            "nccl", store=dist.FileStore(os.path.join(d, "store"), 1),
+            rank=0, world_size=1, device_id=torch.device("cuda", 0))
+        try:
+            r13a = sync_card_cpu()
+            by_path["13a anycost step"] = r13a["launches"]
+            free()
+            r13c = train_full("13c", "phi3-mini-3.8b", 4, 1024,
+                              mesh=pmesh.make_pod_mesh(1))
+            by_path["13c phi3 anycost"] = r13c["launches"]
+        finally:
+            dist.destroy_process_group()
+    if r13c["launches"]["aio_aggregate"] == 0:
+        fail("13c: the anycost steps launched no #6")
+    print(f"[sync] 13c phi3-mini-3.8b B=4, S=1024, anycost at keep_frac "
+          f"{SYNC_KEEP} against 12b's auto step: {r13c['step_ms']:.3f} / "
+          f"{auto['step_ms']:.3f} ms a step, {r13c['tok_s']:.1f} / "
+          f"{auto['tok_s']:.1f} tokens/s, peak {r13c['peak_gib']:.3f} / "
+          f"{auto['peak_gib']:.3f} GiB; the sync {r13c['sync_ms']:.3f} ms, "
+          f"{r13c['sync_share']:.4f} of the step; #6 "
+          f"{r13c['sync_launches']:.1f} launches a step; losses "
+          f"{[round(x, 4) for x in r13c['losses']]}", flush=True)
+    by_path.update(two_pods_on_one_card())
+    wall = time.perf_counter() - t_phase
+    print(f"[sync] phase 13: {wall:.3f} s of wall time", flush=True)
+    return by_path
 
 
 def main() -> None:
@@ -3354,7 +3870,9 @@ def main() -> None:
     # --------------------------------------------------------------- 11
     recurrent_phase()
     # --------------------------------------------------------------- 12
-    pod_phase()
+    pod = pod_phase()
+    # --------------------------------------------------------------- 13
+    by_path.update(distributed_phase(pod["12b"]))
     for k in kernels:
         k["launches_by_path"] = {path: c[k["name"]]
                                  for path, c in by_path.items()}

@@ -4,7 +4,8 @@ Wrappers over ``csrc/aio_agg.cu``, which replaces the reference's
 ``aio_aggregate``, ``aio_absorb`` and ``aio_merge``
 (``repro/kernels/aio_agg.py``).  ``aio_absorb`` and ``aio_merge`` update
 the ``(num, den)`` accumulator in its own storage, as the TPU kernels
-alias their outputs onto it; both launch through ``build``'s lean path.
+alias their outputs onto it.  All three launch through ``build``'s lean
+path.
 The CPU route is ``kernels/ops.py``'s.
 """
 from __future__ import annotations
@@ -17,9 +18,9 @@ from repro_torch.kernels import build
 
 launches = {"aio_aggregate": 0, "aio_absorb": 0, "aio_merge": 0}
 
-_SYMBOL = "aio_aggregate_f32"
-_ARGS = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-         ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p)
+_AGGREGATE = build.Entry("aio_agg", "aio_aggregate_f32",
+                         (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                          ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64))
 _ABSORB = build.Entry("aio_agg", "aio_absorb_f32",
                       (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                        ctypes.c_void_p, ctypes.c_float, ctypes.c_int64))
@@ -45,15 +46,11 @@ def aio_aggregate(u: torch.Tensor, m: torch.Tensor,
                          f"got {tuple(u.shape)}, {tuple(m.shape)}, "
                          f"{tuple(w.shape)}")
     I, N = u.shape
-    out = torch.empty(N, dtype=torch.float32, device=u.device)
+    out = u.new_empty(N)
     if N == 0:
         return out
-    fn = build.function("aio_agg", _SYMBOL, _ARGS)
-    with torch.cuda.device(u.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = fn(u.data_ptr(), m.data_ptr(), w.data_ptr(), out.data_ptr(),
-                  I, N, stream)
-    build.check("aio_agg", _SYMBOL, code)
+    _AGGREGATE.launch(u.get_device(), u.data_ptr(), m.data_ptr(),
+                      w.data_ptr(), out.data_ptr(), I, N)
     launches["aio_aggregate"] += 1
     return out
 

@@ -6,18 +6,23 @@
 
 The train step writes the parameters and the optimizer state in place
 (``train/optimizer.py``) and returns them with the loss, a tensor on the
-device.  ``grad_sync="auto"`` is the one-card step; the reference's
-compressed ``"anycost"`` sync over a pod axis, its sharding helpers
-(``param_shardings``, ``opt_state_shardings``, ``batch_shardings``,
-``cache_shardings``, ``grads_spec``) and its per-shape rules
-(``rules_for``, ``make_step_and_args``) arrive with the multi-card
-slice (ROADMAP queue 1, item 5, 'Pod path' (c)).
+device.  ``grad_sync``:
+  "auto"     the one-device step.
+  "anycost"  one rank a pod: each rank takes its block of the batch, and
+             the gradients are synced with the compressed collective
+             (``core/distributed.py``) over the mesh's "pod" group.
+The reference's sharding helpers (``param_shardings``,
+``opt_state_shardings``, ``batch_shardings``, ``cache_shardings``,
+``grads_spec``) and per-shape rules (``rules_for``,
+``make_step_and_args``) are not ported: they need logical axes on the
+port's models and sharded parameters (ROADMAP queue 1, item 6).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs.base import ArchConfig, InputShape
+from repro_torch.core.distributed import anycost_gradient_sync
 from repro_torch.models.registry import Model, loss_fn
 from repro_torch.train.optimizer import Optimizer
 from repro_torch.utils.pytree import tree_leaves, tree_unflatten
@@ -57,25 +62,54 @@ def value_and_grad(model: Model, params, batch, **kw):
 def make_train_step(model: Model, opt: Optimizer, *, remat: str = "full",
                     causal_skip: bool = False, grad_sync: str = "auto",
                     keep_frac: float = 1.0 / 16.0, mesh=None):
-    """The reference's train step on one device: the loss and gradients
-    under ``remat`` (``"full"``, ``"dots"`` or ``"none"``), then
-    ``opt.update`` in place.  ``keep_frac`` and ``mesh`` belong to the
-    ``"anycost"`` sync, which is not ported."""
+    """The reference's train step: the loss and gradients under ``remat``
+    (``"full"``, ``"dots"`` or ``"none"``), then ``opt.update`` in place.
+
+    ``grad_sync="anycost"`` needs ``mesh``, a ``DeviceMesh`` with a "pod"
+    dimension (``launch/mesh.make_pod_mesh``).  Every rank is given the
+    global batch and takes its contiguous block of the leading axis by its
+    pod rank (the reference's ``P("pod")`` in_spec); its gradients are
+    synced in place with ``anycost_gradient_sync`` at ``keep_frac``, the
+    loss is averaged over the pods, and every rank makes the same
+    update."""
+    def local_grads(params, batch):
+        return value_and_grad(model, params, batch, remat=remat,
+                              causal_skip=causal_skip)
+
+    if grad_sync == "auto":
+        def train_step(params, opt_state, batch):
+            loss, grads = local_grads(params, batch)
+            params, opt_state = opt.update(params, grads, opt_state)
+            return params, opt_state, loss
+
+        return train_step
+
     if grad_sync == "anycost":
-        raise NotImplementedError(
-            "grad_sync='anycost' (the compressed gradient sync over a pod "
-            "axis of several cards) arrives with ROADMAP queue 1, item 5, "
-            "'Pod path' (c)")
-    if grad_sync != "auto":
-        raise ValueError(grad_sync)
+        if mesh is None:
+            raise ValueError("anycost sync needs the mesh")
+        dist = torch.distributed
+        group = mesh.get_group("pod")
 
-    def train_step(params, opt_state, batch):
-        loss, grads = value_and_grad(model, params, batch, remat=remat,
-                                     causal_skip=causal_skip)
-        params, opt_state = opt.update(params, grads, opt_state)
-        return params, opt_state, loss
+        def train_step(params, opt_state, batch):
+            n_pods, pod = dist.get_world_size(group), dist.get_rank(group)
+            local = {}
+            for k, v in batch.items():
+                if v.shape[0] % n_pods:
+                    raise ValueError(f"batch {k!r} of {v.shape[0]} rows does "
+                                     f"not split over {n_pods} pods")
+                rows = v.shape[0] // n_pods
+                local[k] = v.narrow(0, pod * rows, rows)
+            loss, grads = local_grads(params, local)
+            grads = anycost_gradient_sync(grads, "pod", keep_frac=keep_frac,
+                                          group=group)
+            dist.all_reduce(loss, op=dist.ReduceOp.SUM, group=group)
+            loss = loss / n_pods
+            params, opt_state = opt.update(params, grads, opt_state)
+            return params, opt_state, loss
 
-    return train_step
+        return train_step
+
+    raise ValueError(grad_sync)
 
 
 def make_prefill_step(model: Model, *, causal_skip: bool = False):

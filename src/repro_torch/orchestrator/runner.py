@@ -43,8 +43,10 @@ the cloud merges the partials (EDGE_MERGE events, ``aio_merge`` in
 place) and finalizes Eq. 5 once (:func:`_hier_round_merge`).
 ``OrchestratorConfig.agg_route`` ``batched`` aggregates the same
 accepted updates with the flat Eq. 5 (``aio_aggregate``) instead,
-charging the same backhaul costs; ``mesh`` falls back to the streaming
-fold on one device (:meth:`Simulation.resolve_agg_route`).
+charging the same backhaul costs; ``mesh`` splits them over the ranks
+of the ``torch.distributed`` process group, every rank running the same
+simulation (:func:`_mesh_route_params`), and falls back to the streaming
+fold on one rank (:meth:`Simulation.resolve_agg_route`).
 
 **Fleet dynamics** (``FleetConfig.dynamics``): at each round start only
 the devices the availability trace has in the cell and whose battery
@@ -102,6 +104,7 @@ from repro_torch.configs import get_config
 from repro_torch.core import aggregation, compression, schedule, shrinking
 from repro_torch.core.anycost import (AnycostClient, AnycostServer,
                                       ClientUpdate, bucket_alpha)
+from repro_torch.core.distributed import mesh_cell_aggregate
 from repro_torch.data.partition import partition_dirichlet, partition_iid
 from repro_torch.data.synthetic import make_image_task
 from repro_torch.device import resolve_device
@@ -127,8 +130,8 @@ from repro_torch.train.baselines import BaselinePolicy
 from repro_torch.train.fl_loop import (METHODS, FLRunConfig, History,
                                        _device_batches, _make_eval,
                                        flops_per_sample)
-from repro_torch.utils.pytree import (tree_leaves, tree_map, tree_size,
-                                      tree_sub)
+from repro_torch.utils.pytree import (flat_vector, tree_leaves, tree_map,
+                                      tree_size, tree_sub)
 
 PyTree = Any
 #: n -> (n,) float32 uniforms in [0, 1) on the run's device; a draw
@@ -531,19 +534,15 @@ class Simulation:
         return encode_partial(part, codec)
 
     def resolve_agg_route(self, route: str) -> str:
-        """The mesh route maps cells onto a mesh of devices, counted as
-        the ``torch.distributed`` process group's size (1 without one);
-        with a single device there is nothing to shard over, so it falls
-        back, loudly, to the streaming edge fold, which computes the same
-        aggregate.  The batched route aggregates in exact float32: only
-        the streaming edge fold passes the numerics through the wire
-        codec (the bits are charged at the codec's size on both)."""
-        if route == "mesh":
-            if _n_mesh_devices() >= 2:
-                raise NotImplementedError(
-                    "agg_route 'mesh' over two or more devices: the cell "
-                    "mesh on torch.distributed arrives with ROADMAP queue "
-                    "1, item 5, 'Pod path' (c)")
+        """The mesh route maps cells onto the ranks of the
+        ``torch.distributed`` process group (1 without one); with a
+        single rank there is nothing to shard over, so it falls back,
+        loudly, to the streaming edge fold, which computes the same
+        aggregate.  The batched and mesh routes aggregate in exact
+        float32: only the streaming edge fold passes the numerics through
+        the wire codec (the bits are charged at the codec's size on
+        every route)."""
+        if route == "mesh" and _n_mesh_devices() < 2:
             print("[topology] warning: --agg-route mesh needs >= 2 "
                   "devices to map cells onto a mesh axis; falling back "
                   "to the streaming edge fold")
@@ -568,6 +567,32 @@ def _n_mesh_devices() -> int:
 
 
 # ---------------------------------------------------------------- round mode
+
+def _mesh_route_params(sim: Simulation, pairs, sorted_params: PyTree
+                       ) -> PyTree:
+    """Aggregate through ``core.distributed.mesh_cell_aggregate``: every
+    accepted update and mask as one flat float32 row, stacked, the rows
+    split over the process group's ranks in contiguous blocks, each rank
+    folding its block and one ``all_reduce`` merging the partials.  Every
+    rank runs the same simulation, so each holds the whole stack (the
+    fold raises on every rank if the stacks differ); zero-
+    weight rows pad it to a multiple of the group size (the monoid's
+    identity: a rank beyond the last update folds nothing).  The merged
+    ``(num, den)`` then takes the server step as the streaming route's
+    cloud merge does."""
+    u = torch.stack([flat_vector(p.update.values) for p, _ in pairs])
+    m = torch.stack([flat_vector(p.update.mask) for p, _ in pairs])
+    w = torch.tensor([wv for _, wv in pairs], dtype=torch.float32)
+    pad = (-u.shape[0]) % _n_mesh_devices()
+    if pad:
+        u = torch.cat([u, u.new_zeros((pad, u.shape[1]))])
+        m = torch.cat([m, m.new_zeros((pad, m.shape[1]))])
+        w = torch.cat([w, w.new_zeros(pad)])
+    num, den = mesh_cell_aggregate(u, m, w, finalize=False)
+    return finalize_apply(
+        sorted_params, aggregation.PartialAgg(num, den, sorted_params),
+        sim.server.server_lr)
+
 
 def _hier_round_merge(sim: Simulation, policy,
                       live: list[PendingUpdate],
@@ -694,6 +719,8 @@ def _hier_round_merge(sim: Simulation, policy,
             delta = tree_sub(sorted_params, new_params)
             for k, cell_agg in cell_aggs:
                 sim.learn.record_cell(tel, k, round_idx, cell_agg, delta)
+    elif route_pairs and route == "mesh":
+        new_params = _mesh_route_params(sim, route_pairs, sorted_params)
     elif route_pairs:              # batched: the flat (I, N) Eq. 5
         agg = aggregation.aio_aggregate(
             [p.update.values for p, _ in route_pairs],

@@ -802,3 +802,53 @@ def test_train_step_on_the_card_matches_the_cpu(cuda, arch):
     assert state["step"].device.type == "cuda"
     for a, b in zip(tree_leaves(card), tree_leaves(cpu)):
         assert float((a.cpu() - b).abs().max()) <= 2 * 3e-4 * 1.001
+
+
+def test_pod_sync_and_cell_fold_on_the_card_launch_their_kernels(cuda,
+                                                                  tmp_path):
+    """One pod in a one-rank gloo group (which carries CUDA tensors): the
+    compressed sync of a 3-leaf tree launches #6 once a leaf and equals,
+    bit for bit, each pod's compression followed by the plain Eq. 5 with
+    unit weights on the card; ``mesh_cell_aggregate`` over 6 rows
+    launches #7 six times and lies within the reference's 1e-5 of the
+    stacked Eq. 5."""
+    import torch.distributed as dist
+    from repro_torch.core import distributed
+    from repro_torch.device import resolve_device
+    resolve_device("cuda")
+    dist.init_process_group("gloo", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        gen = torch.Generator(device=cuda).manual_seed(3)
+        grads = {"a": torch.randn(4096, generator=gen, device=cuda),
+                 "b": torch.randn(96, 128, generator=gen, device=cuda),
+                 "c": torch.randn(7, generator=gen, device=cuda)}
+        for keep, quant in ((1.0 / 16.0, True), (0.25, False), (1.0, True)):
+            want = {}
+            for k, g in grads.items():
+                kept, payload, scale = distributed._local_compress(
+                    g, keep, quant)
+                u = payload.float() * scale if quant else payload
+                m = kept.float() if keep < 1.0 else torch.ones_like(u)
+                want[k] = ref.aio_aggregate_ref(
+                    u.reshape(1, -1), m.reshape(1, -1),
+                    torch.ones(1, device=cuda)).view(g.shape)
+            ops.reset_launch_counts()
+            got = distributed.anycost_gradient_sync(
+                {k: v.clone() for k, v in grads.items()}, "pod",
+                keep_frac=keep, quantize=quant)
+            torch.cuda.synchronize()
+            assert ops.launch_counts()["aio_aggregate"] == len(grads)
+            for k in grads:
+                assert torch.equal(got[k], want[k])
+        u = torch.randn(6, 5000, generator=gen, device=cuda)
+        m = (torch.rand(6, 5000, generator=gen, device=cuda) > 0.4).float()
+        w = torch.rand(6, generator=gen, device=cuda) + 0.5
+        ops.reset_launch_counts()
+        agg = distributed.mesh_cell_aggregate(u, m, w)
+        torch.cuda.synchronize()
+        assert ops.launch_counts()["aio_absorb"] == 6
+        torch.testing.assert_close(agg, ref.aio_aggregate_ref(u, m, w),
+                                   rtol=0, atol=1e-5)
+    finally:
+        dist.destroy_process_group()

@@ -172,7 +172,8 @@ def test_data_and_fleet_draws_match(fleet_kw):
 def test_fleet_features_outside_the_slice_raise(monkeypatch, capsys):
     """Fleet dynamics, device motion and handover are ported (they build
     and attach their state); the mesh route of the hierarchy falls back
-    to the streaming fold on one device and raises over two or more."""
+    to the streaming fold on one device and is kept over two or more
+    (``tests/test_torch_distributed.py`` runs it on two ranks)."""
     from repro_torch.fleet import AvailabilityConfig, FleetDynamicsConfig
     from repro_torch.mobility import HandoverConfig, MobilityConfig
     from repro_torch.orchestrator.policies import OrchestratorConfig
@@ -195,11 +196,10 @@ def test_fleet_features_outside_the_slice_raise(monkeypatch, capsys):
     assert sim.resolve_agg_route("mesh") == "streaming"
     assert "falling back to the streaming edge fold" \
         in capsys.readouterr().out
-    # a process group of two: the many-device mesh is not ported
+    # a process group of two: the cells are folded over its ranks
     monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
     monkeypatch.setattr(torch.distributed, "get_world_size", lambda: 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 5"):
-        sim.resolve_agg_route("mesh")
+    assert sim.resolve_agg_route("mesh") == "mesh"
 
 
 # ------------------------------------------------------------------------ EMS
