@@ -303,6 +303,29 @@ Phases, in order; any failure exits non-zero:
         beside 12b's, the sync's share of a step (CUDA events around it),
         #6's launches a step, the peak memory, a falling loss.
     It prints its wall time.
+14. Logical-axis sharding on DTensor (``sharding.py``, ``launch/steps``'s
+    shardings), each path's launch counters read:
+    (a) a one-rank NCCL group: reduced float32 qwen2-7b, one AdamW step
+        under ``use_sharding(make_host_mesh())`` equals 12a's unsharded
+        card step bit for bit (loss, gradients, parameters); none of
+        #1-#8 launches;
+    (b) two gloo ranks spawned on ``cuda:0`` (kernels built before the
+        spawn): (a)'s step on (data=1, model=2) within 12a's bounds of the
+        unsharded card step, every local shard on the card with its
+        spec's share; the ``"anycost"`` step on (pod=2, data=1, model=1)
+        bit for bit against the one-rank-a-pod step, #6 once a leaf, and
+        each of its combines on the local shards bit for bit against
+        ``aio_aggregate_ref`` on the same tensors;
+    (c) phi3-mini-3.8b as 12b on the one-rank host mesh: losses equal to
+        12b's bit for bit, step ms, tokens/s, peak;
+    (d) the same on the two ranks of (b), (1, 2), full depth, three
+        steps: per-rank peak, step ms, the first loss within
+        ``SHARD_BF16_LOSS_ATOL`` of (c)'s;
+    (e) ``python -m repro_torch.launch.dryrun`` for qwen2-7b train_4k on
+        the single-pod mesh and phi3-mini-3.8b train_4k on the two-pod
+        mesh with ``--grad-sync anycost``, side by side: rc 0 and the
+        roofline terms printed.
+    It prints its wall time.
 
 The last lines are the card's name and power limit, one JSON object of
 kernels, and the result line.  Without a card, or without the rest of
@@ -3221,6 +3244,460 @@ def distributed_phase(auto: dict | None = None) -> dict:
     return by_path
 
 
+#: phase 14, logical-axis sharding on DTensor.  14a and 14c on a
+#: one-rank mesh equal their unsharded runs (12a's card step, 12b's
+#: losses) bit for bit; 14b on two ranks of one card at 12a's bounds
+#: (TRAIN_LOSS_ATOL, TRAIN_GRAD_RTOL) of the unsharded card step; 14d's
+#: first loss, two tensor-parallel ranks in bf16 against 14c's one, within
+#: SHARD_BF16_LOSS_ATOL (measured 5.3e-4 on the card: bf16 products
+#: summed in another split of the model axis).
+SHARD_BF16_LOSS_ATOL = 5e-3
+SHARD_D_STEPS = 3
+
+
+def sharded_reduced(tag: str, mesh, arch: str = "qwen2-7b") -> dict:
+    """14a and 14b: reduced float32 ``arch`` as 12a (one CPU
+    initialisation copied to the card, B=2, S=64), one AdamW step
+    unsharded on the card and one under ``use_sharding(mesh)`` with
+    parameters and state placed by ``steps.param_shardings``: the losses,
+    the gradient leaves (a recording optimizer) and the updated
+    parameters, whole; every local shard's device and share of its leaf.
+    Returns the unsharded and sharded results and the sharded step's
+    launches."""
+    import numpy as np
+    import torch
+    from repro_torch import sharding as shd
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps
+    from repro_torch.models.registry import build_model
+    from repro_torch.train.optimizer import Optimizer, adamw
+    from repro_torch.utils.pytree import tree_leaves, tree_map
+    cfg = get_config(arch).reduced()
+    model = build_model(cfg)
+    cpu = model.init(torch.Generator().manual_seed(0), "cpu")
+    batch = {"tokens": torch.tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (2, 64)), dtype=torch.int32).cuda()}
+    opt = adamw(POD_LR, warmup=POD_WARMUP)
+
+    def whole(t):
+        return t.full_tensor() if shd.is_dtensor(t) else t
+
+    def run(params, state):
+        seen = {}
+
+        def update(p, g, s):
+            seen["grads"] = [whole(x).cpu() for x in tree_leaves(g)]
+            return opt.update(p, g, s)
+
+        step = steps.make_train_step(model, Optimizer(opt.init, update),
+                                     remat="full")
+        params, state, loss = step(params, state, batch)
+        return {"loss": float(loss), "grads": seen["grads"],
+                "params": [whole(x).cpu() for x in tree_leaves(params)]}
+
+    plain = tree_map(lambda t: t.to("cuda", copy=True), cpu)
+    want = run(plain, opt.init(plain))
+    with shd.use_sharding(mesh):
+        pshard = steps.param_shardings(model)
+        sharded = steps.distribute(tree_map(lambda t: t.to(
+            "cuda", copy=True), cpu), pshard)
+        for path, t, s in zip([p for p, _ in cache_leaves(cpu)],
+                              tree_leaves(sharded), tree_leaves(pshard)):
+            local = t.to_local()
+            share = math.prod(shd.local_shape(t.shape, s.spec))
+            if local.device.type != "cuda" or local.numel() != share:
+                fail(f"{tag}: leaf {path}'s local shard {tuple(local.shape)} "
+                     f"on {local.device}, expected {share} elements of "
+                     f"{tuple(t.shape)} ({s.spec}) on the card")
+        state = steps.distribute(opt.init(sharded),
+                                 steps.opt_state_shardings(opt, model))
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        got = run(sharded, state)
+        torch.cuda.synchronize()
+        launches = ops.launch_counts()
+    return {"want": want, "got": got, "launches": launches,
+            "n_sharded": sum(any(p.is_shard() for p in s.placements)
+                             for s in tree_leaves(pshard))}
+
+
+def compare_runs(want: dict, got: dict) -> tuple:
+    """(loss difference, the largest gradient leaf difference over the
+    leaf's largest |g|, the largest parameter difference)."""
+    loss = abs(got["loss"] - want["loss"])
+    grads = 0.0
+    for x, y in zip(got["grads"], want["grads"]):
+        scale = float(y.abs().max())
+        err = float((x.float() - y.float()).abs().max())
+        grads = max(grads, err / scale if scale > 0 else err)
+    params = max(float((x.float() - y.float()).abs().max())
+                 for x, y in zip(got["params"], want["params"]))
+    return loss, grads, params
+
+
+def train_sharded(label: str, arch: str, B: int, S: int, mesh,
+                  n_steps: int) -> dict:
+    """14c and 14d: 12b's recipe (published widths, seeded card
+    parameters and tokens, ``adamw(POD_LR, warmup=POD_WARMUP)``, remat
+    full) for ``n_steps`` steps under ``use_sharding(mesh)``, parameters
+    and state placed by their shardings.  Step ms by CUDA events (the
+    median of steps 2 on), tokens/s, the peak memory of this rank.
+    Returns the numbers it printed."""
+    import statistics
+
+    import torch
+    from repro_torch import sharding as shd
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps
+    from repro_torch.train.optimizer import adamw
+    from repro_torch.utils.pytree import tree_leaves
+    free()
+    model, params = build_full(arch, tag="shard")
+    cfg = model.cfg
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, S),
+                                     generator=gen, device="cuda",
+                                     dtype=torch.int32)}
+    opt = adamw(POD_LR, warmup=POD_WARMUP)
+    with shd.use_sharding(mesh):
+        params = steps.distribute(params, steps.param_shardings(model))
+        free()
+        state = steps.distribute(opt.init(params),
+                                 steps.opt_state_shardings(opt, model))
+        step = steps.make_train_step(model, opt, remat="full")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        starts, ends, losses = [], [], []
+        t0 = time.perf_counter()
+        for _ in range(n_steps):
+            starts.append(torch.cuda.Event(enable_timing=True))
+            ends.append(torch.cuda.Event(enable_timing=True))
+            starts[-1].record()
+            params, state, loss = step(params, state, batch)
+            ends[-1].record()
+            losses.append(loss)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    local = sum(t.to_local().numel() * t.element_size()
+                for t in tree_leaves(params)) / 2**30
+    step_ms = [a.elapsed_time(b) for a, b in zip(starts, ends)]
+    losses = [float(x) for x in torch.stack(losses).cpu()]
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"{label} {arch}: non-finite loss {losses}")
+    ms = statistics.median(step_ms[1:])
+    out = {"losses": losses, "step_ms": ms, "tok_s": B * S * 1e3 / ms,
+           "peak_gib": peak, "param_gib": local, "launches": launches,
+           "n_layers": cfg.n_layers, "wall_s": wall}
+    print(f"[shard] {label} {arch} ({cfg.n_layers} layers, full depth) "
+          f"B={B}, S={S} on {dict(shd.mesh_shape(mesh))}: {n_steps} steps "
+          f"in {wall:.3f} s, losses {losses}; step {ms:.3f} ms (median of "
+          f"steps 2-{n_steps}; all {[round(x, 3) for x in step_ms]}), "
+          f"{out['tok_s']:.1f} tokens/s; this rank's parameters "
+          f"{local:.3f} GiB, peak memory {peak:.3f} GiB; launches "
+          f"{json.dumps(launches)}", flush=True)
+    del model, params, state, step, batch
+    free()
+    return out
+
+
+@contextlib.contextmanager
+def watch_combines():
+    """#6's wrapper watched within the block: the list it yields gains
+    the gathered values, mask, weights and output of every combine."""
+    from repro_torch.kernels import ops
+    seen, real = [], ops.aio_aggregate_op
+
+    def watched(u, m, w):
+        out = real(u, m, w)
+        seen.append((u, m, w, out))
+        return out
+
+    ops.aio_aggregate_op = watched
+    try:
+        yield seen
+    finally:
+        ops.aio_aggregate_op = real
+
+
+def check_combines(seen: list) -> list:
+    """Each combine that :func:`watch_combines` kept, held against
+    ``aio_aggregate_ref`` on the same tensors: ``[(I, N), coordinates
+    kept, elements that differ, max abs err]`` for each."""
+    import torch
+    from repro_torch.kernels import ref
+    res = []
+    for u, m, w, got in seen:
+        want = ref.aio_aggregate_ref(u, m, w)
+        res.append([list(u.shape), int((m != 0).sum()),
+                    int((got != want).sum()),
+                    float((got - want).abs().max())])
+    torch.cuda.synchronize()
+    return res
+
+
+def shard_rank(rank: int, store: str, out_dir: str) -> None:
+    """One of 14b and 14d's two ranks: a gloo group over a ``FileStore``,
+    every tensor on ``cuda:0``; what it computed goes to
+    ``out_dir/rank{rank}.pt``."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch import sharding as shd
+    from repro_torch.configs.base import InputShape
+    from repro_torch.device import resolve_device
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as pmesh
+    from repro_torch.launch import steps
+    from repro_torch.models.registry import build_model
+    from repro_torch.configs import get_config
+    from repro_torch.train.optimizer import Optimizer, sgd
+    from repro_torch.utils.pytree import tree_leaves, tree_map
+    resolve_device("cuda")
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(store, 2),
+                            rank=rank, world_size=2)
+    out = {}
+    host = pmesh.make_host_mesh()
+    if host.device_type != "cuda":
+        fail(f"14b: the gloo host mesh says {host.device_type!r}")
+    r = sharded_reduced("14b", host)
+    out["tp"] = {"diff": compare_runs(r["want"], r["got"]),
+                 "launches": r["launches"], "n_sharded": r["n_sharded"]}
+    free()
+    # the "anycost" step sharded on (pod=2, data=1, model=1) against the
+    # one-rank-a-pod step, on the same pod blocks
+    model = build_model(get_config("qwen2-7b").reduced())
+    cpu = model.init(torch.Generator().manual_seed(0), "cpu")
+    import numpy as np
+    batch = {"tokens": torch.tensor(np.random.default_rng(1).integers(
+        0, 512, (4, 64)), dtype=torch.int32).cuda()}
+    shape = InputShape("t", 64, 4, "train")
+    mesh = pmesh.make_anycost_mesh(2)
+    runs = {}
+    for name, m in (("sharded", mesh), ("pods", pmesh.make_pod_mesh(2))):
+        seen = {}
+        opt = sgd(POD_LR)
+
+        def update(p, g, s, seen=seen, opt=opt):
+            seen["grads"] = [(x.full_tensor() if shd.is_dtensor(x) else x)
+                             .cpu() for x in tree_leaves(g)]
+            return opt.update(p, g, s)
+
+        step = steps.make_train_step(model, Optimizer(opt.init, update),
+                                     remat="full", grad_sync="anycost",
+                                     keep_frac=SYNC_KEEP, mesh=m)
+        params = tree_map(lambda t: t.to("cuda", copy=True), cpu)
+        torch.cuda.synchronize()
+        if name == "sharded":
+            with shd.use_sharding(m, steps.rules_for(shape, "anycost")):
+                params = steps.distribute(params,
+                                          steps.param_shardings(model))
+                ops.reset_launch_counts()
+                with watch_combines() as combines:
+                    _, _, loss = step(params, opt.init(params), batch)
+                    torch.cuda.synchronize()
+                runs["launches"] = ops.launch_counts()
+            runs["combines"] = check_combines(combines)
+        else:
+            _, _, loss = step(params, opt.init(params), batch)
+        runs[name] = {"loss": float(loss), "grads": seen["grads"]}
+    runs["n_leaves"] = len(tree_leaves(cpu))
+    out["anycost"] = runs
+    del model, cpu
+    free()
+    out["14d"] = train_sharded("14d", "phi3-mini-3.8b", 4, 1024, host,
+                               SHARD_D_STEPS)
+    torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    dist.destroy_process_group()
+
+
+def two_ranks_sharded(first_loss: float) -> dict:
+    """14b and 14d: spawns :func:`shard_rank` twice and checks what they
+    computed.  Returns the launches by path and 14d's numbers."""
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        mp.start_processes(shard_rank, args=(os.path.join(d, "store"), d),
+                           nprocs=2, start_method="spawn")
+        outs = [torch.load(os.path.join(d, f"rank{r}.pt"),
+                           weights_only=False) for r in range(2)]
+    spawn_s = time.perf_counter() - t0
+    for r, out in enumerate(outs):
+        loss, grads, params = out["tp"]["diff"]
+        if not (loss <= TRAIN_LOSS_ATOL and grads <= TRAIN_GRAD_RTOL):
+            fail(f"14b rank {r}: the sharded step against the unsharded "
+                 f"card step, loss {loss} (bound {TRAIN_LOSS_ATOL}), "
+                 f"gradients {grads} (bound {TRAIN_GRAD_RTOL})")
+        if any(out["tp"]["launches"].values()):
+            fail(f"14b: the sharded step launched {out['tp']['launches']}")
+        a = out["anycost"]
+        same = a["sharded"]["loss"] == a["pods"]["loss"] and all(
+            torch.equal(x, y) for x, y in zip(a["sharded"]["grads"],
+                                              a["pods"]["grads"]))
+        if not same:
+            fail(f"14b rank {r}: the sharded anycost step differs from the "
+                 f"one-rank-a-pod step")
+        if a["launches"]["aio_aggregate"] != a["n_leaves"]:
+            fail(f"14b rank {r}: #6 launched {a['launches']['aio_aggregate']}"
+                 f" times in the sharded anycost step, expected one a "
+                 f"gradient leaf ({a['n_leaves']})")
+        bad = [c for c in a["combines"] if c[2] or not c[1]]
+        if len(a["combines"]) != a["n_leaves"] or bad:
+            fail(f"14b rank {r}: #6 in the sharded anycost step against "
+                 f"aio_aggregate_ref on the same local shards: "
+                 f"{len(a['combines'])} combines of {a['n_leaves']} "
+                 f"leaves, not bit for bit or keeping nothing: {bad}")
+    if outs[0]["14d"]["losses"] != outs[1]["14d"]["losses"]:
+        fail(f"14d: the two ranks' losses differ: "
+             f"{outs[0]['14d']['losses']} / {outs[1]['14d']['losses']}")
+    d14 = outs[0]["14d"]
+    first = abs(d14["losses"][0] - first_loss)
+    if not first <= SHARD_BF16_LOSS_ATOL:
+        fail(f"14d: the first loss {d14['losses'][0]} against 14c's "
+             f"{first_loss}: {first} > {SHARD_BF16_LOSS_ATOL}")
+    tp = outs[0]["tp"]
+    n6 = outs[0]["anycost"]["launches"]["aio_aggregate"]
+    combines = [c for o in outs for c in o["anycost"]["combines"]]
+    print(f"[shard] 14b two gloo ranks on cuda:0 ({spawn_s:.3f} s, the "
+          f"spawn and 14d included): reduced float32 qwen2-7b on (data=1, "
+          f"model=2), {tp['n_sharded']} leaves sharded, every local shard "
+          f"on the card with its spec's share; against the unsharded card "
+          f"step loss {tp['diff'][0]!r}, gradients {tp['diff'][1]!r} of a "
+          f"leaf's largest |g|, parameters {tp['diff'][2]!r}; the anycost "
+          f"step on (pod=2, data=1, model=1) equals the one-rank-a-pod "
+          f"step bit for bit, #6 {n6} times (one a leaf); each of the "
+          f"{len(combines)} combines of the two ranks, on local shards "
+          f"from (I, N) = {min(c[0] for c in combines)} to "
+          f"{max(c[0] for c in combines)}, equals aio_aggregate_ref on the "
+          f"same tensors ({sum(c[2] for c in combines)} elements differ, "
+          f"max abs err {max(c[3] for c in combines)!r}, "
+          f"{sum(c[1] for c in combines)} coordinates kept)", flush=True)
+    print(f"[shard] 14d phi3-mini-3.8b on two ranks of one card: first "
+          f"loss {d14['losses'][0]!r} against 14c's {first_loss!r} "
+          f"({first!r}, bound {SHARD_BF16_LOSS_ATOL}); per-rank peaks "
+          f"{[round(o['14d']['peak_gib'], 3) for o in outs]} GiB, step "
+          f"{[round(o['14d']['step_ms'], 3) for o in outs]} ms", flush=True)
+    return {"by_path": {"14b sharded step": tp["launches"],
+                        "14b anycost": outs[0]["anycost"]["launches"],
+                        "14d phi3 two ranks": d14["launches"]},
+            "14d": d14, "peaks": [o["14d"]["peak_gib"] for o in outs]}
+
+
+def dryrun_pairs() -> list:
+    """14e: the dry-run CLI at production mesh size, the two pairs in
+    subprocesses beside each other, on ``meta`` tensors over a fake
+    process group.  Returns its result lines."""
+    import tempfile
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+    pairs = (["--arch", "qwen2-7b", "--shape", "train_4k", "--mesh",
+              "single"],
+             ["--arch", "phi3-mini-3.8b", "--shape", "train_4k", "--mesh",
+              "multi", "--grad-sync", "anycost"])
+    lines = []
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", *argv,
+             "--out", d], env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True) for argv in pairs]
+        for argv, proc in zip(pairs, procs):
+            stdout, stderr = proc.communicate(timeout=600)
+            ok = [x for x in stdout.splitlines() if x.startswith("[OK]")]
+            if proc.returncode != 0 or not ok:
+                fail(f"14e: dryrun {' '.join(argv)} rc {proc.returncode}: "
+                     f"{stdout[-1500:]} {stderr[-1500:]}")
+            name = "__".join([argv[1], argv[3], argv[5], "baseline"])
+            with open(os.path.join(d, name + ".json")) as f:
+                res = json.load(f)
+            r = res["roofline"]
+            counts = {k: v["count"]
+                      for k, v in res["collectives"]["by_op"].items()}
+            line = (f"[shard] 14e dryrun {' '.join(argv)} (both pairs "
+                    f"{time.perf_counter() - t0:.3f} s, this trace "
+                    f"{res['lower_s']} s): {res['mesh_desc']}, per-rank "
+                    f"flops {r['flops']:.4e} (trace {r['hlo_flops']:.4e}), "
+                    f"HBM bytes {r['hbm_bytes']:.4e}, wire bytes "
+                    f"{r['collective_wire_bytes']:.4e}; compute "
+                    f"{r['t_compute']:.4e} s, memory {r['t_memory']:.4e} s, "
+                    f"collective {r['t_collective']:.4e} s -> "
+                    f"{r['bottleneck']}; rank 0's argument bytes "
+                    f"{res['memory_analysis']['argument_size_in_bytes']}; "
+                    f"collectives {json.dumps(counts)}")
+            print(line, flush=True)
+            lines.append(line)
+    return lines
+
+
+def sharding_phase(auto: dict | None = None) -> dict:
+    """Phase 14: logical-axis sharding on DTensor (see the module
+    docstring).  ``auto`` is phase 12b's result, run here when not
+    given.  Returns the launches of each phase-14 path."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.device import resolve_device
+    from repro_torch.kernels import build
+    from repro_torch.launch import mesh as pmesh
+
+    resolve_device("cuda")
+    build.build_all()        # before the spawn: the ranks never build
+    t_phase = time.perf_counter()
+    if auto is None:
+        auto = train_full("12b", "phi3-mini-3.8b", 4, 1024)
+    by_path = {}
+    with tempfile.TemporaryDirectory() as d:
+        dist.init_process_group(
+            "nccl", store=dist.FileStore(os.path.join(d, "store"), 1),
+            rank=0, world_size=1, device_id=torch.device("cuda", 0))
+        try:
+            host = pmesh.make_host_mesh()
+            r = sharded_reduced("14a", host)
+            loss, grads, params = compare_runs(r["want"], r["got"])
+            if loss or grads or params or any(r["launches"].values()):
+                fail(f"14a: the one-rank sharded step against the unsharded "
+                     f"card step: loss {loss}, gradients {grads}, "
+                     f"parameters {params} (all 0 expected); launches "
+                     f"{r['launches']}")
+            print(f"[shard] 14a reduced float32 qwen2-7b, one-rank NCCL "
+                  f"host mesh: the sharded step equals the unsharded card "
+                  f"step bit for bit (loss, {len(r['got']['grads'])} "
+                  f"gradient leaves, parameters); launches "
+                  f"{json.dumps(r['launches'])}", flush=True)
+            by_path["14a sharded step"] = r["launches"]
+            c = train_sharded("14c", "phi3-mini-3.8b", 4, 1024, host,
+                              POD_STEPS)
+            by_path["14c phi3 sharded"] = c["launches"]
+        finally:
+            dist.destroy_process_group()
+    if c["losses"] != auto["losses"]:
+        fail(f"14c: the sharded losses {c['losses']} are not 12b's "
+             f"{auto['losses']} bit for bit")
+    if any(c["launches"].values()):
+        fail(f"14c: launches {c['launches']}")
+    print(f"[shard] 14c phi3-mini-3.8b on the one-rank host mesh: losses "
+          f"equal 12b's bit for bit; step {c['step_ms']:.3f} / "
+          f"{auto['step_ms']:.3f} ms (sharded / 12b), {c['tok_s']:.1f} / "
+          f"{auto['tok_s']:.1f} tokens/s, peak {c['peak_gib']:.3f} / "
+          f"{auto['peak_gib']:.3f} GiB", flush=True)
+    two = two_ranks_sharded(c["losses"][0])
+    by_path.update(two["by_path"])
+    for path in ("14b sharded step", "14d phi3 two ranks"):
+        if any(by_path[path].values()):
+            fail(f"{path}: launches {by_path[path]}")
+    dry = dryrun_pairs()
+    wall = time.perf_counter() - t_phase
+    print(f"[shard] phase 14: {wall:.3f} s of wall time", flush=True)
+    return {"by_path": by_path, "14c": c, "14d": two["14d"],
+            "peaks": two["peaks"], "dryrun": dry, "wall_s": wall}
+
+
 def main() -> None:
     try:
         import torch
@@ -3873,6 +4350,8 @@ def main() -> None:
     pod = pod_phase()
     # --------------------------------------------------------------- 13
     by_path.update(distributed_phase(pod["12b"]))
+    # --------------------------------------------------------------- 14
+    by_path.update(sharding_phase(pod["12b"])["by_path"])
     for k in kernels:
         k["launches_by_path"] = {path: c[k["name"]]
                                  for path, c in by_path.items()}

@@ -29,6 +29,18 @@ The synced values are written into each gradient leaf in place (the
 optimizer updates in place too): at published widths a second tree of
 gradients does not fit beside the first.  Each leaf's temporaries are
 released before the next leaf starts.
+
+A sharded leaf (a ``DTensor`` of the sharded train step,
+``launch/steps.py``) is compressed and exchanged shard-wise, as the
+reference pins each leaf to its parameter's sharding (its ``_pin``):
+the leaf is first placed as its logical axes say (``axes_tree``; the
+gradient already is), then each rank compresses its local shard,
+gathers the same shard of every pod over the "pod" group (every pod
+holds the same shard index at the same data/model coordinate), combines
+them with #6 and writes the result into its shard.  The threshold's sum
+of squares and the int8 amax stay leaf-global within a pod, as GSPMD
+computes them inside the reference's region: each is reduced over the
+mesh dimensions that shard the leaf.
 """
 from __future__ import annotations
 
@@ -179,45 +191,108 @@ def _all_gather(t: torch.Tensor, group) -> torch.Tensor:
 
 # ----------------------------------------------------------------- sync
 
-def magnitude_threshold(g: torch.Tensor, keep_frac: float) -> torch.Tensor:
+def _no_reduce(x: torch.Tensor, op) -> torch.Tensor:
+    return x
+
+
+def _shard_reducer(g):
+    """For a ``DTensor`` leaf, the function that reduces a local 0-d
+    value over the mesh dimensions that shard it (in place) and the
+    leaf's global element count; for a plain leaf, the identity and its
+    own count."""
+    if not _is_dtensor(g):
+        return _no_reduce, g.numel()
+    dist = torch.distributed
+    mesh = g.device_mesh
+    groups = [mesh.get_group(i) for i, p in enumerate(g.placements)
+              if p.is_shard()]
+
+    def reduce(x, op):
+        for grp in groups:
+            dist.all_reduce(x, op=op, group=grp)
+        return x
+
+    return reduce, g.numel()
+
+
+def _is_dtensor(x) -> bool:
+    from repro_torch.sharding import is_dtensor
+    return is_dtensor(x)
+
+
+def magnitude_threshold(g: torch.Tensor, keep_frac: float, *,
+                        reduce=_no_reduce, numel: int | None = None
+                        ) -> torch.Tensor:
     """Approximate ``keep_frac``-quantile of ``|g|`` from a half-normal
     moment fit: ``std * sqrt(2) * erfinv(1 - keep_frac)``, a float32 0-d
     tensor on ``g``'s device, multiplied left to right as the
-    reference's."""
+    reference's.  For a shard of a leaf, ``reduce`` sums the shards' sums
+    of squares and ``numel`` is the leaf's element count."""
     if keep_frac >= 1.0:
         return torch.zeros((), dtype=F32, device=g.device)
     gf = g.to(F32)
-    std = aggregation.sqrt_f32(gf.square().sum() / gf.numel() + 1e-30)
+    sumsq = reduce(gf.square().sum(), torch.distributed.ReduceOp.SUM)
+    std = aggregation.sqrt_f32(sumsq / (numel or gf.numel()) + 1e-30)
     # (1.0 - keep_frac) is taken in float64 and rounded once, as the
     # reference's weakly typed argument
     return std * SQRT2_F32 * erfinv_f32(1.0 - keep_frac)
 
 
-def _local_compress(g: torch.Tensor, keep_frac: float, quantize: bool):
+def _local_compress(g: torch.Tensor, keep_frac: float, quantize: bool, *,
+                    reduce=_no_reduce, numel: int | None = None):
     """The local FGC stage on ``g`` in float32: threshold -> keep mask ->
     optional int8 amax quantization.  Returns ``(keep, payload, scale)``:
     the bool keep mask; the int8 levels (``quantize``) or the float32
     sparsified values; the float32 0-d scale, or None.  The dequantized
-    wire value is ``payload * scale``."""
+    wire value is ``payload * scale``.  ``reduce`` and ``numel`` make the
+    threshold and the amax a whole leaf's when ``g`` is its shard."""
     gf = g.to(F32)
-    thr = magnitude_threshold(gf, keep_frac)
+    thr = magnitude_threshold(gf, keep_frac, reduce=reduce, numel=numel)
     keep = gf.abs() >= thr
     sparse = torch.where(keep, gf, torch.zeros((), dtype=F32,
                                                device=gf.device))
     del gf
     if not quantize:
         return keep, sparse, None
-    scale = torch.clamp(sparse.abs().max(), min=1e-12) / 127.0
+    amax = reduce(sparse.abs().max(), torch.distributed.ReduceOp.MAX)
+    scale = torch.clamp(amax, min=1e-12) / 127.0
     q = sparse.div_(scale).round_().clamp_(-127, 127).to(torch.int8)
     return keep, q, scale
+
+
+def _pin(g: torch.Tensor, axes) -> torch.Tensor:
+    """A ``DTensor`` leaf placed as its logical ``axes`` say under the
+    active sharding context (a no-op when it already is)."""
+    from repro_torch import sharding as shd
+    if axes is None or not shd.active() or not _is_dtensor(g):
+        return g
+    return shd.lc(g, axes.names)
 
 
 def _sync_into(g: torch.Tensor, group, keep_frac: float, quantize: bool,
                want_sent: bool = False):
     """Compress ``g``, exchange, combine, and write the result into ``g``
-    (in ``g``'s dtype).  Returns the float32 value this rank put on the
-    wire when ``want_sent`` (the EF residual's subtrahend), else None."""
-    keep, payload, scale = _local_compress(g, keep_frac, quantize)
+    (in ``g``'s dtype); a ``DTensor`` shard by shard (module docstring).
+    Returns the float32 value this rank put on the wire when
+    ``want_sent`` (the EF residual's subtrahend), else None."""
+    if _is_dtensor(g):
+        from torch.distributed.tensor import DTensor
+        reduce, numel = _shard_reducer(g)
+        sent = _sync_local(g.to_local(), group, keep_frac, quantize,
+                           want_sent, reduce, numel)
+        if sent is None:
+            return None
+        return DTensor.from_local(sent, g.device_mesh, g.placements,
+                                  run_check=False, shape=g.shape,
+                                  stride=g.stride())
+    return _sync_local(g, group, keep_frac, quantize, want_sent)
+
+
+def _sync_local(g: torch.Tensor, group, keep_frac: float, quantize: bool,
+                want_sent: bool, reduce=_no_reduce,
+                numel: int | None = None):
+    keep, payload, scale = _local_compress(g, keep_frac, quantize,
+                                           reduce=reduce, numel=numel)
     sent = None
     if want_sent:
         sent = payload.to(F32) * scale if quantize else payload.clone()
@@ -252,10 +327,10 @@ def anycost_sync_leaf(g: torch.Tensor, axis_name: str = "pod",
 
     The AIO denominator comes from the explicit keep mask, exchanged
     beside the values: a pod whose kept coordinate quantized to zero
-    still counts.  ``axes`` (the leaf's logical axes) changes nothing
-    here: the reference uses it only to pin a sharded leaf's layout, and
-    the port's leaves are not sharded."""
-    del axes
+    still counts.  ``axes`` (the leaf's ``LogicalAxes``) pins a
+    ``DTensor`` leaf to its parameter's placements first (module
+    docstring); the pinned leaf is returned."""
+    g = _pin(g, axes)
     _sync_into(g, _group(axis_name, mesh, group), keep_frac, quantize)
     return g
 
@@ -265,14 +340,22 @@ def anycost_gradient_sync(grads: PyTree, axis_name: str = "pod", *,
                           quantize: bool = True, axes_tree: PyTree = None,
                           key=None, mesh=None, group=None) -> PyTree:
     """FGC+AIO compressed mean of per-pod gradients, leaf by leaf, in
-    place (see the module docstring); returns ``grads``.  ``axes_tree``
-    and ``key`` are accepted and change nothing, as in the reference
-    outside a sharding context."""
-    del axes_tree, key
+    place (see the module docstring); returns the synced tree.
+    ``axes_tree`` (the parameters' ``LogicalAxes``) pins each ``DTensor``
+    leaf to its parameter's placements under an active sharding context;
+    it changes nothing on plain leaves or outside a context, as in the
+    reference.  ``key`` is accepted and unused, as in the reference."""
+    del key
     grp = _group(axis_name, mesh, group)
-    for g in tree_leaves(grads):
+    leaves = tree_leaves(grads)
+    axes = tree_leaves(axes_tree) if axes_tree is not None \
+        else [None] * len(leaves)
+    out = []
+    for g, ax in zip(leaves, axes):
+        g = _pin(g, ax)
         _sync_into(g, grp, keep_frac, quantize)
-    return grads
+        out.append(g)
+    return tree_unflatten(grads, out)
 
 
 def mean_gradient_sync(grads: PyTree, axis_name: str = "pod", *,
@@ -283,8 +366,10 @@ def mean_gradient_sync(grads: PyTree, axis_name: str = "pod", *,
     grp = _group(axis_name, mesh, group)
     size = dist.get_world_size(grp)
     for g in tree_leaves(grads):
-        dist.all_reduce(g, op=dist.ReduceOp.SUM, group=grp)
-        g.div_(size)
+        # a DTensor leaf: every pod holds the same shard of it
+        local = g.to_local() if _is_dtensor(g) else g
+        dist.all_reduce(local, op=dist.ReduceOp.SUM, group=grp)
+        local.div_(size)
     return grads
 
 
@@ -293,8 +378,7 @@ def mean_gradient_sync(grads: PyTree, axis_name: str = "pod", *,
 def init_error_feedback(params: PyTree) -> PyTree:
     """Float32 zero residuals shaped like ``params`` (EF-SGD): the dropped
     mass of each compressed sync is fed back into the next."""
-    return tree_map(lambda p: torch.zeros(p.shape, dtype=F32,
-                                          device=p.device), params)
+    return tree_map(lambda p: torch.zeros_like(p, dtype=F32), params)
 
 
 def anycost_gradient_sync_ef(grads: PyTree, residual: PyTree,
@@ -306,12 +390,16 @@ def anycost_gradient_sync_ef(grads: PyTree, residual: PyTree,
     """EF variant: compress ``grad + residual``; the new residual is that
     input less what this pod sent (the dequantized wire value, so the
     int8 rounding error stays in it).  Returns new trees ``(synced,
-    residual')``; ``grads`` and ``residual`` are left as they were."""
-    del axes_tree
+    residual')``; ``grads`` and ``residual`` are left as they were.
+    ``axes_tree`` pins ``DTensor`` leaves as in
+    :func:`anycost_gradient_sync`."""
     grp = _group(axis_name, mesh, group)
+    leaves = tree_leaves(grads)
+    axes = tree_leaves(axes_tree) if axes_tree is not None \
+        else [None] * len(leaves)
     synced, new_res = [], []
-    for g, r in zip(tree_leaves(grads), tree_leaves(residual)):
-        corrected = g.to(F32) + r
+    for g, r, ax in zip(leaves, tree_leaves(residual), axes):
+        corrected = _pin(g, ax).to(F32) + r
         # the dtype round trip the collective sees, as a fresh tensor
         wire = corrected.to(g.dtype, copy=True)
         sent = _sync_into(wire, grp, keep_frac, quantize, want_sent=True)

@@ -1,6 +1,7 @@
 """Dispatch by the tensors' device.
 
-CPU tensors go to the plain PyTorch versions (``kernels/ref.py``); CUDA
+CPU tensors go to the plain PyTorch versions (``kernels/ref.py``), and
+so do ``meta`` tensors (a trace of shapes, ``launch/dryrun``); CUDA
 tensors go to the Hopper kernels, which build at their first use and
 raise on any build or launch error.  There is no fallback from one route
 to the other, and no switch besides the device the data lies on.
@@ -20,7 +21,8 @@ def _on_cuda(*tensors: torch.Tensor) -> bool:
     kinds = {t.device.type for t in tensors}
     if kinds == {"cuda"}:
         return True
-    if kinds == {"cpu"}:
+    # a meta tensor has no data: the plain version computes its shape
+    if kinds in ({"cpu"}, {"meta"}):
         return False
     raise ValueError(f"kernel operands must all lie on one CUDA device or "
                      f"all on the CPU; got {sorted(kinds)}")

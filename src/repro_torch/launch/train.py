@@ -4,10 +4,15 @@
     under the sync, semisync or fedbuff policy, on a flat fleet or
     (round-based policies) a client -> edge -> cloud hierarchy, static
     or dynamic, fixed or moving.
-  * ``--mode pod``: the LM trainer on one card: AdamW steps (warmup 10)
-    on synthetic token documents (``data/synthetic.make_token_dataset``)
-    for any LM ``--arch``, ``--reduced`` for the reduced config, with
-    ``--remat full|dots|none`` and a ``--checkpoint`` directory.
+  * ``--mode pod``: the LM trainer: AdamW steps (warmup 10) on
+    synthetic token documents (``data/synthetic.make_token_dataset``) for
+    any LM ``--arch``, ``--reduced`` for the reduced config, with
+    ``--remat full|dots|none`` and a ``--checkpoint`` directory, on the
+    host mesh of the process group's ranks (``(data=1, model=ranks)``,
+    ``launch/mesh.make_host_mesh``), the parameters and the optimizer
+    state sharded by their logical axes.  Run alone it is a
+    one-rank group; under ``torchrun`` it joins torchrun's group: NCCL
+    when every rank has a card of its own, gloo when ranks share one.
 
   PYTHONPATH=src python -m repro_torch.launch.train --mode fl \\
       --method anycostfl --rounds 40 --devices 12 [--device cpu] \\
@@ -25,6 +30,8 @@
   PYTHONPATH=src python -m repro_torch.launch.train --mode pod \\
       --arch qwen2-7b --reduced --steps 20 [--device cpu] \\
       [--batch 4 --seq-len 128 --remat full --checkpoint ckpt/]
+  PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \\
+      --mode pod --arch qwen2-7b --reduced --steps 20
 
 In ``--mode fl``, ``--method`` is one of ``train/fl_loop.METHODS`` and
 ``--arch`` names one of the paper's two CNNs (an LM arch raises
@@ -39,23 +46,28 @@ writes its bundle there (``trace.perfetto.json``, ``trace.jsonl``,
 ``metrics.jsonl``, ``manifest.json``, and ``alerts.jsonl`` under
 ``--health``); ``python -m repro_torch.telemetry.query`` reads it.
 ``--mode pod`` prints the reference's step lines, the final loss and
-the checkpoint's path.
+the checkpoint's path (rank 0's lines only, under torchrun).
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
+import os
 import time
 
 import numpy as np
 import torch
 
+from repro_torch import sharding as shd
 from repro_torch.configs import get_config
 from repro_torch.data.synthetic import make_token_dataset
 from repro_torch.device import resolve_device
 from repro_torch.fleet import (AvailabilityConfig, BatteryConfig,
                                FleetDynamicsConfig)
-from repro_torch.launch.steps import make_train_step
+from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.launch.steps import (distribute, make_train_step,
+                                      opt_state_shardings, param_shardings)
 from repro_torch.mobility import HandoverConfig, MobilityConfig
 from repro_torch.models.registry import build_model
 from repro_torch.orchestrator.policies import POLICIES, OrchestratorConfig
@@ -68,12 +80,55 @@ from repro_torch.topology import BackhaulConfig, TopologyConfig
 from repro_torch.train.checkpoint import save_checkpoint
 from repro_torch.train.fl_loop import METHODS, PHASES, FLRunConfig
 from repro_torch.train.optimizer import adamw
+from repro_torch.utils.pytree import tree_map
+
+
+@contextlib.contextmanager
+def pod_group(dev: torch.device):
+    """The process group of ``--mode pod``: torchrun's, from its
+    environment (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,
+    ``MASTER_ADDR``), over NCCL when every local rank has a card of its
+    own and over gloo when ranks share one (or run on the CPU); without
+    torchrun a one-rank group.  An initialised group is used as it is.
+    Sets each rank's card, and destroys the group it made on exit."""
+    dist = torch.distributed
+    if dist.is_initialized():
+        yield
+        return
+    if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
+        local = int(os.environ.get("LOCAL_RANK", "0"))
+        n_local = int(os.environ.get("LOCAL_WORLD_SIZE",
+                                     os.environ["WORLD_SIZE"]))
+        backend = "gloo"
+        if dev.type == "cuda":
+            cards = torch.cuda.device_count()
+            torch.cuda.set_device(local % cards)
+            if cards >= n_local:
+                backend = "nccl"
+        dist.init_process_group(backend, init_method="env://")
+    else:
+        if dev.type == "cuda":
+            torch.cuda.set_device(0)
+        dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                                store=dist.HashStore(), rank=0,
+                                world_size=1)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def _whole(t):
+    return t.full_tensor() if shd.is_dtensor(t) else t
 
 
 def run_pod(args):
-    """The reference's pod trainer on one device: ``args.steps`` AdamW
-    steps on batches drawn from seeded token documents.  Returns the
-    losses and the trained parameters."""
+    """The reference's pod trainer: ``args.steps`` AdamW steps on batches
+    drawn from seeded token documents, under ``use_sharding`` over the
+    host mesh of the process group's ranks (:func:`pod_group`).  Every
+    rank initialises the parameters from the seed and keeps its shards
+    (``steps.param_shardings``), and draws the same batches.  Returns
+    the losses and the trained parameters, whole, as plain tensors."""
     dev = resolve_device(args.device)
     cfg = get_config(args.arch)
     if cfg.family == "cnn":
@@ -86,27 +141,38 @@ def run_pod(args):
     rng = np.random.default_rng(args.seed)
     docs = make_token_dataset(rng, max(args.batch * 4, 16), args.seq_len,
                               cfg.vocab_size)
-    params = model.init(torch.Generator(device=dev).manual_seed(args.seed))
-    opt_state = opt.init(params)
-    step = make_train_step(model, opt, remat=args.remat)
-    losses = []
-    # repro: ignore[unseeded-randomness] — operator progress timing only;
-    # never feeds model or simulation state
-    t0 = time.perf_counter()
-    for i in range(args.steps):
-        idx = rng.integers(0, docs.shape[0], args.batch)
-        batch = {"tokens": torch.tensor(docs[idx], device=dev)}
-        batch.update(_modality_extras(cfg, args.batch, args.seq_len, dev))
-        params, opt_state, loss = step(params, opt_state, batch)
-        losses.append(float(loss))
-        if i % max(args.steps // 10, 1) == 0:
-            print(f"step {i:4d} loss {losses[-1]:.4f} "
-                  # repro: ignore[unseeded-randomness] — progress
-                  f"({time.perf_counter() - t0:.1f}s)")
-    print(f"final loss {losses[-1]:.4f} (first {losses[0]:.4f})")
-    if args.checkpoint:
-        save_checkpoint(args.checkpoint, params, step=args.steps)
-        print(f"checkpoint -> {args.checkpoint}")
+    with pod_group(dev):
+        if dev.type == "cuda":
+            dev = torch.device("cuda", torch.cuda.current_device())
+        lead = torch.distributed.get_rank() == 0
+        with shd.use_sharding(make_host_mesh(dev.type)):
+            params = distribute(
+                model.init(torch.Generator(device=dev).manual_seed(
+                    args.seed)), param_shardings(model))
+            opt_state = distribute(opt.init(params),
+                                   opt_state_shardings(opt, model))
+            step = make_train_step(model, opt, remat=args.remat)
+            losses = []
+            # repro: ignore[unseeded-randomness] — operator progress
+            # timing only; never feeds model or simulation state
+            t0 = time.perf_counter()
+            for i in range(args.steps):
+                idx = rng.integers(0, docs.shape[0], args.batch)
+                batch = {"tokens": torch.tensor(docs[idx], device=dev)}
+                batch.update(_modality_extras(cfg, args.batch, args.seq_len,
+                                              dev))
+                params, opt_state, loss = step(params, opt_state, batch)
+                losses.append(float(loss))
+                if lead and i % max(args.steps // 10, 1) == 0:
+                    print(f"step {i:4d} loss {losses[-1]:.4f} "
+                          # repro: ignore[unseeded-randomness] — progress
+                          f"({time.perf_counter() - t0:.1f}s)")
+        params = tree_map(_whole, params)
+    if lead:
+        print(f"final loss {losses[-1]:.4f} (first {losses[0]:.4f})")
+        if args.checkpoint:
+            save_checkpoint(args.checkpoint, params, step=args.steps)
+            print(f"checkpoint -> {args.checkpoint}")
     return losses, params
 
 
@@ -471,8 +537,9 @@ def main(argv=None):
     # equal to the other mode's default is kept
     if args.lr is None:
         args.lr = 3e-3 if args.mode == "pod" else 0.05
-        print(f"[train] using the {args.mode}-mode default lr {args.lr:g} "
-              f"(pass --lr to override)")
+        if os.environ.get("RANK", "0") == "0":     # torchrun's rank 0
+            print(f"[train] using the {args.mode}-mode default lr "
+                  f"{args.lr:g} (pass --lr to override)")
     if args.mode == "pod":
         return run_pod(args)
     return run_fl(args)

@@ -19,6 +19,8 @@ import numpy as np
 import torch
 
 from repro_torch.models import layers as L
+from repro_torch import sharding as shd
+from repro_torch.sharding import lc
 
 NEG_INF = -1e30
 
@@ -28,26 +30,28 @@ def init_attention(gen: torch.Generator, d_model: int, n_heads: int,
                    dtype=torch.float32) -> dict:
     return {
         "wq": L.init_linear(gen, d_model, n_heads * head_dim, bias=qkv_bias,
-                            dtype=dtype),
+                            dtype=dtype, axes=("fsdp", "tp")),
         "wk": L.init_linear(gen, d_model, n_kv_heads * head_dim,
-                            bias=qkv_bias, dtype=dtype),
+                            bias=qkv_bias, dtype=dtype, axes=("fsdp", "tp")),
         "wv": L.init_linear(gen, d_model, n_kv_heads * head_dim,
-                            bias=qkv_bias, dtype=dtype),
+                            bias=qkv_bias, dtype=dtype, axes=("fsdp", "tp")),
         "wo": L.init_linear(gen, n_heads * head_dim, d_model, bias=False,
-                            dtype=dtype),
+                            dtype=dtype, axes=("tp", "fsdp")),
     }
 
 
 def qkv(p: dict, x: torch.Tensor, positions: torch.Tensor, *, n_heads: int,
         n_kv_heads: int, head_dim: int, rope_theta: float,
         use_rope: bool = True):
-    B, S, _ = x.shape
-    q = L.linear(p["wq"], x).reshape(B, S, n_heads, head_dim)
-    k = L.linear(p["wk"], x).reshape(B, S, n_kv_heads, head_dim)
-    v = L.linear(p["wv"], x).reshape(B, S, n_kv_heads, head_dim)
+    q = shd.split_last(L.linear(p["wq"], x), (n_heads, head_dim))
+    k = shd.split_last(L.linear(p["wk"], x), (n_kv_heads, head_dim))
+    v = shd.split_last(L.linear(p["wv"], x), (n_kv_heads, head_dim))
     if use_rope:
         q = L.apply_rope(q, positions, rope_theta)
         k = L.apply_rope(k, positions, rope_theta)
+    q = lc(q, ("batch", "seq", "heads", "head_dim"))
+    k = lc(k, ("batch", "seq", "kv_heads", "head_dim"))
+    v = lc(v, ("batch", "seq", "kv_heads", "head_dim"))
     return q, k, v
 
 
@@ -76,7 +80,7 @@ def _mask(q_pos: torch.Tensor, k_pos: torch.Tensor, *, causal: bool,
 
 def _scores(qg: torch.Tensor, k: torch.Tensor, scale: float) -> torch.Tensor:
     """(B,Sq,Hkv,G,hd) x (B,Sk,Hkv,hd) -> float32 (B,Hkv,G,Sq,Sk)."""
-    return torch.einsum("bqkgh,bskh->bkgqs", qg.float(), k.float()) * scale
+    return shd.einsum("bqkgh,bskh->bkgqs", qg.float(), k.float()) * scale
 
 
 def attention_dense(q, k, v, q_pos, k_pos, *, causal=True,
@@ -88,7 +92,7 @@ def attention_dense(q, k, v, q_pos, k_pos, *, causal=True,
     m = _mask(q_pos, k_pos, causal=causal, window=window)
     logits = torch.where(m[None, None, None], logits, NEG_INF)
     w = torch.softmax(logits, dim=-1)
-    out = torch.einsum("bkgqs,bskh->bqkgh", w, v.float())
+    out = shd.einsum("bkgqs,bskh->bqkgh", w, v.float())
     return out.reshape(B, Sq, H, hd).to(q.dtype)
 
 
@@ -103,7 +107,7 @@ def _block_update(acc, qi, kj, vj, qp, kp, scale, *, causal, window):
     correction = torch.exp(row_max - new_max)
     p = torch.exp(logits - new_max[..., None])
     denom = denom * correction + p.sum(-1)
-    pv = torch.einsum("bkgqs,bskh->bkgqh", p, vj.float())
+    pv = shd.einsum("bkgqs,bskh->bkgqh", p, vj.float())
     out = out * correction[..., None] + pv
     return out, new_max, denom
 
@@ -165,7 +169,7 @@ def attention_decode(q, k_cache, v_cache, q_pos, k_pos, *,
         valid &= k_pos[None, :] > q_pos[:, None] - window
     logits = torch.where(valid[None, None, None], logits, NEG_INF)
     w = torch.softmax(logits, dim=-1)
-    out = torch.einsum("bkgqs,bskh->bqkgh", w, v_cache.float())
+    out = shd.einsum("bkgqs,bskh->bqkgh", w, v_cache.float())
     return out.reshape(B, 1, H, hd).to(q.dtype)
 
 
@@ -196,7 +200,9 @@ def attention_residual(p: dict, x: torch.Tensor, positions: torch.Tensor,
     o = attend(q, k, v, positions[0], positions[0], causal=causal,
                window=cfg.sliding_window, causal_skip=causal_skip)
     B, S = x.shape[:2]
-    return x + L.linear(p["attn"]["wo"], o.reshape(B, S, -1)), k, v
+    x = lc(x + L.linear(p["attn"]["wo"], o.reshape(B, S, -1)),
+           ("batch", "seq", "embed"))
+    return x, k, v
 
 
 def decode_residual(p: dict, x: torch.Tensor, cache: dict, pos: int,
@@ -218,6 +224,8 @@ def decode_residual(p: dict, x: torch.Tensor, cache: dict, pos: int,
     cache["k"][:, slot] = k[:, 0]
     cache["v"][:, slot] = v[:, 0]
     cache["k_pos"][slot] = pos
-    o = attention_decode(q, cache["k"], cache["v"], positions[0],
+    cache_axes = ("batch", "cache_seq", "kv_heads", "head_dim")
+    o = attention_decode(q, lc(cache["k"], cache_axes),
+                         lc(cache["v"], cache_axes), positions[0],
                          cache["k_pos"], window=cfg.sliding_window)
     return x + L.linear(p["attn"]["wo"], o.reshape(B, 1, -1))

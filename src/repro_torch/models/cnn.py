@@ -22,9 +22,9 @@ from repro_torch.models import layers as L
 def init_conv(gen: torch.Generator, kh: int, kw: int, c_in: int,
               c_out: int) -> dict:
     return {
-        "w": L.param(gen, (kh, kw, c_in, c_out), "normal",
-                     scale=math.sqrt(2.0)),
-        "b": L.param(gen, (c_out,), "zeros"),
+        "w": L.param(gen, (kh, kw, c_in, c_out), (None, None, "fsdp", "tp"),
+                     "normal", scale=math.sqrt(2.0)),
+        "b": L.param(gen, (c_out,), ("tp",), "zeros"),
     }
 
 
@@ -47,8 +47,10 @@ def init_fmnist_cnn(gen: torch.Generator, cfg: ArchConfig) -> dict:
     return {
         "conv1": init_conv(gen, 5, 5, 1, c),
         "conv2": init_conv(gen, 5, 5, c, 2 * c),
-        "dense1": L.init_linear(gen, 7 * 7 * 2 * c, cfg.d_ff, bias=True),
-        "dense2": L.init_linear(gen, cfg.d_ff, cfg.vocab_size, bias=True),
+        "dense1": L.init_linear(gen, 7 * 7 * 2 * c, cfg.d_ff, bias=True,
+                                axes=("fsdp", "tp")),
+        "dense2": L.init_linear(gen, cfg.d_ff, cfg.vocab_size, bias=True,
+                                axes=("tp", "classes")),
     }
 
 
@@ -72,9 +74,12 @@ def init_vgg9(gen: torch.Generator, cfg: ArchConfig) -> dict:
         "conv4": init_conv(gen, 3, 3, 2 * c, 2 * c),
         "conv5": init_conv(gen, 3, 3, 2 * c, 4 * c),
         "conv6": init_conv(gen, 3, 3, 4 * c, 4 * c),
-        "dense1": L.init_linear(gen, 4 * 4 * 4 * c, cfg.d_ff, bias=True),
-        "dense2": L.init_linear(gen, cfg.d_ff, cfg.d_ff, bias=True),
-        "dense3": L.init_linear(gen, cfg.d_ff, cfg.vocab_size, bias=True),
+        "dense1": L.init_linear(gen, 4 * 4 * 4 * c, cfg.d_ff, bias=True,
+                                axes=("fsdp", "tp")),
+        "dense2": L.init_linear(gen, cfg.d_ff, cfg.d_ff, bias=True,
+                                axes=("fsdp", "tp")),
+        "dense3": L.init_linear(gen, cfg.d_ff, cfg.vocab_size, bias=True,
+                                axes=("tp", "classes")),
     }
 
 

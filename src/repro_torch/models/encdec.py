@@ -27,7 +27,11 @@ from repro_torch.models import transformer as T
 from repro_torch.models.attention import (attend, attention_decode,
                                           attention_residual,
                                           decode_residual, init_attention)
+from repro_torch import sharding as shd
+from repro_torch.sharding import lc
 from repro_torch.utils.pytree import PyTree
+
+BSE = ("batch", "seq", "embed")
 
 
 def _init_attn(gen: torch.Generator, cfg: ArchConfig) -> dict:
@@ -54,7 +58,7 @@ def init_enc_block(gen: torch.Generator, cfg: ArchConfig) -> dict:
 def apply_enc_block(p: dict, x: torch.Tensor, positions: torch.Tensor,
                     cfg: ArchConfig) -> torch.Tensor:
     x, _, _ = attention_residual(p, x, positions, cfg, causal=False)
-    return T.mlp_residual(p, x, cfg)
+    return lc(T.mlp_residual(p, x, cfg), BSE)
 
 
 def init_dec_block(gen: torch.Generator, cfg: ArchConfig) -> dict:
@@ -67,10 +71,9 @@ def init_dec_block(gen: torch.Generator, cfg: ArchConfig) -> dict:
 
 def _cross_kv(p: dict, memory: torch.Tensor, cfg: ArchConfig):
     """Project encoder memory to K/V. memory:(B,F,D)."""
-    B, F, _ = memory.shape
     hd = cfg.resolved_head_dim
-    k = L.linear(p["wk"], memory).reshape(B, F, cfg.n_kv_heads, hd)
-    v = L.linear(p["wv"], memory).reshape(B, F, cfg.n_kv_heads, hd)
+    k = shd.split_last(L.linear(p["wk"], memory), (cfg.n_kv_heads, hd))
+    v = shd.split_last(L.linear(p["wv"], memory), (cfg.n_kv_heads, hd))
     return k, v
 
 
@@ -83,9 +86,8 @@ def _self_half(p: dict) -> dict:
 def _cross_q(p: dict, x: torch.Tensor, cfg: ArchConfig):
     """The cross-attention's normed queries (no RoPE). x:(B,S,D)."""
     h = L.norm(p["ln_cross"], x, kind=cfg.norm)
-    B, S = x.shape[:2]
-    return L.linear(p["cross_attn"]["wq"], h).reshape(
-        B, S, cfg.n_heads, cfg.resolved_head_dim)
+    return shd.split_last(L.linear(p["cross_attn"]["wq"], h),
+                          (cfg.n_heads, cfg.resolved_head_dim))
 
 
 def apply_dec_block(p: dict, x: torch.Tensor, positions: torch.Tensor,
@@ -98,8 +100,8 @@ def apply_dec_block(p: dict, x: torch.Tensor, positions: torch.Tensor,
                         device=x.device)
     o = attend(_cross_q(p, x, cfg), kc, vc, positions[0], fpos,
                causal=False)
-    x = x + L.linear(p["cross_attn"]["wo"], o.reshape(B, S, -1))
-    return T.mlp_residual(p, x, cfg)
+    x = lc(x + L.linear(p["cross_attn"]["wo"], o.reshape(B, S, -1)), BSE)
+    return lc(T.mlp_residual(p, x, cfg), BSE)
 
 
 def init_encdec(gen: torch.Generator, cfg: ArchConfig) -> PyTree:
@@ -107,7 +109,7 @@ def init_encdec(gen: torch.Generator, cfg: ArchConfig) -> PyTree:
     dt = cfg.param_dtype
     return {
         "frontend_proj": L.init_linear(gen, cfg.d_model, cfg.d_model,
-                                       dtype=dt),
+                                       dtype=dt, axes=("fsdp", "tp")),
         "embed": L.init_embedding(gen, cfg.vocab_size, cfg.d_model,
                                   dtype=dt),
         "enc": T.init_stack(gen, e.n_enc_layers,
@@ -117,7 +119,7 @@ def init_encdec(gen: torch.Generator, cfg: ArchConfig) -> PyTree:
                             lambda g: init_dec_block(g, cfg)),
         "ln_dec": _init_norm(gen, cfg),
         "unembed": L.init_linear(gen, cfg.d_model, cfg.vocab_size,
-                                 dtype=dt),
+                                 dtype=dt, axes=("fsdp", "tp")),
     }
 
 

@@ -16,19 +16,87 @@ reference's own parameters carry them over with ``repro_torch.bridge``.
 The LM primitives keep the reference's cast points: each product runs
 in the activation dtype (``x @ w.to(x.dtype)``); the norms, RoPE and
 (unless ``bf16``) the unembedding compute in float32.
+
+Every parameter also carries the reference's *logical axes*, one name a
+dimension (``param``'s ``axes``): :func:`logical_axes` runs an init
+function in an axes mode that returns a :class:`LogicalAxes` for each
+leaf, and :func:`abstract_params` in a shape mode that returns a
+``meta`` tensor (shape and dtype, no storage), the counterpart of the
+reference's ``ShapeDtypeStruct``.  Neither mode draws from a generator,
+so both take ``None`` for it and leave a seeded initialisation as it
+is.  ``launch/steps`` and ``sharding`` turn the axes into placements.
 """
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Sequence
+import threading
+from typing import Callable, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.sharding import lc
 
-def param(gen: torch.Generator, shape: Sequence[int], init: str = "normal",
-          scale: float = 1.0, dtype=torch.float32) -> torch.Tensor:
+
+class LogicalAxes:
+    """A tree leaf holding one logical axis name (or None) a dimension."""
+
+    __slots__ = ("names",)
+
+    def __init__(self, names):
+        self.names = tuple(names)
+
+    def prepend(self, name: str) -> "LogicalAxes":
+        return LogicalAxes((name,) + self.names)
+
+    def __repr__(self):
+        return f"Axes{self.names}"
+
+    def __eq__(self, other):
+        return isinstance(other, LogicalAxes) and self.names == other.names
+
+    def __hash__(self):
+        return hash(self.names)
+
+
+class _Mode(threading.local):
+    def __init__(self):
+        self.axes_mode = False
+        self.shape_mode = False
+
+
+_MODE = _Mode()
+
+
+@contextlib.contextmanager
+def _mode(name: str):
+    prev = getattr(_MODE, name)
+    setattr(_MODE, name, True)
+    try:
+        yield
+    finally:
+        setattr(_MODE, name, prev)
+
+
+def abstract_mode() -> bool:
+    """True inside :func:`logical_axes` or :func:`abstract_params`."""
+    return _MODE.axes_mode or _MODE.shape_mode
+
+
+def param(gen: Optional[torch.Generator], shape: Sequence[int],
+          axes: Sequence[Optional[str]], init: str = "normal",
+          scale: float = 1.0, dtype=torch.float32):
+    """One parameter leaf; in the axes mode its :class:`LogicalAxes`, in
+    the shape mode a ``meta`` tensor of its shape and dtype."""
     shape = tuple(shape)
+    if len(shape) != len(axes):
+        raise ValueError(f"shape {shape} and axes {tuple(axes)} differ in "
+                         f"rank")
+    if _MODE.axes_mode:
+        return LogicalAxes(axes)
+    if _MODE.shape_mode:
+        return torch.empty(shape, dtype=dtype, device="meta")
     dev = gen.device
     if init == "zeros":
         return torch.zeros(shape, dtype=dtype, device=dev)
@@ -48,15 +116,29 @@ def param(gen: torch.Generator, shape: Sequence[int], init: str = "normal",
     raise ValueError(init)
 
 
+def logical_axes(init_fn: Callable, *args, **kwargs):
+    """The tree of :class:`LogicalAxes` of ``init_fn(gen, ...)``'s
+    parameters (``init_fn`` is called with ``None`` for the generator)."""
+    with _mode("axes_mode"):
+        return init_fn(None, *args, **kwargs)
+
+
+def abstract_params(init_fn: Callable, *args, **kwargs):
+    """The tree of ``meta`` tensors of ``init_fn(gen, ...)``'s parameters:
+    shapes and dtypes, no storage."""
+    with _mode("shape_mode"):
+        return init_fn(None, *args, **kwargs)
+
+
 # ---------------------------------------------------------------- primitives
 
 def init_linear(gen: torch.Generator, d_in: int, d_out: int, *,
                 bias: bool = False, scale: float = 1.0,
-                dtype=torch.float32) -> dict:
+                dtype=torch.float32, axes=("fsdp", "tp")) -> dict:
     """``w`` is ``(in, out)``, as in the reference."""
-    p = {"w": param(gen, (d_in, d_out), "normal", scale, dtype)}
+    p = {"w": param(gen, (d_in, d_out), axes, "normal", scale, dtype)}
     if bias:
-        p["b"] = param(gen, (d_out,), "zeros", dtype=dtype)
+        p["b"] = param(gen, (d_out,), (axes[1],), "zeros", dtype=dtype)
     return p
 
 
@@ -69,9 +151,9 @@ def linear(p: dict, x: torch.Tensor) -> torch.Tensor:
 
 def init_norm(gen: torch.Generator, d: int, *, kind: str = "rmsnorm",
               dtype=torch.float32) -> dict:
-    p = {"scale": param(gen, (d,), "ones", dtype=dtype)}
+    p = {"scale": param(gen, (d,), ("embed",), "ones", dtype=dtype)}
     if kind == "layernorm":
-        p["bias"] = param(gen, (d,), "zeros", dtype=dtype)
+        p["bias"] = param(gen, (d,), ("embed",), "zeros", dtype=dtype)
     return p
 
 
@@ -96,13 +178,28 @@ def norm(p: dict, x: torch.Tensor, *, kind: str = "rmsnorm",
 
 def init_embedding(gen: torch.Generator, vocab: int, d: int,
                    dtype=torch.float32) -> dict:
-    return {"table": param(gen, (vocab, d), "embed", 0.02, dtype)}
+    # the table's own logical axes, which the "anycost" rules remap
+    # (launch/steps.rules_for) without touching the other leaves
+    return {"table": param(gen, (vocab, d), ("vocab", "embed_fsdp"),
+                           "embed", 0.02, dtype)}
 
 
 def embed(p: dict, tokens: torch.Tensor) -> torch.Tensor:
     table = p["table"]
+    if _sharded(tokens) and not _sharded(table, 0):
+        # a sharded batch into a table whole over its rows (the
+        # "anycost" rules): DTensor's embedding strategy; torch 2.11's
+        # index_select backward takes the local indices for the whole
+        return F.embedding(tokens, table)
     rows = torch.index_select(table, 0, tokens.reshape(-1))
     return rows.reshape(*tokens.shape, table.shape[1])
+
+
+def _sharded(x: torch.Tensor, dim=None) -> bool:
+    """Whether a ``DTensor`` is split (on ``dim``, or on any dimension)."""
+    return hasattr(x, "placements") and any(
+        q.is_shard() and (dim is None or q.dim == dim)
+        for q in x.placements)
 
 
 def unembed(p: dict, x: torch.Tensor) -> torch.Tensor:
@@ -150,13 +247,13 @@ def init_mlp(gen: torch.Generator, d: int, d_ff: int, *,
              activation: str = "swiglu", dtype=torch.float32) -> dict:
     if activation in ("swiglu", "geglu"):
         return {
-            "w_gate": param(gen, (d, d_ff), dtype=dtype),
-            "w_up": param(gen, (d, d_ff), dtype=dtype),
-            "w_down": param(gen, (d_ff, d), dtype=dtype),
+            "w_gate": param(gen, (d, d_ff), ("fsdp", "tp"), dtype=dtype),
+            "w_up": param(gen, (d, d_ff), ("fsdp", "tp"), dtype=dtype),
+            "w_down": param(gen, (d_ff, d), ("tp", "fsdp"), dtype=dtype),
         }
     return {
-        "w_up": param(gen, (d, d_ff), dtype=dtype),
-        "w_down": param(gen, (d_ff, d), dtype=dtype),
+        "w_up": param(gen, (d, d_ff), ("fsdp", "tp"), dtype=dtype),
+        "w_down": param(gen, (d_ff, d), ("tp", "fsdp"), dtype=dtype),
     }
 
 
@@ -178,4 +275,5 @@ def mlp(p: dict, x: torch.Tensor, *, activation: str = "swiglu"
         h = g * (x @ p["w_up"].to(x.dtype))
     else:
         h = _act(activation, x @ p["w_up"].to(x.dtype))
+    h = lc(h, ("batch", "seq", "mlp_act"))
     return h @ p["w_down"].to(x.dtype)

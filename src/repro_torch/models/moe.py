@@ -15,12 +15,15 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
 from repro_torch.models.attention import (attention_residual,
                                           decode_residual, init_attention)
+from repro_torch import sharding as shd
+from repro_torch.sharding import lc
 
 MOE_CHUNK = 512
 
 
 def init_router(gen: torch.Generator, cfg: ArchConfig) -> dict:
-    return {"w": L.param(gen, (cfg.d_model, cfg.moe.n_experts), "normal",
+    return {"w": L.param(gen, (cfg.d_model, cfg.moe.n_experts),
+                         ("fsdp", "experts"), "normal",
                          dtype=torch.float32)}
 
 
@@ -29,9 +32,12 @@ def init_experts(gen: torch.Generator, cfg: ArchConfig) -> dict:
     d, f, e = cfg.d_model, m.expert_d_ff, m.n_experts
     dt = cfg.param_dtype
     return {
-        "w_gate": L.param(gen, (e, d, f), dtype=dt),
-        "w_up": L.param(gen, (e, d, f), dtype=dt),
-        "w_down": L.param(gen, (e, f, d), dtype=dt),
+        "w_gate": L.param(gen, (e, d, f),
+                          ("experts", "expert_in", "expert_ff"), dtype=dt),
+        "w_up": L.param(gen, (e, d, f),
+                        ("experts", "expert_in", "expert_ff"), dtype=dt),
+        "w_down": L.param(gen, (e, f, d),
+                          ("experts", "expert_ff", "expert_in"), dtype=dt),
     }
 
 
@@ -100,16 +106,19 @@ def moe_mlp(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
             cap, device=x.device, dtype=slot_idx.dtype)).float()  # (B,c,K,C)
         # a token's k experts differ, so each (token, expert) sum over k
         # holds at most one nonzero term
-        dispatch = torch.einsum("bske,bskc->bsec", onehot * in_cap, slot)
+        dispatch = shd.einsum("bske,bskc->bsec", onehot * in_cap, slot)
         combine = dispatch * (top_w[..., None] * onehot).sum(2)[..., None]
-        xin = torch.einsum("bsec,bsd->becd", dispatch.to(cfg.param_dtype),
-                           xi)
-        g = torch.einsum("becd,edf->becf", xin, ex["w_gate"].to(xin.dtype))
-        u = torch.einsum("becd,edf->becf", xin, ex["w_up"].to(xin.dtype))
-        h = L._act(activation, g) * u
-        out = torch.einsum("becf,efd->becd", h, ex["w_down"].to(xin.dtype))
-        ys.append(torch.einsum("becd,bsec->bsd", out,
-                               combine.to(xin.dtype)))
+        dispatch = lc(dispatch, ("batch", "seq", "experts_act", "capacity"))
+        xin = shd.einsum("bsec,bsd->becd", dispatch.to(cfg.param_dtype),
+                         xi)
+        xin = lc(xin, ("batch", "experts_act", "capacity", "embed"))
+        g = shd.einsum("becd,edf->becf", xin, ex["w_gate"].to(xin.dtype))
+        u = shd.einsum("becd,edf->becf", xin, ex["w_up"].to(xin.dtype))
+        h = lc(L._act(activation, g) * u,
+               ("batch", "experts_act", "capacity", "tp"))
+        out = shd.einsum("becf,efd->becd", h, ex["w_down"].to(xin.dtype))
+        ys.append(shd.einsum("becd,bsec->bsd", out,
+                             combine.to(xin.dtype)))
         # Switch-style load-balance loss: E * sum_e frac_tokens * frac_prob
         frac_tokens = onehot.mean((1, 2))                       # (B,E)
         frac_prob = probs.mean(1)                               # (B,E)
@@ -124,7 +133,7 @@ def apply_block(p: dict, x: torch.Tensor, positions: torch.Tensor,
                                  causal_skip=causal_skip)
     h = L.norm(p["ln_mlp"], x, kind=cfg.norm)
     y, _aux = moe_mlp(p, h, cfg, activation=cfg.activation)
-    return x + y
+    return lc(x + y, ("batch", "seq", "embed"))
 
 
 def decode_block(p: dict, x: torch.Tensor, cache: dict, pos: int,
@@ -148,8 +157,10 @@ def decode_block(p: dict, x: torch.Tensor, cache: dict, pos: int,
         return x + y[:, None]
     onehot = F.one_hot(top_idx[:, 0], cfg.moe.n_experts).float()  # (B,K,E)
     combine = (top_w[:, 0, :, None] * onehot).sum(1)    # (B,E)
-    dispatch = (onehot.sum(1) > 0).to(cfg.param_dtype)
-    xin = torch.einsum("be,bd->ebd", dispatch, hv)      # (E,B,D)
+    dispatch = lc((onehot.sum(1) > 0).to(cfg.param_dtype),
+                  ("batch", "experts_act"))
+    xin = lc(torch.einsum("be,bd->ebd", dispatch, hv),  # (E,B,D)
+             ("experts_act", "batch", "embed"))
     g = torch.einsum("ebd,edf->ebf", xin, ex["w_gate"].to(hv.dtype))
     u = torch.einsum("ebd,edf->ebf", xin, ex["w_up"].to(hv.dtype))
     act = L._act(cfg.activation, g) * u

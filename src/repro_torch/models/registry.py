@@ -18,6 +18,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import cnn as cnn_mod
 from repro_torch.models import encdec as encdec_mod
+from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.models import vlm as vlm_mod
 from repro_torch.utils.pytree import tree_map
@@ -34,12 +35,22 @@ class Model(NamedTuple):
     # (params, cache, batch) -> (logits, cache), the cache written in place
     decode: Optional[Callable] = None
 
+    def abstract_params(self):
+        """The parameters as ``meta`` tensors (shapes and dtypes)."""
+        return L.abstract_params(self.init, None)
+
+    def logical_axes(self):
+        """Each parameter's ``layers.LogicalAxes``."""
+        return L.logical_axes(self.init, None)
+
 
 def build_model(cfg: ArchConfig) -> Model:
     if cfg.family == "cnn":
         def init(gen: torch.Generator, device="cpu"):
-            return tree_map(lambda t: t.to(device),
-                            cnn_mod.init_cnn(gen, cfg))
+            params = cnn_mod.init_cnn(gen, cfg)
+            if device is None:
+                return params
+            return tree_map(lambda t: t.to(device), params)
 
         def forward(params, batch, **kw):
             return cnn_mod.apply_cnn(params, batch["images"])

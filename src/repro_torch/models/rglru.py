@@ -29,6 +29,9 @@ from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.models.ssm import (_causal_conv, chunked_scan, conv_step,
                                     softplus)
+from repro_torch.sharding import lc
+
+BSE = ("batch", "seq", "embed")
 
 RG_C = 8.0
 RG_CHUNK = 128
@@ -49,16 +52,17 @@ def init_rglru_block(gen: torch.Generator, cfg: ArchConfig) -> dict:
     dt = cfg.param_dtype
     return {
         "norm": L.init_norm(gen, d, kind=cfg.norm, dtype=dt),
-        "in_main": L.init_linear(gen, d, w, dtype=dt),
-        "in_gate": L.init_linear(gen, d, w, dtype=dt),
-        "conv_w": L.param(gen, (CONV_WIDTH, w), "normal", dtype=dt),
-        "conv_b": L.param(gen, (w,), "zeros", dtype=dt),
-        "w_a": L.param(gen, (w,), "uniform", 0.5),
-        "b_a": L.param(gen, (w,), "zeros"),
-        "w_x": L.param(gen, (w,), "uniform", 0.5),
-        "b_x": L.param(gen, (w,), "zeros"),
-        "lam": L.param(gen, (w,), "uniform", 1.0),
-        "out": L.init_linear(gen, w, d, dtype=dt),
+        "in_main": L.init_linear(gen, d, w, dtype=dt, axes=("fsdp", "tp")),
+        "in_gate": L.init_linear(gen, d, w, dtype=dt, axes=("fsdp", "tp")),
+        "conv_w": L.param(gen, (CONV_WIDTH, w), ("conv", "tp"), "normal",
+                          dtype=dt),
+        "conv_b": L.param(gen, (w,), ("tp",), "zeros", dtype=dt),
+        "w_a": L.param(gen, (w,), ("tp",), "uniform", 0.5),
+        "b_a": L.param(gen, (w,), ("tp",), "zeros"),
+        "w_x": L.param(gen, (w,), ("tp",), "uniform", 0.5),
+        "b_x": L.param(gen, (w,), ("tp",), "zeros"),
+        "lam": L.param(gen, (w,), ("tp",), "uniform", 1.0),
+        "out": L.init_linear(gen, w, d, dtype=dt, axes=("tp", "fsdp")),
         "ln_mlp": L.init_norm(gen, d, kind=cfg.norm, dtype=dt),
         "mlp": L.init_mlp(gen, cfg.d_model, cfg.d_ff,
                           activation=cfg.activation, dtype=dt),
@@ -88,15 +92,16 @@ def apply_rglru_block(p: dict, x: torch.Tensor, positions: torch.Tensor,
     h = L.norm(p["norm"], x, kind=cfg.norm)
     main = L.linear(p["in_main"], h)
     gate = L._act("gelu", L.linear(p["in_gate"], h))
+    main = lc(main, ("batch", "seq", "inner_act"))
     main = _causal_conv(main, p["conv_w"].to(main.dtype),
                         p["conv_b"].to(main.dtype))
     a, b = _rglru_gates(p, main.float())
     B, _, W = main.shape
     hseq, _ = rglru_scan(a, b, torch.zeros((B, W), dtype=torch.float32,
                                            device=x.device))
-    y = hseq.to(x.dtype) * gate
-    x = x + L.linear(p["out"], y)
-    return T.mlp_residual(p, x, cfg)
+    y = lc(hseq.to(x.dtype) * gate, ("batch", "seq", "inner_act"))
+    x = lc(x + L.linear(p["out"], y), BSE)
+    return lc(T.mlp_residual(p, x, cfg), BSE)
 
 
 def init_rglru_cache(cfg: ArchConfig, batch: int, device) -> dict:

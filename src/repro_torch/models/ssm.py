@@ -29,6 +29,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
+from repro_torch import sharding as shd
+from repro_torch.sharding import lc
 
 SSM_CHUNK = 128
 
@@ -42,28 +44,37 @@ def init_block(gen: torch.Generator, cfg: ArchConfig) -> dict:
     d, di, N = cfg.d_model, s.d_inner, s.state_dim
     dtr = _dt_rank(cfg)
     dt = cfg.param_dtype
-    dev = gen.device
     # S4D-real initialization for A; dt bias so softplus(dt) ~ U[1e-3, 0.1]
-    a_log = torch.log(torch.arange(1, N + 1, dtype=torch.float32,
-                                   device=dev)).expand(di, N).clone()
-    u = torch.rand((di,), generator=gen, dtype=torch.float32, device=dev)
-    dt_init = torch.exp(u * (math.log(0.1) - math.log(1e-3))
-                        + math.log(1e-3))
-    dt_bias = dt_init + torch.log(-torch.expm1(-dt_init))   # inverse softplus
+    if L.abstract_mode():
+        # their axes and shapes, as the reference's mode branch gives them
+        a_log = L.param(gen, (di, N), ("tp", "state"), "zeros")
+        dt_bias = L.param(gen, (di,), ("tp",), "zeros")
+    else:
+        dev = gen.device
+        a_log = torch.log(torch.arange(1, N + 1, dtype=torch.float32,
+                                       device=dev)).expand(di, N).clone()
+        u = torch.rand((di,), generator=gen, dtype=torch.float32,
+                       device=dev)
+        dt_init = torch.exp(u * (math.log(0.1) - math.log(1e-3))
+                            + math.log(1e-3))
+        # inverse softplus
+        dt_bias = dt_init + torch.log(-torch.expm1(-dt_init))
     return {
         "norm": L.init_norm(gen, d, kind=cfg.norm, dtype=dt),
-        "in_x": L.init_linear(gen, d, di, dtype=dt),
-        "in_z": L.init_linear(gen, d, di, dtype=dt),
-        "conv_w": L.param(gen, (s.conv_width, di), "normal", dtype=dt),
-        "conv_b": L.param(gen, (di,), "zeros", dtype=dt),
-        "w_dt": L.init_linear(gen, di, dtr, dtype=dt),
-        "w_B": L.init_linear(gen, di, N, dtype=dt),
-        "w_C": L.init_linear(gen, di, N, dtype=dt),
-        "dt_proj": L.init_linear(gen, dtr, di, dtype=dt, scale=dtr ** -0.5),
+        "in_x": L.init_linear(gen, d, di, dtype=dt, axes=("fsdp", "tp")),
+        "in_z": L.init_linear(gen, d, di, dtype=dt, axes=("fsdp", "tp")),
+        "conv_w": L.param(gen, (s.conv_width, di), ("conv", "tp"), "normal",
+                          dtype=dt),
+        "conv_b": L.param(gen, (di,), ("tp",), "zeros", dtype=dt),
+        "w_dt": L.init_linear(gen, di, dtr, dtype=dt, axes=("tp", "fsdp")),
+        "w_B": L.init_linear(gen, di, N, dtype=dt, axes=("tp", "state")),
+        "w_C": L.init_linear(gen, di, N, dtype=dt, axes=("tp", "state")),
+        "dt_proj": L.init_linear(gen, dtr, di, dtype=dt,
+                                 axes=("fsdp", "tp"), scale=dtr ** -0.5),
         "dt_bias": dt_bias,
         "A_log": a_log,
-        "D": L.param(gen, (di,), "ones"),
-        "out": L.init_linear(gen, di, d, dtype=dt),
+        "D": L.param(gen, (di,), ("tp",), "ones"),
+        "out": L.init_linear(gen, di, d, dtype=dt, axes=("tp", "fsdp")),
     }
 
 
@@ -79,7 +90,7 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor,
     """Depthwise causal conv. x:(B,S,di), w:(width,di) -> (B,S,di); the
     taps accumulate in x's dtype, in tap order."""
     width, S = w.shape[0], x.shape[1]
-    pad = F.pad(x, (0, 0, width - 1, 0))
+    pad = shd.pad(x, (0, 0, width - 1, 0))
     y = torch.zeros_like(x)
     for kk in range(width):
         y = y + pad[:, kk:kk + S, :] * w[kk][None, None, :]
@@ -170,7 +181,8 @@ def _scan_readout(p: dict, xh: torch.Tensor, h0: torch.Tensor):
     B, S, di = xh.shape
     c = _chunk_len(S, SSM_CHUNK)
     dtf, Bm, Cm, A = _discretize(p, xh)
-    y = torch.empty((B, S, di), dtype=torch.float32, device=xh.device)
+    # xh's placements on a DTensor (DTensor's new_empty follows its input)
+    y = xh.new_empty((B, S, di), dtype=torch.float32)
     h = h0
     for s in range(0, S, c):
         sl = slice(s, s + c)
@@ -183,11 +195,16 @@ def _scan_readout(p: dict, xh: torch.Tensor, h0: torch.Tensor):
 
 
 def _gate_out(p: dict, x: torch.Tensor, y: torch.Tensor, xc: torch.Tensor,
-              z: torch.Tensor) -> torch.Tensor:
-    """``x + out((y + D xc) * silu(z))``, the sums in float32."""
+              z: torch.Tensor, *, constrain: bool = False) -> torch.Tensor:
+    """``x + out((y + D xc) * silu(z))``, the sums in float32;
+    ``constrain`` puts the forward pass's two sharding constraints on
+    it."""
     y = y + p["D"].float() * xc.float()
     y = (y * F.silu(z.float())).to(x.dtype)
-    return x + L.linear(p["out"], y)
+    if not constrain:
+        return x + L.linear(p["out"], y)
+    y = lc(y, ("batch", "seq", "inner_act"))
+    return lc(x + L.linear(p["out"], y), ("batch", "seq", "embed"))
 
 
 def apply_block(p: dict, x: torch.Tensor, positions: torch.Tensor,
@@ -198,12 +215,13 @@ def apply_block(p: dict, x: torch.Tensor, positions: torch.Tensor,
     h = L.norm(p["norm"], x, kind=cfg.norm)
     xh = L.linear(p["in_x"], h)
     z = L.linear(p["in_z"], h)
+    xh = lc(xh, ("batch", "seq", "inner_act"))
     xh = F.silu(_causal_conv(xh, p["conv_w"].to(xh.dtype),
                              p["conv_b"].to(xh.dtype)))
     h0 = torch.zeros((x.shape[0], s.d_inner, s.state_dim),
                      dtype=torch.float32, device=x.device)
     y, _ = _scan_readout(p, xh, h0)
-    return _gate_out(p, x, y, xh, z)
+    return _gate_out(p, x, y, xh, z, constrain=True)
 
 
 def init_block_cache(cfg: ArchConfig, batch: int, cache_len: int,

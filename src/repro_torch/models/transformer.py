@@ -30,7 +30,10 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
 from repro_torch.models.attention import (attention_residual,
                                           decode_residual, init_attention)
+from repro_torch.sharding import lc
 from repro_torch.utils.pytree import PyTree, tree_leaves, tree_map
+
+BSE = ("batch", "seq", "embed")
 
 # ------------------------------------------------------------- layer stacking
 
@@ -39,7 +42,14 @@ def init_stack(gen: torch.Generator, n: int,
     """Stack ``n`` independently initialized blocks along a leading
     ``layers`` axis, one layer at a time (each layer's fan-in is its own,
     and only one layer's float32 draws are alive at once).  ``n`` may be
-    0 (a hybrid stack shorter than one pattern)."""
+    0 (a hybrid stack shorter than one pattern).  In the axes mode each
+    leaf's axes gain a leading ``"layers"``, in the shape mode its
+    ``meta`` tensor a leading ``n`` (``layers.logical_axes``)."""
+    if L._MODE.axes_mode:
+        return tree_map(lambda ax: ax.prepend("layers"), init_fn(gen))
+    if L._MODE.shape_mode:
+        return tree_map(lambda t: t.new_empty((n,) + tuple(t.shape)),
+                        init_fn(gen))
     first = init_fn(gen)
     stacked = tree_map(lambda t: t.new_empty((n,) + tuple(t.shape)), first)
     if n == 0:
@@ -118,7 +128,7 @@ def apply_block(p: dict, x: torch.Tensor, positions: torch.Tensor,
                 ) -> torch.Tensor:
     x, _, _ = attention_residual(p, x, positions, cfg,
                                  causal_skip=causal_skip)
-    return mlp_residual(p, x, cfg)
+    return lc(mlp_residual(p, x, cfg), BSE)
 
 
 def cache_len_for(cfg: ArchConfig, cache_len: int) -> int:
@@ -170,8 +180,8 @@ def prefill_block(p: dict, x: torch.Tensor, positions: torch.Tensor,
     """apply_block that also emits the layer's KV cache (batched prefill)."""
     x, k, v = attention_residual(p, x, positions, cfg,
                                  causal_skip=causal_skip)
-    return mlp_residual(p, x, cfg), prefill_cache(k, v, positions, cfg,
-                                                  cache_len)
+    return lc(mlp_residual(p, x, cfg), BSE), prefill_cache(
+        k, v, positions, cfg, cache_len)
 
 
 def _moe_prefill_block(p: dict, x: torch.Tensor, positions: torch.Tensor,
@@ -181,7 +191,7 @@ def _moe_prefill_block(p: dict, x: torch.Tensor, positions: torch.Tensor,
                                  causal_skip=causal_skip)
     h = L.norm(p["ln_mlp"], x, kind=cfg.norm)
     y, _aux = moe.moe_mlp(p, h, cfg, activation=cfg.activation)
-    return x + y, prefill_cache(k, v, positions, cfg, cache_len)
+    return lc(x + y, BSE), prefill_cache(k, v, positions, cfg, cache_len)
 
 
 # ----------------------------------------------------------------- LM level
@@ -255,7 +265,8 @@ def init_lm(gen: torch.Generator, cfg: ArchConfig) -> PyTree:
             g, cfg, _tail_kind(cfg)))
     if not cfg.tie_embeddings:
         p["unembed"] = L.init_linear(gen, cfg.d_model, cfg.vocab_size,
-                                     dtype=cfg.param_dtype)
+                                     dtype=cfg.param_dtype,
+                                     axes=("fsdp", "tp"))
     return p
 
 
@@ -267,7 +278,7 @@ def forward_lm(params: PyTree, tokens: torch.Tensor, cfg: ArchConfig, *,
     ``remat`` (:func:`scan_blocks`) covers the block stack and the hybrid
     ``tail``; a caller that takes no gradient passes ``"none"``."""
     B, S = tokens.shape
-    x = _embed_input(params, tokens, cfg, extra_embeds)
+    x = lc(_embed_input(params, tokens, cfg, extra_embeds), BSE)
     positions = seq_positions(B, S, x.device)
     apply = _family_fns(cfg)[1]
     x = scan_blocks(lambda p, x: apply(p, x, positions, cfg,
@@ -278,7 +289,7 @@ def forward_lm(params: PyTree, tokens: torch.Tensor, cfg: ArchConfig, *,
         x = scan_blocks(lambda p, x: rglru.apply_block_kind(
             p, x, positions, cfg, _tail_kind(cfg), causal_skip=causal_skip),
             params["tail"], x, remat=remat)
-    return _logits(params, x, cfg)
+    return lc(_logits(params, x, cfg), ("batch", "seq", "vocab_act"))
 
 
 def prefill_lm(params: PyTree, tokens: torch.Tensor, cfg: ArchConfig,

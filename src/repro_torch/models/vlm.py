@@ -9,17 +9,17 @@ positions of the text embeddings (image first).
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
+from repro_torch import sharding as shd
 from repro_torch.models import transformer as T
 
 
 def init_vlm(gen: torch.Generator, cfg: ArchConfig) -> dict:
     p = T.init_lm(gen, cfg)
     p["projector"] = L.init_linear(gen, cfg.vlm.patch_embed_dim, cfg.d_model,
-                                   dtype=cfg.param_dtype)
+                                   dtype=cfg.param_dtype, axes=("fsdp", "tp"))
     return p
 
 
@@ -30,7 +30,7 @@ def project_patches(params: dict, patch_embeds: torch.Tensor, seq_len: int,
     P = proj.shape[1]
     if P > seq_len:
         raise ValueError(f"{P} patches do not fit {seq_len} positions")
-    return F.pad(proj, (0, 0, 0, seq_len - P))
+    return shd.pad(proj, (0, 0, 0, seq_len - P))
 
 
 def forward_vlm(params: dict, tokens: torch.Tensor,

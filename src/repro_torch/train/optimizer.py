@@ -11,9 +11,12 @@ of a leaf's float32 temporaries alive.
 
 The moments are float32 whatever the parameter dtype, and ``step`` is an
 int32 tensor on the parameters' device, so a step reads nothing back to
-the host.  Every product and sum is its own rounding, as in the
-reference: no ``alpha=`` or ``addcmul_`` form that could fuse a multiply
-into an add.
+the host.  ``DTensor`` parameters (the sharded train step,
+``launch/steps.py``) get moments of their placements, and every update
+runs on the local shards, operation for operation the same: on a
+one-rank mesh it is the plain update bit for bit.  Every product and
+sum is its own rounding, as in the reference: no ``alpha=`` or
+``addcmul_`` form that could fuse a multiply into an add.
 """
 from __future__ import annotations
 
@@ -35,8 +38,9 @@ def _step0(params: PyTree) -> torch.Tensor:
 
 
 def _zeros_f32(params: PyTree) -> PyTree:
-    return tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                          device=p.device), params)
+    # a DTensor parameter's moment is a DTensor of its placements
+    return tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32),
+                    params)
 
 
 def _sqrt_(x: torch.Tensor) -> torch.Tensor:

@@ -157,8 +157,10 @@ def test_port_imports_neither_jax_nor_the_reference():
     dynamic round, a mobile hierarchical round, a round with a
     telemetry session attached, the prefill and one decode step of a
     reduced qwen2-7b, falcon-mamba-7b, recurrentgemma-9b and
-    seamless-m4t-large-v2, and one pod-trainer step of a reduced
-    qwen2-7b (the optimizer, the checkpoint and the token data with it)
+    seamless-m4t-large-v2, one pod-trainer step of a reduced qwen2-7b
+    (the optimizer, the checkpoint and the token data with it), and one
+    sharded step of it on a one-rank host mesh (the sharding, mesh and
+    step modules), the roofline's cost model and the dry-run's plan
     run."""
     code = textwrap.dedent("""
         import importlib, pkgutil, sys
@@ -264,6 +266,26 @@ def test_port_imports_neither_jax_nor_the_reference():
             back, step, _ = checkpoint.load_checkpoint(d)
         assert step == 1 and torch.equal(back["embed"]["table"],
                                          params["embed"]["table"])
+        import torch.distributed as dist
+        from repro_torch import sharding
+        from repro_torch.configs import get_shape
+        from repro_torch.launch import dryrun, mesh, roofline, steps
+        dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                                world_size=1)
+        with sharding.use_sharding(mesh.make_host_mesh("cpu")):
+            sp = steps.distribute(params, steps.param_shardings(model))
+            ss = steps.distribute(opt.init(sp),
+                                  steps.opt_state_shardings(opt, model))
+            sp, ss, loss = make_train_step(model, opt)(
+                sp, ss, {"tokens": torch.tensor(docs[idx])})
+        dist.destroy_process_group()
+        assert bool(torch.isfinite(loss)) and sharding.is_dtensor(
+            sp["embed"]["table"])
+        cfg = get_config("qwen2-7b")
+        assert roofline.analytic_cost(cfg, get_shape("train_4k"))[
+            "flops_total"] > 0
+        assert dryrun.plan_entry("seamless-m4t-large-v2", "long_500k") \
+            is None
         assert not [k for k, v in sys.modules.items() if v is not None
                     and (k.split(".")[0] in ("jax", "jaxlib", "repro"))]
         print("ok")

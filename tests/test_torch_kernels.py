@@ -547,8 +547,12 @@ def test_cpu_route_launches_no_kernel():
 
 def test_operands_off_cpu_and_cuda_raise():
     x = torch.ones(4, 8, device="meta")
+    # meta operands alone take the plain version, which gives the shape
+    # (the dry-run's trace); operands on more than one device raise
+    assert ops.kernel_l2_op(x).device.type == "meta"
     with pytest.raises(ValueError):
-        ops.kernel_l2_op(x)
+        ops.aio_aggregate_op(x, torch.ones(4, 8),
+                                                     torch.ones(4))
 
 
 @pytest.mark.parametrize("call", [
