@@ -315,7 +315,10 @@ Phases, in order; any failure exits non-zero:
         spec's share; the ``"anycost"`` step on (pod=2, data=1, model=1)
         bit for bit against the one-rank-a-pod step, #6 once a leaf, and
         each of its combines on the local shards bit for bit against
-        ``aio_aggregate_ref`` on the same tensors;
+        ``aio_aggregate_ref`` on the same tensors; (a)'s step for reduced
+        granite-moe-1b-a400m on (data=1, model=2), reduced qwen2-7b on
+        (data=2, model=1) and reduced falcon-mamba-7b on both, each
+        within 12a's bounds of the unsharded card step (``SHARD_B_CASES``);
     (c) phi3-mini-3.8b as 12b on the one-rank host mesh: losses equal to
         12b's bit for bit, step ms, tokens/s, peak;
     (d) the same on the two ranks of (b), (1, 2), full depth, three
@@ -324,8 +327,23 @@ Phases, in order; any failure exits non-zero:
     (e) ``python -m repro_torch.launch.dryrun`` for qwen2-7b train_4k on
         the single-pod mesh and phi3-mini-3.8b train_4k on the two-pod
         mesh with ``--grad-sync anycost``, side by side: rc 0 and the
-        roofline terms printed.
+        roofline terms printed;
+    (f) ``tests/test_torch_dryrun.py``'s seven reduced pairs traced on
+        ``meta`` tensors over a fake (pod=2, data=2, model=2) group under
+        the card machine's torch, each in a subprocess: per-rank flops
+        and collectives printed (granite-moe's ``"anycost"`` trace and
+        falcon-mamba's train step included).
     It prints its wall time.
+15. The port's examples (``examples/torch_*.py``) at their default sizes
+    on the card: the eight FL and serving examples in this process
+    (``runpy``), the launch counters reset before each and read after
+    it, each example's report lines required; the quickstart's launches
+    the reference's (#1/#2 and #5 once per feasible device, #6 once,
+    nothing else); ``torch_multipod_dryrun.py`` in a subprocess of its
+    own, started before 14e (its CPU traces beside 14e-14f and the
+    other examples), rc 0, both meshes' ``[OK]`` lines echoed from the
+    CLI and their roofline lines.  It prints
+    each example's wall time and launches, and the phase's.
 
 The last lines are the card's name and power limit, one JSON object of
 kernels, and the result line.  Without a card, or without the rest of
@@ -333,6 +351,7 @@ the repository beside this file, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import atexit
 import contextlib
 import dataclasses
 import inspect
@@ -451,6 +470,30 @@ POD_STEPS = 6
 SYNC_KEEP = 1.0 / 16.0
 SYNC_FLIP_SHARE = 1e-3
 SYNC_CELLS = 8
+
+
+#: the subprocesses this script started, each leading a process group of
+#: its own, which a failed check may leave running: ended at exit with
+#: whatever they started
+CHILDREN: list = []
+
+
+def _end_children() -> None:
+    import signal
+    for proc in CHILDREN:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+
+
+atexit.register(_end_children)
+
+
+def clock() -> float:
+    """The host's clock in seconds: every time this script prints is a
+    measurement, none feeds a run."""
+    # repro: ignore[unseeded-randomness] — timing is this script's output
+    return time.perf_counter()
 
 
 def fail(msg: str) -> None:
@@ -683,10 +726,10 @@ def drive_run(label: str, run_cfg, fleet, n_rho: int, n_levels: int, *,
     from repro_torch.utils.pytree import tree_leaves
     torch.cuda.synchronize()
     ops.reset_launch_counts()
-    t0 = time.perf_counter()
+    t0 = clock()
     hist = run_fl(run_cfg, fleet, orch, device="cuda")
     torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    wall = clock() - t0
     got = ops.launch_counts()
     if not (all if every_round else any)(r.n_clients > 0
                                          for r in hist.rounds):
@@ -1146,11 +1189,11 @@ def timing_control_plane(acc: dict):
 
     def timed(fn, key):
         def wrapper(*a, **k):
-            t0 = time.perf_counter()
+            t0 = clock()
             try:
                 return fn(*a, **k)
             finally:
-                acc[key] = acc.get(key, 0.0) + time.perf_counter() - t0
+                acc[key] = acc.get(key, 0.0) + clock() - t0
         return wrapper
 
     for (cls, name, key), fn in zip(patched, originals):
@@ -1321,11 +1364,11 @@ def timing_recorder(acc: list):
 
     def timed(fn):
         def wrapper(*a, **k):
-            t0 = time.perf_counter()
+            t0 = clock()
             try:
                 return fn(*a, **k)
             finally:
-                acc.append(time.perf_counter() - t0)
+                acc.append(clock() - t0)
         return wrapper
 
     for n, fn in zip(names, originals):
@@ -1533,10 +1576,10 @@ def telemetry_phase(main_counts: dict, n_rho: int,
     def run(fleet, tel=None, orch=None, run_cfg=cfg):
         torch.cuda.synchronize()
         ops.reset_launch_counts()
-        t0 = time.perf_counter()
+        t0 = clock()
         hist = run_fl(run_cfg, fleet, orch, device="cuda", telemetry=tel)
         torch.cuda.synchronize()
-        return hist, ops.launch_counts(), time.perf_counter() - t0
+        return hist, ops.launch_counts(), clock() - t0
 
     # the default cuDNN algorithms: two runs of one configuration
     a, _, _ = run(flat)
@@ -1823,10 +1866,10 @@ def profiled(fn, ranges: dict) -> dict:
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
+            t0 = clock()
             fn()
             torch.cuda.synchronize()
-            host = (time.perf_counter() - t0) * 1e3
+            host = (clock() - t0) * 1e3
     finally:
         for name, (mod, call) in real.items():
             setattr(mod, ranges[name][1], call)
@@ -1922,7 +1965,7 @@ def build_full(arch: str, *, tag: str = "serve", **kw):
     cfg = dataclasses.replace(get_config(arch), **kw)
     model = build_model(cfg)
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
+    t0 = clock()
     params = model.init(torch.Generator(device="cuda").manual_seed(0),
                         "cuda")
     torch.cuda.synchronize()
@@ -1931,7 +1974,7 @@ def build_full(arch: str, *, tag: str = "serve", **kw):
     print(f"[{tag}] {arch} full config ({cfg.n_layers} layers, d "
           f"{cfg.d_model}, {cfg.dtype}): {gib:.3f} GiB of parameters "
           f"({cfg.n_params()} by n_params) built on the card from a "
-          f"seeded generator in {time.perf_counter() - t0:.3f} s",
+          f"seeded generator in {clock() - t0:.3f} s",
           flush=True)
     return model, params
 
@@ -1971,7 +2014,7 @@ def serving_phase() -> dict:
     from repro_torch.utils.pytree import tree_leaves, tree_map
 
     resolve_device("cuda")
-    t_phase = time.perf_counter()
+    t_phase = clock()
     torch.cuda.synchronize()
     ops.reset_launch_counts()
     out = {}
@@ -2169,10 +2212,10 @@ def serving_phase() -> dict:
     toks = torch.tensor(np.random.default_rng(6).integers(
         0, cfg.vocab_size, (1, 2048)), dtype=torch.int32, device="cuda")
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
+    t0 = clock()
     logits = vlm.forward_vlm(params, toks, patches, cfg, remat="none")
     torch.cuda.synchronize()
-    ms = (time.perf_counter() - t0) * 1e3
+    ms = (clock() - t0) * 1e3
     if tuple(logits.shape) != (1, 2048, cfg.vocab_size) or not bool(
             torch.isfinite(logits).all()):
         fail(f"10f forward_vlm logits {tuple(logits.shape)}, finite "
@@ -2191,7 +2234,7 @@ def serving_phase() -> dict:
     got = ops.launch_counts()
     if any(got.values()):
         fail(f"phase 10 launched kernels of the FL path: {json.dumps(got)}")
-    wall = time.perf_counter() - t_phase
+    wall = clock() - t_phase
     out["wall_s"] = wall
     print(f"[serve] phase 10: launches of #1-#8 {json.dumps(got)}; "
           f"{wall:.3f} s of wall time", flush=True)
@@ -2293,10 +2336,10 @@ def timed_ms(fn, runs: int = 3) -> tuple[float, list, object]:
     times = []
     for _ in range(runs):
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
+        t0 = clock()
         result = fn()
         torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
+        times.append((clock() - t0) * 1e3)
     return statistics.median(times), times, result
 
 
@@ -2395,7 +2438,7 @@ def recurrent_phase() -> dict:
     from repro_torch.utils.pytree import tree_leaves
 
     resolve_device("cuda")
-    t_phase = time.perf_counter()
+    t_phase = clock()
     torch.cuda.synchronize()
     ops.reset_launch_counts()
     out = {}
@@ -2510,7 +2553,7 @@ def recurrent_phase() -> dict:
     got = ops.launch_counts()
     if any(got.values()):
         fail(f"phase 11 launched kernels of the FL path: {json.dumps(got)}")
-    wall = time.perf_counter() - t_phase
+    wall = clock() - t_phase
     out["wall_s"] = wall
     print(f"[recurrent] phase 11: launches of #1-#8 {json.dumps(got)}; "
           f"{wall:.3f} s of wall time", flush=True)
@@ -2660,7 +2703,7 @@ def train_full(label: str, arch: str, B: int, S: int, mesh=None) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     launches0 = ops.launch_counts()
-    t0 = time.perf_counter()
+    t0 = clock()
     starts, ends, losses = [], [], []
     for _ in range(POD_STEPS):
         starts.append(torch.cuda.Event(enable_timing=True))
@@ -2670,7 +2713,7 @@ def train_full(label: str, arch: str, B: int, S: int, mesh=None) -> dict:
         ends[-1].record()
         losses.append(loss)
     torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    wall = clock() - t0
     out["launches"] = {k: v - launches0[k]
                        for k, v in ops.launch_counts().items()}
     peak = torch.cuda.max_memory_allocated() / 2**30
@@ -2809,7 +2852,7 @@ def pod_phase() -> dict:
     from repro_torch.utils.pytree import tree_leaves
 
     resolve_device("cuda")
-    t_phase = time.perf_counter()
+    t_phase = clock()
     torch.cuda.synchronize()
     ops.reset_launch_counts()
     out = {}
@@ -2842,7 +2885,7 @@ def pod_phase() -> dict:
     got = ops.launch_counts()
     if any(got.values()):
         fail(f"phase 12 launched kernels of the FL path: {json.dumps(got)}")
-    wall = time.perf_counter() - t_phase
+    wall = clock() - t_phase
     out["wall_s"] = wall
     print(f"[pod] phase 12: launches of #1-#8 {json.dumps(got)}; "
           f"{wall:.3f} s of wall time", flush=True)
@@ -3102,14 +3145,14 @@ def two_pods_on_one_card() -> dict:
     from repro_torch.utils.pytree import tree_size
     n_cells = tree_size(build_model(get_config("vgg9-cifar")).init(
         torch.Generator().manual_seed(0), "cpu"))
-    t0 = time.perf_counter()
+    t0 = clock()
     with tempfile.TemporaryDirectory() as d:
         mp.start_processes(pod_rank, args=(os.path.join(d, "store"), d,
                                            n_cells),
                            nprocs=2, start_method="spawn")
         outs = [torch.load(os.path.join(d, f"rank{r}.pt"),
                            weights_only=False) for r in range(2)]
-    spawn_s = time.perf_counter() - t0
+    spawn_s = clock() - t0
     a, b = outs
 
     def same(x, y):
@@ -3211,7 +3254,7 @@ def distributed_phase(auto: dict | None = None) -> dict:
 
     resolve_device("cuda")
     build.build_all()        # before the spawn: the ranks never build
-    t_phase = time.perf_counter()
+    t_phase = clock()
     if auto is None:
         auto = train_full("12b", "phi3-mini-3.8b", 4, 1024)
     by_path = {}
@@ -3239,7 +3282,7 @@ def distributed_phase(auto: dict | None = None) -> dict:
           f"{r13c['sync_launches']:.1f} launches a step; losses "
           f"{[round(x, 4) for x in r13c['losses']]}", flush=True)
     by_path.update(two_pods_on_one_card())
-    wall = time.perf_counter() - t_phase
+    wall = clock() - t_phase
     print(f"[sync] phase 13: {wall:.3f} s of wall time", flush=True)
     return by_path
 
@@ -3253,6 +3296,16 @@ def distributed_phase(auto: dict | None = None) -> dict:
 #: summed in another split of the model axis).
 SHARD_BF16_LOSS_ATOL = 5e-3
 SHARD_D_STEPS = 3
+#: 14b's further sharded steps, each (arch, (data, model)): the MoE's
+#: products under remat full on a model-sharded mesh, and qwen2-7b's on a
+#: data-sharded batch, both refused on the card while the sharding
+#: context was thread-local; the SSM's on a data-sharded batch and with
+#: its inner width over "model", where its low-rank dt products run on
+#: local shards (the two at once, (2, 2), only 14f traces)
+SHARD_B_CASES = (("granite-moe-1b-a400m", (1, 2)),
+                 ("qwen2-7b", (2, 1)),
+                 ("falcon-mamba-7b", (2, 1)),
+                 ("falcon-mamba-7b", (1, 2)))
 
 
 def sharded_reduced(tag: str, mesh, arch: str = "qwen2-7b") -> dict:
@@ -3370,7 +3423,7 @@ def train_sharded(label: str, arch: str, B: int, S: int, mesh,
         torch.cuda.reset_peak_memory_stats()
         ops.reset_launch_counts()
         starts, ends, losses = [], [], []
-        t0 = time.perf_counter()
+        t0 = clock()
         for _ in range(n_steps):
             starts.append(torch.cuda.Event(enable_timing=True))
             ends.append(torch.cuda.Event(enable_timing=True))
@@ -3379,7 +3432,7 @@ def train_sharded(label: str, arch: str, B: int, S: int, mesh,
             ends[-1].record()
             losses.append(loss)
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        wall = clock() - t0
         launches = ops.launch_counts()
     peak = torch.cuda.max_memory_allocated() / 2**30
     local = sum(t.to_local().numel() * t.element_size()
@@ -3467,6 +3520,13 @@ def shard_rank(rank: int, store: str, out_dir: str) -> None:
     out["tp"] = {"diff": compare_runs(r["want"], r["got"]),
                  "launches": r["launches"], "n_sharded": r["n_sharded"]}
     free()
+    for arch, shape in SHARD_B_CASES:
+        r = sharded_reduced("14b", pmesh.make_mesh(
+            shape, ("data", "model"), "cuda"), arch)
+        out[arch, shape] = {"diff": compare_runs(r["want"], r["got"]),
+                            "launches": r["launches"],
+                            "n_sharded": r["n_sharded"]}
+        free()
     # the "anycost" step sharded on (pod=2, data=1, model=1) against the
     # one-rank-a-pod step, on the same pod blocks
     model = build_model(get_config("qwen2-7b").reduced())
@@ -3521,13 +3581,13 @@ def two_ranks_sharded(first_loss: float) -> dict:
 
     import torch
     import torch.multiprocessing as mp
-    t0 = time.perf_counter()
+    t0 = clock()
     with tempfile.TemporaryDirectory() as d:
         mp.start_processes(shard_rank, args=(os.path.join(d, "store"), d),
                            nprocs=2, start_method="spawn")
         outs = [torch.load(os.path.join(d, f"rank{r}.pt"),
                            weights_only=False) for r in range(2)]
-    spawn_s = time.perf_counter() - t0
+    spawn_s = clock() - t0
     for r, out in enumerate(outs):
         loss, grads, params = out["tp"]["diff"]
         if not (loss <= TRAIN_LOSS_ATOL and grads <= TRAIN_GRAD_RTOL):
@@ -3536,6 +3596,16 @@ def two_ranks_sharded(first_loss: float) -> dict:
                  f"gradients {grads} (bound {TRAIN_GRAD_RTOL})")
         if any(out["tp"]["launches"].values()):
             fail(f"14b: the sharded step launched {out['tp']['launches']}")
+        for case in SHARD_B_CASES:
+            loss, grads, _ = out[case]["diff"]
+            if not (loss <= TRAIN_LOSS_ATOL and grads <= TRAIN_GRAD_RTOL):
+                fail(f"14b rank {r}: {case[0]} sharded on {case[1]} against "
+                     f"the unsharded card step, loss {loss} (bound "
+                     f"{TRAIN_LOSS_ATOL}), gradients {grads} (bound "
+                     f"{TRAIN_GRAD_RTOL})")
+            if any(out[case]["launches"].values()):
+                fail(f"14b: {case[0]}'s sharded step on {case[1]} launched "
+                     f"{out[case]['launches']}")
         a = out["anycost"]
         same = a["sharded"]["loss"] == a["pods"]["loss"] and all(
             torch.equal(x, y) for x, y in zip(a["sharded"]["grads"],
@@ -3578,12 +3648,22 @@ def two_ranks_sharded(first_loss: float) -> dict:
           f"same tensors ({sum(c[2] for c in combines)} elements differ, "
           f"max abs err {max(c[3] for c in combines)!r}, "
           f"{sum(c[1] for c in combines)} coordinates kept)", flush=True)
+    for arch, shape in SHARD_B_CASES:
+        o = outs[0][arch, shape]
+        print(f"[shard] 14b {arch} reduced float32 on (data={shape[0]}, "
+              f"model={shape[1]}), remat full, {o['n_sharded']} leaves "
+              f"sharded: against the unsharded card step loss "
+              f"{o['diff'][0]!r}, gradients {o['diff'][1]!r} of a leaf's "
+              f"largest |g|, parameters {o['diff'][2]!r} (both ranks "
+              f"within {TRAIN_LOSS_ATOL} / {TRAIN_GRAD_RTOL})", flush=True)
     print(f"[shard] 14d phi3-mini-3.8b on two ranks of one card: first "
           f"loss {d14['losses'][0]!r} against 14c's {first_loss!r} "
           f"({first!r}, bound {SHARD_BF16_LOSS_ATOL}); per-rank peaks "
           f"{[round(o['14d']['peak_gib'], 3) for o in outs]} GiB, step "
           f"{[round(o['14d']['step_ms'], 3) for o in outs]} ms", flush=True)
     return {"by_path": {"14b sharded step": tp["launches"],
+                        **{f"14b {arch} {shape}": outs[0][arch, shape][
+                            "launches"] for arch, shape in SHARD_B_CASES},
                         "14b anycost": outs[0]["anycost"]["launches"],
                         "14d phi3 two ranks": d14["launches"]},
             "14d": d14, "peaks": [o["14d"]["peak_gib"] for o in outs]}
@@ -3601,11 +3681,13 @@ def dryrun_pairs() -> list:
               "multi", "--grad-sync", "anycost"])
     lines = []
     with tempfile.TemporaryDirectory() as d:
-        t0 = time.perf_counter()
+        t0 = clock()
         procs = [subprocess.Popen(
             [sys.executable, "-m", "repro_torch.launch.dryrun", *argv,
              "--out", d], env=env, stdout=subprocess.PIPE,
-            stderr=subprocess.PIPE, text=True) for argv in pairs]
+            stderr=subprocess.PIPE, text=True, start_new_session=True)
+            for argv in pairs]
+        CHILDREN.extend(procs)
         for argv, proc in zip(pairs, procs):
             stdout, stderr = proc.communicate(timeout=600)
             ok = [x for x in stdout.splitlines() if x.startswith("[OK]")]
@@ -3619,7 +3701,7 @@ def dryrun_pairs() -> list:
             counts = {k: v["count"]
                       for k, v in res["collectives"]["by_op"].items()}
             line = (f"[shard] 14e dryrun {' '.join(argv)} (both pairs "
-                    f"{time.perf_counter() - t0:.3f} s, this trace "
+                    f"{clock() - t0:.3f} s, this trace "
                     f"{res['lower_s']} s): {res['mesh_desc']}, per-rank "
                     f"flops {r['flops']:.4e} (trace {r['hlo_flops']:.4e}), "
                     f"HBM bytes {r['hbm_bytes']:.4e}, wire bytes "
@@ -3634,10 +3716,77 @@ def dryrun_pairs() -> list:
     return lines
 
 
-def sharding_phase(auto: dict | None = None) -> dict:
+#: 14f: ``tests/test_torch_dryrun.py``'s reduced (arch, kind, grad_sync)
+#: pairs and input shapes, traced on a fake (pod=2, data=2, model=2) group
+DRY_PAIRS = (("qwen2-7b", "train", "auto"),
+             ("falcon-mamba-7b", "train", "auto"),
+             ("granite-moe-1b-a400m", "train", "auto"),
+             ("recurrentgemma-9b", "decode", "auto"),
+             ("pixtral-12b", "prefill", "auto"),
+             ("seamless-m4t-large-v2", "decode", "auto"),
+             ("granite-moe-1b-a400m", "train", "anycost"))
+DRY_SCRIPT = r"""
+import json, sys
+from repro_torch.configs import get_config
+from repro_torch.configs.base import InputShape
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import make_mesh
+
+arch, kind, gs = sys.argv[1:4]
+shapes = {"train": ("mini_train", 64, 8, "train"),
+          "decode": ("mini_decode", 128, 8, "decode"),
+          "prefill": ("mini_prefill", 64, 8, "prefill")}
+dryrun.fake_group(8)
+mesh = make_mesh((2, 2, 2), ("pod", "data", "model"), "cpu")
+tr = dryrun.trace_step(get_config(arch).reduced(), InputShape(*shapes[kind]),
+                       mesh, remat="none", grad_sync=gs)
+coll = tr["collectives"]
+print(json.dumps({"flops": tr["flops"], "wire": coll.wire_bytes,
+                  "trace_s": tr["trace_s"],
+                  "collectives": {k: d["count"]
+                                  for k, d in coll.by_op.items()}}))
+"""
+
+
+def start_reduced_dryruns() -> list:
+    """14f's traces, each pair in a subprocess of its own, started."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+    procs = [(pair, subprocess.Popen(
+        [sys.executable, "-c", DRY_SCRIPT, *pair], env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        start_new_session=True)) for pair in DRY_PAIRS]
+    CHILDREN.extend(proc for _, proc in procs)
+    return procs
+
+
+def reduced_dryruns() -> None:
+    """14f: the seven reduced pairs on the card machine's torch; each
+    must trace with flops and collectives."""
+    t0 = clock()
+    for pair, proc in start_reduced_dryruns():
+        stdout, stderr = proc.communicate(timeout=600)
+        name = " ".join(pair)
+        if proc.returncode != 0:
+            fail(f"14f: the reduced dry-run {name}: rc {proc.returncode}: "
+                 f"{stderr[-3000:]}")
+        r = json.loads(stdout.strip().splitlines()[-1])
+        if not (r["flops"] > 0 and sum(r["collectives"].values()) > 0):
+            fail(f"14f: the reduced dry-run {name} traced {r}")
+        print(f"[shard] 14f reduced dry-run {name} on (pod=2, data=2, "
+              f"model=2): per-rank flops {r['flops']:.6e}, wire bytes "
+              f"{r['wire']:.6e}, collectives {json.dumps(r['collectives'])}"
+              f", trace {r['trace_s']:.3f} s", flush=True)
+    print(f"[shard] 14f: the seven pairs side by side in "
+          f"{clock() - t0:.3f} s", flush=True)
+
+
+def sharding_phase(auto: dict | None = None,
+                   example_dryrun: bool = False) -> dict:
     """Phase 14: logical-axis sharding on DTensor (see the module
     docstring).  ``auto`` is phase 12b's result, run here when not
-    given.  Returns the launches of each phase-14 path."""
+    given.  With ``example_dryrun``, phase 15's dry-run example starts
+    before 14e, its CPU traces beside 14e's and 14f's.  Returns the
+    launches of each phase-14 path (and the example's process)."""
     import tempfile
 
     import torch
@@ -3648,7 +3797,7 @@ def sharding_phase(auto: dict | None = None) -> dict:
 
     resolve_device("cuda")
     build.build_all()        # before the spawn: the ranks never build
-    t_phase = time.perf_counter()
+    t_phase = clock()
     if auto is None:
         auto = train_full("12b", "phi3-mini-3.8b", 4, 1024)
     by_path = {}
@@ -3688,14 +3837,134 @@ def sharding_phase(auto: dict | None = None) -> dict:
           f"{auto['peak_gib']:.3f} GiB", flush=True)
     two = two_ranks_sharded(c["losses"][0])
     by_path.update(two["by_path"])
-    for path in ("14b sharded step", "14d phi3 two ranks"):
+    for path in ("14b sharded step", "14d phi3 two ranks",
+                 *(f"14b {arch} {shape}" for arch, shape in SHARD_B_CASES)):
         if any(by_path[path].values()):
             fail(f"{path}: launches {by_path[path]}")
+    example = start_example_dryrun() if example_dryrun else None
     dry = dryrun_pairs()
-    wall = time.perf_counter() - t_phase
+    reduced_dryruns()
+    wall = clock() - t_phase
     print(f"[shard] phase 14: {wall:.3f} s of wall time", flush=True)
     return {"by_path": by_path, "14c": c, "14d": two["14d"],
-            "peaks": two["peaks"], "dryrun": dry, "wall_s": wall}
+            "peaks": two["peaks"], "dryrun": dry, "wall_s": wall,
+            "example_dryrun": example}
+
+
+#: phase 15: each in-process example, its arguments (the defaults: its
+#: published sizes) and the report lines it must print
+EXAMPLES = (
+    ("quickstart", (), ("after 1 round", "uplink")),
+    ("heterogeneous_fleet", (),
+     ("method        best_acc  total_time(s)", "anycostfl", "stc",
+      "heterofl")),
+    ("async_fleet", (), ("--- sync ---", "--- semisync ---",
+                         "--- fedbuff ---",
+                         "policy      best_acc  sim_time(s)  merges")),
+    ("dynamic_fleet", (), ("static : acc=", "dynamic: acc=",
+                           "dispatches)")),
+    ("hier_cells", (), ("flat  best_acc=", "hier  best_acc=",
+                        "backhaul_mb")),
+    ("mobile_fleet", (), ("nearest handover", "peak occupancy",
+                          "replayed scenario")),
+    ("telemetry_run", (), ("trace signatures identical: True",
+                           "round records identical:    True",
+                           "manifest valid: True (backend=cuda",
+                           "(components sum to the round totals")),
+    ("anycost_serving", (), ("width  params%  test-acc (no retraining)",
+                             "transformer width-elastic serving",
+                             "logits finite=True")),
+)
+
+
+def run_example(name: str, argv: tuple) -> tuple[str, float, dict]:
+    """``examples/torch_<name>.py`` run in this process with ``argv``,
+    its standard output captured: (output, host seconds, launches)."""
+    import io
+    import runpy
+
+    import torch
+    from repro_torch.kernels import ops
+    path = os.path.join(HERE, "examples", f"torch_{name}.py")
+    saved = sys.argv, torch.backends.cudnn.deterministic, \
+        torch.backends.cudnn.benchmark
+    buf = io.StringIO()
+    sys.argv = [path, *argv]
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = clock()
+    try:
+        with contextlib.redirect_stdout(buf):
+            runpy.run_path(path, run_name="__main__")
+        torch.cuda.synchronize()
+    except SystemExit as e:
+        fail(f"15: examples/torch_{name}.py exited with {e.code}: "
+             f"{buf.getvalue()[-2000:]}")
+    finally:
+        (sys.argv, torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = saved
+    return buf.getvalue(), clock() - t0, ops.launch_counts()
+
+
+def start_example_dryrun():
+    """``examples/torch_multipod_dryrun.py`` at its defaults (qwen2-7b
+    train_4k on both production meshes) in a subprocess, started."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+    proc = subprocess.Popen(
+        [sys.executable, os.path.join(HERE, "examples",
+                                      "torch_multipod_dryrun.py")],
+        cwd=HERE, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True, start_new_session=True)
+    CHILDREN.append(proc)
+    return proc
+
+
+def examples_phase(dry=None) -> dict:
+    """Phase 15 (see the module docstring).  ``dry`` is the dry-run
+    example's process if it was started earlier, else it starts here.
+    Returns each example's launches."""
+    from repro_torch.device import resolve_device
+    from repro_torch.kernels import build
+    resolve_device("cuda")
+    build.build_all()
+    t_phase = clock()
+    dry = dry or start_example_dryrun()
+    by_path = {}
+    for name, argv, lines in EXAMPLES:
+        out, secs, launches = run_example(name, argv)
+        missing = [x for x in lines if x not in out]
+        if missing:
+            fail(f"15: examples/torch_{name}.py printed none of {missing}: "
+                 f"{out[-2000:]}")
+        if name == "quickstart":
+            feasible = sum(x.startswith("device ") and "infeasible" not in x
+                           for x in out.splitlines())
+            want = {k: 0 for k in launches}
+            want.update(kernel_sumsq=feasible, kernel_l2=feasible,
+                        fused_sparsify_quantize=feasible, aio_aggregate=1)
+            if launches != want or not feasible:
+                fail(f"15: the quickstart's launches {launches}, expected "
+                     f"{want} ({feasible} feasible devices)")
+        by_path[f"15 {name}"] = launches
+        last = out.strip().splitlines()[-1]
+        print(f"[examples] torch_{name}.py: {secs:.3f} s of host wall "
+              f"time; launches {json.dumps(launches)}; last line: {last}",
+              flush=True)
+    stdout, stderr = dry.communicate(timeout=900)
+    roofs = [x for x in stdout.splitlines() if "bottleneck=" in x]
+    # the example echoes each trace's last line; without both [OK]s the
+    # roofline lines could come from an earlier run's result files
+    traced = all(f"[OK] qwen2-7b x train_4k ({mesh})" in stdout
+                 for mesh in ("single", "multi"))
+    if dry.returncode != 0 or len(roofs) != 2 or not traced:
+        fail(f"15: examples/torch_multipod_dryrun.py rc {dry.returncode}: "
+             f"{stdout[-2000:]} {stderr[-2000:]}")
+    for line in roofs:
+        print(f"[examples] torch_multipod_dryrun.py:{line}", flush=True)
+    secs = clock() - t_phase
+    print(f"[examples] phase 15: {secs:.3f} s of wall time (the dry-run "
+          f"example's traces beside the others)", flush=True)
+    return {"by_path": by_path, "wall_s": secs}
 
 
 def main() -> None:
@@ -3725,6 +3994,7 @@ def main() -> None:
         if mod in sys.modules:
             fail(f"{mod} was imported")
 
+    t_script = clock()
     dev = torch.device("cuda")
     card = card_line()
     print(f"card: {card}; torch {torch.__version__}, CUDA "
@@ -3732,9 +4002,9 @@ def main() -> None:
           flush=True)
 
     # ---------------------------------------------------------------- 1
-    t0 = time.perf_counter()
+    t0 = clock()
     built = build.build_all()
-    print(f"[build] nvcc built {built} in {time.perf_counter() - t0:.2f} s",
+    print(f"[build] nvcc built {built} in {clock() - t0:.2f} s",
           flush=True)
     for name, log in build.BUILD_LOGS.items():
         for line in log.splitlines():
@@ -4071,10 +4341,10 @@ def main() -> None:
     for kind, fleet in paths.items():
         torch.cuda.synchronize()
         ops.reset_launch_counts()
-        t0 = time.perf_counter()
+        t0 = clock()
         hist = run_fl(cfg, fleet, device="cuda")
         torch.cuda.synchronize()
-        walls[kind] = time.perf_counter() - t0
+        walls[kind] = clock() - t0
         counts[kind] = ops.launch_counts()
         print(f"[main] {kind}: run_fl fmnist-cnn, {N_DEVICES} devices, "
               f"{cfg.rounds} rounds, n_train {cfg.n_train}, planner on: "
@@ -4310,10 +4580,10 @@ def main() -> None:
         off += math.prod(shape)
     torch.cuda.synchronize()
     ops.reset_launch_counts()
-    t0 = time.perf_counter()
+    t0 = clock()
     compression.BetaPlanner.fit(probe, rand)
     torch.cuda.synchronize()
-    fit_ms = (time.perf_counter() - t0) * 1e3
+    fit_ms = (clock() - t0) * 1e3
     fit_launches = {k: v for k, v in ops.launch_counts().items()
                     if k in ("kernel_sumsq", "kernel_l2", "threshold_apply",
                              "prob_quantize")}
@@ -4351,7 +4621,12 @@ def main() -> None:
     # --------------------------------------------------------------- 13
     by_path.update(distributed_phase(pod["12b"]))
     # --------------------------------------------------------------- 14
-    by_path.update(sharding_phase(pod["12b"])["by_path"])
+    shard = sharding_phase(pod["12b"], example_dryrun=True)
+    by_path.update(shard["by_path"])
+    # --------------------------------------------------------------- 15
+    by_path.update(examples_phase(shard["example_dryrun"])["by_path"])
+    print(f"[time] chip_smoke.py: {clock() - t_script:.3f} s of wall "
+          f"time, the build included", flush=True)
     for k in kernels:
         k["launches_by_path"] = {path: c[k["name"]]
                                  for path, c in by_path.items()}

@@ -93,6 +93,24 @@ class AnycostClient:
             in_dims = 0
         return p
 
+    def local_round(self, sorted_global: PyTree, strategy: Strategy,
+                    batches: dict, gen: torch.Generator, *,
+                    planner: Optional[compression.BetaPlanner] = None,
+                    w_per_sample: float = 0.0) -> ClientUpdate:
+        """One full device round: shrink -> train -> compress -> (upload).
+        The quantization's uniforms, one an element of the full-width
+        update, are drawn from ``gen``, a generator on the parameters'
+        device (the reference's ``key``)."""
+        alpha = bucket_alpha(strategy.alpha, self.alpha_buckets)
+        sub = shrinking.shrink(sorted_global, alpha, self.spec)
+        n_steps = batches["images"].shape[0]
+        trained = self._local_steps(sub, batches)
+        rand = torch.rand(tree_size(sorted_global), generator=gen,
+                          device=tree_leaves(sorted_global)[0].device)
+        return self.finish_round(sorted_global, alpha, trained, strategy,
+                                 n_steps, rand, planner=planner,
+                                 w_per_sample=w_per_sample, sub=sub)
+
     def finish_plan(self, beta: float,
                     planner: Optional[compression.BetaPlanner] = None
                     ) -> tuple[float, float]:

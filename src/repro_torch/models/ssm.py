@@ -97,10 +97,21 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor,
     return y + b[None, None, :]
 
 
+def _dt_low_rank(p: dict, xh: torch.Tensor) -> torch.Tensor:
+    """``linear(w_dt, xh) @ dt_proj``, xh:(B,S,di) -> (B,S,di).  On a
+    ``DTensor`` both products run on the local shards
+    (``sharding.einsum``): with the batch over "data" and the inner width
+    over "model", torch 2.11's DTensor plans the second product with a
+    ``S(0) -> P(sum)`` redistribution that it cannot run."""
+    if not shd.is_dtensor(xh):
+        return L.linear(p["w_dt"], xh) @ p["dt_proj"]["w"].to(xh.dtype)
+    r = shd.einsum("bsd,dr->bsr", xh, p["w_dt"]["w"].to(xh.dtype))
+    return shd.einsum("bsr,rd->bsd", r, p["dt_proj"]["w"].to(xh.dtype))
+
+
 def _discretize(p: dict, xh: torch.Tensor):
     """xh:(B,S,di) -> float32 dt (B,S,di), B and C (B,S,N), A (di,N)."""
-    dt = softplus(L.linear(p["w_dt"], xh) @ p["dt_proj"]["w"].to(xh.dtype)
-                  + p["dt_bias"].to(xh.dtype))
+    dt = softplus(_dt_low_rank(p, xh) + p["dt_bias"].to(xh.dtype))
     Bm = L.linear(p["w_B"], xh).float()
     Cm = L.linear(p["w_C"], xh).float()
     A = -torch.exp(p["A_log"].float())

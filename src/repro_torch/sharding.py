@@ -45,7 +45,6 @@ from __future__ import annotations
 
 import contextlib
 import math
-import threading
 from typing import NamedTuple, Optional, Sequence, Union
 
 import torch
@@ -112,7 +111,13 @@ class NamedSharding(NamedTuple):
     placements: tuple          # one DTensor placement a mesh dimension
 
 
-class _Ctx(threading.local):
+class _Ctx:
+    """The active context, process-wide rather than a thread's: autograd
+    runs a CUDA tensor's backward, and a checkpointed block's recompute
+    inside it, on a device thread of its own, which must see the mesh and
+    rules the forward pass ran under, or the recompute skips every ``lc``
+    and rebuilds its tensors in other placements than the forward's."""
+
     def __init__(self):
         self.mesh = None
         self.rules: dict[str, MeshAxes] = {}

@@ -1,0 +1,18 @@
+#include <cuda_runtime.h>
+#include <cstdint>
+
+__global__ void double_kernel(const float* x, float* out, int64_t n) {
+  int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
+  if (i < n) out[i] = 2.0f * x[i];
+}
+
+extern "C" int widget_double_f32(const float* x, float* out, int64_t n,
+                                 cudaStream_t stream) {
+  double_kernel<<<(n + 255) / 256, 256, 0, stream>>>(x, out, n);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int widget_scale_f32(float* acc, const float* x, float w,
+                                int64_t n, int flags, cudaStream_t stream) {
+  return 0;
+}

@@ -12,23 +12,28 @@ train step) against the JAX package on the CPU.
   reference's ``PartitionSpec``s on a device-free ``AbstractMesh``.  The
   port's side runs in one subprocess that joins a fake 512-rank group.
 * Numerics: two gloo ranks spawned for the module (a ``FileStore`` under
-  ``tmp_path``).  One float32 train step of reduced qwen2-7b and of
-  reduced granite-moe-1b-a400m on the host mesh (data=1, model=2), each
-  within 1e-5 of the reference's unsharded ``make_train_step`` (the loss;
-  each gradient leaf and each updated parameter of a leaf's largest
-  magnitude), the parameters carried over with ``bridge``.  The
-  ``"anycost"`` step on (pod=2, data=1, model=1) equals the one-rank-a-pod
+  ``tmp_path``).  One float32 train step of reduced qwen2-7b, reduced
+  granite-moe-1b-a400m and reduced falcon-mamba-7b on the host mesh
+  (data=1, model=2), each within 1e-5 of the reference's unsharded
+  ``make_train_step`` (the loss; each gradient leaf and each updated
+  parameter of a leaf's largest magnitude), the parameters carried over
+  with ``bridge``; the same for falcon-mamba-7b with the batch split over
+  (data=2, model=1).  The ``"anycost"`` step on (pod=2, data=1, model=1) equals the one-rank-a-pod
   step of ``launch/mesh.make_pod_mesh`` bit for bit, and the reference's
   sync under ``jax.vmap(axis_name="pod")`` exactly where the keep masks
   agree, at most one keep decision apart (``test_torch_distributed``'s
   bounds).  On a one-rank mesh the sharded step equals the unsharded
   port step bit for bit.  The synchronous functional collectives that a
   cuda mesh over gloo registers give torch's values bit for bit.
+* The context is process-wide: a thread started inside it (autograd's
+  device thread, which runs a CUDA backward and a checkpoint's recompute)
+  sees its mesh and rules.
 """
 import json
 import os
 import subprocess
 import sys
+import threading
 
 import numpy as np
 import pytest
@@ -63,7 +68,9 @@ LR = 0.1
 TRAIN_KEEP = 0.25
 MAX_FLIPS = 1
 RTOL = 1e-5
-STEP_ARCHS = ("qwen2-7b", "granite-moe-1b-a400m")
+STEP_ARCHS = ("qwen2-7b", "granite-moe-1b-a400m", "falcon-mamba-7b")
+# the batch split over "data": the SSM's products on a data-sharded batch
+DATA_ARCHS = ("falcon-mamba-7b",)
 ALL_ARCHS = tuple(jconfigs.ASSIGNED_ARCHS) + ("fmnist-cnn", "vgg9-cifar")
 MESHES = {"single": ((16, 16), ("data", "model")),
           "multi": ((2, 16, 16), ("pod", "data", "model"))}
@@ -204,6 +211,26 @@ def test_a_gloo_mesh_made_for_the_cpu_says_cpu(host_mesh):
     assert tmesh.device_type() == ("cuda" if torch.cuda.is_available()
                                    else "cpu")
     assert tmesh.device_type("cuda:0") == "cuda"
+
+
+def test_the_context_is_seen_by_other_threads(host_mesh):
+    """Autograd runs a CUDA tensor's backward, and a checkpointed block's
+    recompute in it, on a device thread: that thread sees the mesh and
+    rules the forward ran under, and the context ends for every thread
+    when it exits."""
+    seen = []
+
+    def look():
+        seen.append((shd.active(), shd.spec_for(("batch", "mlp_act"))))
+
+    with shd.use_sharding(host_mesh, {"mlp_act": "data"}):
+        t = threading.Thread(target=look)
+        t.start()
+        t.join()
+    t = threading.Thread(target=look)
+    t.start()
+    t.join()
+    assert seen == [(True, shd.P("data", None)), (False, shd.P())]
 
 
 def test_one_rank_sharded_step_equals_the_unsharded_step(host_mesh):
@@ -382,6 +409,21 @@ def _rank_main(rank, store, out_dir):
                 sharded, opt.init(sharded), batch)
             out[arch] = {"loss": float(loss), "grads": seen["grads"],
                          "new": _np(_whole(new)), "local": local}
+    data = tmesh.make_mesh((WORLD, 1), ("data", "model"), "cpu")
+    for arch in DATA_ARCHS:
+        model = build_model(configs.get_config(arch).reduced())
+        params, tokens = _load(out_dir, arch)
+        seen = {}
+        opt = _recording_sgd(seen)
+        with shd.use_sharding(data):
+            sharded = steps.distribute(bridge.params_from_numpy(params,
+                                                                "cpu"),
+                                       steps.param_shardings(model))
+            local = [tuple(t.to_local().shape) for t in tree_leaves(sharded)]
+            new, _, loss = steps.make_train_step(model, opt, remat="full")(
+                sharded, opt.init(sharded), {"tokens": torch.tensor(tokens)})
+            out["data", arch] = {"loss": float(loss), "grads": seen["grads"],
+                                 "new": _np(_whole(new)), "local": local}
     # the "anycost" step: sharded on (pod=2, data=1, model=1), and the
     # one-rank-a-pod step beside it
     model = build_model(configs.get_config("qwen2-7b").reduced())
@@ -464,7 +506,7 @@ def ranks(tmp_path_factory):
     import torch.multiprocessing as mp
     d = tmp_path_factory.mktemp("sharded")
     inputs = {}
-    for i, arch in enumerate(STEP_ARCHS):
+    for i, arch in enumerate(dict.fromkeys(STEP_ARCHS + DATA_ARCHS)):
         params = bridge.params_to_numpy(build_model(configs.get_config(
             arch).reduced()).init(torch.Generator().manual_seed(i), "cpu"))
         tokens = np.random.default_rng(10 + i).integers(
@@ -508,6 +550,28 @@ def test_two_rank_sharded_step_matches_the_reference(ranks, arch):
     halved = sum(np.prod(lo) * 2 == np.prod(w)
                  for lo, w in zip(a["local"], whole))
     assert halved >= len(whole) // 2 and a["local"] == b["local"]
+
+
+@pytest.mark.parametrize("arch", DATA_ARCHS)
+def test_two_rank_data_sharded_step_matches_the_reference(ranks, arch):
+    """The batch split over "data" (and the ZeRO-style "fsdp" leaves with
+    it): the SSM's low-rank dt products run on the local shards."""
+    params, tokens = ranks["inputs"][arch]
+    jl, jg, jnew = _reference_step(arch, params, tokens)
+    a, b = (o["data", arch] for o in ranks["outs"])
+    assert a["loss"] == b["loss"]
+    assert abs(a["loss"] - jl) <= RTOL
+    for got, want in zip(a["grads"], jg):
+        assert float(np.abs(got - want).max()) \
+            <= RTOL * float(np.abs(want).max())
+    for got, other, want in zip(a["new"], b["new"], jnew):
+        np.testing.assert_array_equal(got, other)
+        assert float(np.abs(got - want).max()) \
+            <= RTOL * float(np.abs(want).max())
+    whole = [tuple(np.shape(x)) for x in jax.tree.leaves(params)]
+    assert any(np.prod(lo) * 2 == np.prod(w)
+               for lo, w in zip(a["local"], whole))
+    assert a["local"] == b["local"]
 
 
 def test_sharded_anycost_step_equals_the_pod_step_and_the_reference(ranks):
