@@ -29,7 +29,9 @@ runpy.run_path(sys.argv[0], run_name='__main__')
 
 
 def run_example(name: str, *args: str) -> str:
-    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    # one thread: under pytest-xdist several workers share the cores
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               OMP_NUM_THREADS="1", MKL_NUM_THREADS="1")
     p = subprocess.run([sys.executable, "-c", RUN,
                         os.path.join("examples", f"torch_{name}.py"),
                         *args], cwd=ROOT, env=env, capture_output=True,
