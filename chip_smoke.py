@@ -344,6 +344,17 @@ Phases, in order; any failure exits non-zero:
     other examples), rc 0, both meshes' ``[OK]`` lines echoed from the
     CLI and their roofline lines.  It prints
     each example's wall time and launches, and the phase's.
+16. The last surface.  (a) The pytree helpers (``utils/pytree.py``) on
+    the fmnist-cnn parameters as CUDA tensors, float32 and bf16 copies,
+    against the same calls on the CPU: ``tree_dot`` rtol 1e-6 (products
+    that do not cancel), the rest exact; (b) ``schedule.solve_population``
+    on the 12-device population, equal to 12 ``solve`` calls; (c) a
+    strided ``cnn.conv2d`` (stride 2, SAME and VALID, an odd and an even
+    input) on the card against the CPU, rtol 1e-5; (d)
+    ``scripts/validate_telemetry_torch.py --run`` in this process on the
+    card, with every launch counter zeroed before and read after: the
+    counts ``expected_launches`` derives for the hierarchical path (#7
+    and #8 launched, #6 not).  It prints the phase's wall time.
 
 The last lines are the card's name and power limit, one JSON object of
 kernels, and the result line.  Without a card, or without the rest of
@@ -3967,6 +3978,151 @@ def examples_phase(dry=None) -> dict:
     return {"by_path": by_path, "wall_s": secs}
 
 
+def surface_pytree(dev) -> float:
+    """16a: the pytree helpers on the card against the CPU; returns the
+    largest relative difference of ``tree_dot``."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import build_model
+    from repro_torch.utils import pytree as T
+    model = build_model(get_config("fmnist-cnn"))
+    worst = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        cpu = [T.tree_cast(model.init(torch.Generator().manual_seed(s),
+                                      "cpu"), dtype) for s in (0, 1)]
+        card = [T.tree_map(lambda x: x.to(dev), t) for t in cpu]
+
+        def same(label, got, want):
+            g, w = T.tree_leaves(got), T.tree_leaves(want)
+            if len(g) != len(w) or not all(
+                    a.device.type == "cuda" and a.dtype == b.dtype
+                    and torch.equal(a.cpu(), b) for a, b in zip(g, w)):
+                fail(f"16a {dtype}: {label} differs on the card")
+        if not T.tree_bytes(card[0]) == T.tree_bytes(cpu[0]) \
+                == 1_663_370 * card[0]["conv1"]["w"].element_size():
+            fail(f"16a {dtype}: tree_bytes {T.tree_bytes(card[0])}")
+        same("tree_zeros_like", T.tree_zeros_like(card[0]),
+             T.tree_zeros_like(cpu[0]))
+        same("tree_add", T.tree_add(*card), T.tree_add(*cpu))
+        same("tree_scale", T.tree_scale(card[0], 0.3),
+             T.tree_scale(cpu[0], 0.3))
+        same("tree_cast", T.tree_cast(card[0], torch.float32),
+             T.tree_cast(cpu[0], torch.float32))
+        same("map_named", T.map_named(lambda n, x: x * len(n), card[0]),
+             T.map_named(lambda n, x: x * len(n), cpu[0]))
+        if [n for n, _ in T.named_leaves(card[0])] \
+                != [n for n, _ in T.named_leaves(cpu[0])]:
+            fail(f"16a {dtype}: named_leaves differs on the card")
+        absd = [T.tree_map(torch.abs, t) for t in (card[1], cpu[1])]
+        for label, got, want in (
+                ("p.p", T.tree_dot(card[0], card[0]),
+                 T.tree_dot(cpu[0], cpu[0])),
+                ("|q|.|q|", T.tree_dot(absd[0], absd[0]),
+                 T.tree_dot(absd[1], absd[1]))):
+            if got.device.type != "cuda" or got.dtype != want.dtype:
+                fail(f"16a {dtype}: tree_dot {label} on {got.device}, "
+                     f"{got.dtype}")
+            rel = abs(float(got) - float(want)) / abs(float(want))
+            worst = max(worst, rel)
+            if rel > 1e-6:
+                fail(f"16a {dtype}: tree_dot {label} {float(got)!r} on the "
+                     f"card, {float(want)!r} on the CPU")
+        for bad in (None, float("nan"), float("inf")):
+            t = T.tree_map(torch.clone, card[0])
+            if bad is not None:
+                t["dense1"]["w"][3, 5] = bad
+            flag = T.tree_any_nan(t)
+            if flag.device.type != "cuda" or bool(flag) != (bad is not None):
+                fail(f"16a {dtype}: tree_any_nan {bool(flag)} with {bad}")
+    return worst
+
+
+def surface_conv(dev) -> float:
+    """16c: strided conv2d on the card against the CPU; returns the
+    largest absolute difference."""
+    import torch
+    from repro_torch.models import cnn
+    gen = torch.Generator().manual_seed(5)
+    p = cnn.init_conv(gen, 5, 5, 32, 64)
+    p["b"] = torch.rand(64, generator=gen)
+    worst = 0.0
+    for size in (15, 14):
+        x = torch.rand(4, 32, size, size + 1, generator=gen)
+        for padding in ("SAME", "VALID"):
+            want = cnn.conv2d(p, x, stride=2, padding=padding)
+            got = cnn.conv2d({k: v.to(dev) for k, v in p.items()}, x.to(dev),
+                             stride=2, padding=padding)
+            torch.cuda.synchronize()
+            got = got.cpu()
+            if got.shape != want.shape or not torch.allclose(
+                    got, want, rtol=1e-5, atol=1e-5):
+                fail(f"16c: conv2d stride 2 {padding} at {size}: "
+                     f"{tuple(got.shape)} against {tuple(want.shape)}, "
+                     f"{float((got - want).abs().max())}")
+            worst = max(worst, float((got - want).abs().max()))
+    return worst
+
+
+def surface_phase(n_rho: int, n_levels: int) -> dict:
+    """Phase 16 (see the module docstring).  Returns the validator run's
+    launches."""
+    import dataclasses as dc
+    import importlib.util
+
+    import numpy as np
+    import torch
+    from repro_torch.core import schedule
+    from repro_torch.device import resolve_device
+    from repro_torch.kernels import build, ops
+    from repro_torch.sysmodel import population
+    dev = resolve_device("cuda")
+    build.build_all()
+    t_phase = clock()
+    dot_rel = surface_pytree(dev)
+    print(f"[surface] 16a: pytree helpers on the card equal the CPU's, "
+          f"tree_dot within {dot_rel:.3e}", flush=True)
+    rng = np.random.default_rng(12)
+    fleet = population.make_fleet(
+        rng, population.FleetConfig(n_devices=N_DEVICES),
+        np.full(N_DEVICES, 128))
+    envs = fleet.round_envs(rng, 1e6, 3.2e7)
+    got = [dc.asdict(s) for s in schedule.solve_population(envs)]
+    if got != [dc.asdict(schedule.solve(e)) for e in envs] \
+            or len(got) != N_DEVICES:
+        fail("16b: solve_population differs from solve")
+    print(f"[surface] 16b: solve_population equals {N_DEVICES} solve calls "
+          f"({sum(s['feasible'] for s in got)} feasible)", flush=True)
+    conv_err = surface_conv(dev)
+    print(f"[surface] 16c: conv2d stride 2, SAME and VALID, 15 and 14 "
+          f"rows, card against CPU within {conv_err:.3e}", flush=True)
+    spec = importlib.util.spec_from_file_location(
+        "validate_telemetry_torch",
+        os.path.join(HERE, "scripts", "validate_telemetry_torch.py"))
+    script = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(script)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = clock()
+    try:
+        hist = script.main(["--run"])
+        torch.cuda.synchronize()
+    except SystemExit as e:
+        fail(f"16d: validate_telemetry_torch.py --run exited with {e.code}")
+    secs = clock() - t0
+    launches = ops.launch_counts()
+    want = expected_launches(script.tiny_configs()[0], hist, n_rho,
+                             n_levels, hier=True)
+    if launches != want or not launches["aio_absorb"] \
+            or not launches["aio_merge"] or launches["aio_aggregate"]:
+        fail(f"16d: the validator's run launched {json.dumps(launches)}, "
+             f"expected {json.dumps(want)} (#7 and #8, no #6)")
+    print(f"[surface] 16d: validate_telemetry_torch.py --run on the card "
+          f"{secs:.3f} s; launches {json.dumps(launches)}", flush=True)
+    wall = clock() - t_phase
+    print(f"[surface] phase 16: {wall:.3f} s of wall time", flush=True)
+    return {"16 validator": launches}
+
+
 def main() -> None:
     try:
         import torch
@@ -4625,6 +4781,8 @@ def main() -> None:
     by_path.update(shard["by_path"])
     # --------------------------------------------------------------- 15
     by_path.update(examples_phase(shard["example_dryrun"])["by_path"])
+    # --------------------------------------------------------------- 16
+    by_path.update(surface_phase(n_rho, n_levels))
     print(f"[time] chip_smoke.py: {clock() - t_script:.3f} s of wall "
           f"time, the build included", flush=True)
     for k in kernels:

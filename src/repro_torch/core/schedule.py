@@ -118,3 +118,9 @@ def solve(env: DeviceEnv) -> Strategy:
     # the realized strategy keeps the argmax faithful to Problem (P1).
     strategies = [_recover(p, env) for p in candidates]
     return max(strategies, key=lambda s: (s.feasible, s.gain))
+
+
+def solve_population(envs: list[DeviceEnv]) -> list[Strategy]:
+    """Each device decides locally (no cross-device information): its
+    own :func:`solve`, in order."""
+    return [solve(e) for e in envs]

@@ -20,19 +20,47 @@ from repro_torch.models import layers as L
 
 
 def init_conv(gen: torch.Generator, kh: int, kw: int, c_in: int,
-              c_out: int) -> dict:
+              c_out: int, dtype: torch.dtype = torch.float32) -> dict:
     return {
         "w": L.param(gen, (kh, kw, c_in, c_out), (None, None, "fsdp", "tp"),
-                     "normal", scale=math.sqrt(2.0)),
-        "b": L.param(gen, (c_out,), ("tp",), "zeros"),
+                     "normal", scale=math.sqrt(2.0), dtype=dtype),
+        "b": L.param(gen, (c_out,), ("tp",), "zeros", dtype=dtype),
     }
 
 
-def conv2d(p: dict, x: torch.Tensor) -> torch.Tensor:
-    """'SAME' stride-1 convolution. x: (B, C, H, W) view; w: HWIO."""
+def _conv_pads(padding, size: tuple, kernel: tuple, stride: int) -> tuple:
+    """``((lo, hi), (lo, hi))`` over (H, W), as ``lax.conv_general_dilated``
+    reads ``padding``: "SAME" (output ``ceil(n / stride)``, the odd pad
+    on the high side), "VALID", or explicit pairs."""
+    if not isinstance(padding, str):
+        return tuple((int(lo), int(hi)) for lo, hi in padding)
+    if padding == "VALID":
+        return ((0, 0), (0, 0))
+    if padding != "SAME":
+        raise ValueError(f"unknown padding {padding!r}; expected 'SAME', "
+                         "'VALID' or ((lo, hi), (lo, hi))")
+    pads = []
+    for n, k in zip(size, kernel):
+        total = max((-(-n // stride) - 1) * stride + k - n, 0)
+        pads.append((total // 2, total - total // 2))
+    return tuple(pads)
+
+
+def conv2d(p: dict, x: torch.Tensor, *, stride: int = 1,
+           padding="SAME") -> torch.Tensor:
+    """x: (B, C, H, W) view; w: HWIO.  ``padding`` as :func:`_conv_pads`;
+    a symmetric pad goes to ``F.conv2d``, an asymmetric one through
+    ``F.pad`` first (``F.conv2d``'s "same" refuses a stride above 1)."""
     w = p["w"].to(x.dtype)
+    (top, bottom), (left, right) = _conv_pads(
+        padding, tuple(x.shape[2:]), tuple(w.shape[:2]), stride)
+    if top == bottom >= 0 and left == right >= 0:
+        pad = (top, left)
+    else:
+        x = F.pad(x, (left, right, top, bottom))
+        pad = 0
     return F.conv2d(x, w.permute(3, 2, 0, 1), p["b"].to(x.dtype),
-                    padding=w.shape[0] // 2)
+                    stride=stride, padding=pad)
 
 
 def _flatten_hwc(x: torch.Tensor) -> torch.Tensor:

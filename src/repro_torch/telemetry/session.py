@@ -59,6 +59,12 @@ class Telemetry:
         # imports the health module unless a run opts in)
         self.health = None
 
+    def set_fleet_size(self, n: int) -> None:
+        """Report the fleet size (engages rollup past its threshold).
+
+        Pure bookkeeping — records nothing, so it is safe unguarded."""
+        self.registry.set_fleet_size(n)
+
     # ------------------------------------------------ emission (delegates)
 
     def span(self, track: str, name: str, t0: float, t1: float,
@@ -116,6 +122,9 @@ class _NullTelemetry:
     registry = None
     sink = None
     health = None
+
+    def set_fleet_size(self, n):
+        pass
 
     def span(self, track, name, t0, t1, **args):
         pass

@@ -5,8 +5,9 @@ absorbed: the streaming-AIO partial is the unnormalized ``(num, den)``
 pair (``core/aggregation.PartialAgg``), so its wire size is a constant
 multiple of the update size, set by the wire codec
 (``topology/codec.py``): two float32 planes at ``f32`` (2.0), bf16
-(1.0), or int8 planes (0.5 plus per-leaf scale headers).  The runner
-charges the codec's exact encoded bit count through :meth:`ship_bits`.
+(1.0), or int8 planes (0.5 plus per-leaf scale headers), unless
+``payload_factor`` overrides it.  The runner charges the codec's exact
+encoded bit count through :meth:`ship_bits`.
 
 Costs mirror the devices' Eq. 6-9: a fixed one-way latency plus
 serialization at the provisioned rate, and an energy-per-bit tariff.
@@ -21,6 +22,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Optional
 
 import numpy as np
 
@@ -33,6 +35,9 @@ class BackhaulConfig:
     latency_s: float = 0.01        # one-way propagation + handshake
     energy_per_bit: float = 0.0    # J/bit tariff of the hop
     codec: str = "f32"             # wire dtype of the shipped (num, den)
+    # explicit override of the wire-size multiple; None -> derived from
+    # the codec's encoded dtype (f32: 2.0, bf16: 1.0, int8: 0.5)
+    payload_factor: Optional[float] = None
     # feed each round's bf16/int8 quantization error back into the next
     # round's shipped partial (per-cell residual held at the edge)
     error_feedback: bool = False
@@ -45,22 +50,36 @@ class BackhaulConfig:
         if self.codec not in CODECS:
             raise ValueError(f"unknown backhaul codec {self.codec!r}; "
                              f"expected one of {CODECS}")
+        if self.payload_factor is not None and self.payload_factor <= 0:
+            raise ValueError("backhaul payload_factor must be > 0")
 
     @classmethod
     def zero_cost(cls) -> "BackhaulConfig":
         """A free, instantaneous link (the flat-equivalence case)."""
         return cls(rate_bps=math.inf, latency_s=0.0, energy_per_bit=0.0)
 
+    @property
+    def wire_factor(self) -> float:
+        """Partial wire size / ``s_bits``: the override, else the
+        codec's multiple."""
+        if self.payload_factor is not None:
+            return self.payload_factor
+        return payload_factor(self.codec)
+
     def payload_bits(self, s_bits: float) -> float:
-        """Modelled wire size of one shipped partial (headerless): the
-        codec's multiple of the update's ``s_bits``."""
-        return payload_factor(self.codec) * s_bits
+        """Modelled wire size of one shipped partial (headerless):
+        :attr:`wire_factor` times the update's ``s_bits``."""
+        return self.wire_factor * s_bits
 
     def ship_bits(self, bits: float) -> tuple[float, float]:
         """(latency_s, energy_j) of shipping ``bits`` over the hop."""
         t = self.latency_s + (bits / self.rate_bps
                               if math.isfinite(self.rate_bps) else 0.0)
         return t, bits * self.energy_per_bit
+
+    def ship_cost(self, s_bits: float) -> tuple[float, float]:
+        """(latency_s, energy_j) of shipping one modelled partial."""
+        return self.ship_bits(self.payload_bits(s_bits))
 
 
 def sample_cell_backhauls(base: BackhaulConfig, n_cells: int,

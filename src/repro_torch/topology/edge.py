@@ -43,6 +43,10 @@ class EdgeAggregator:
         self.cell_id = cell_id
         self.part = aggregation.partial_init(template)
 
+    @property
+    def n_absorbed(self) -> int:
+        return self.part.count
+
     def absorb(self, values: PyTree, mask: PyTree, weight: float) -> None:
         """Fold one uplink in place; ``weight`` is the client's
         *unnormalized* coefficient (Eq. 5's ratio cancels

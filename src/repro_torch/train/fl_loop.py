@@ -21,7 +21,10 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-from repro_torch.core.anycost import DEFAULT_ALPHA_BUCKETS
+# AnycostClient/AnycostServer are re-exported, as the reference's module
+# does (its benchmarks hook the server's aggregate through it)
+from repro_torch.core.anycost import (AnycostClient, AnycostServer,  # noqa: F401
+                                      DEFAULT_ALPHA_BUCKETS)
 from repro_torch.models.registry import cls_loss
 from repro_torch.sysmodel.population import FleetConfig
 

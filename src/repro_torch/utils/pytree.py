@@ -6,8 +6,9 @@ kernel ids and masks line up with the reference element for element.
 """
 from __future__ import annotations
 
+import functools
 import math
-from typing import Any, Callable
+from typing import Any, Callable, Iterable
 
 import torch
 
@@ -51,8 +52,48 @@ def tree_size(tree: PyTree) -> int:
     return sum(x.numel() for x in tree_leaves(tree))
 
 
+def tree_bytes(tree: PyTree) -> int:
+    """Total bytes of the tensor leaves, by element size (bf16 is 2)."""
+    return sum(math.prod(x.shape) * x.element_size()
+               for x in tree_leaves(tree) if hasattr(x, "shape"))
+
+
+def tree_zeros_like(tree: PyTree) -> PyTree:
+    return tree_map(torch.zeros_like, tree)
+
+
+def tree_add(a: PyTree, b: PyTree) -> PyTree:
+    return tree_map(torch.add, a, b)
+
+
 def tree_sub(a: PyTree, b: PyTree) -> PyTree:
     return tree_map(torch.sub, a, b)
+
+
+def tree_scale(tree: PyTree, s) -> PyTree:
+    """Each leaf times ``s``.  A Python number is first rounded to a
+    floating leaf's dtype, as JAX rounds a weakly typed scalar: a bf16
+    leaf times 0.3 is the bf16 product of two bf16 values."""
+    def scale(x):
+        if isinstance(s, (int, float)) and x.is_floating_point():
+            return x * torch.tensor(s, dtype=x.dtype).item()
+        return x * s
+    return tree_map(scale, tree)
+
+
+def _vdot(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    # a half-precision product accumulates in float32 and rounds once
+    # to the promoted dtype, as XLA's bf16 dot does
+    dtype = torch.promote_types(x.dtype, y.dtype)
+    acc = torch.float32 if dtype.itemsize < 4 else dtype
+    return torch.vdot(x.reshape(-1).to(acc),
+                      y.reshape(-1).to(acc)).to(dtype)
+
+
+def tree_dot(a: PyTree, b: PyTree) -> torch.Tensor:
+    """Sum of the leaves' ``vdot``s, a left fold in leaf order."""
+    parts = [_vdot(x, y) for x, y in zip(tree_leaves(a), tree_leaves(b))]
+    return functools.reduce(torch.add, parts)
 
 
 def tree_l2(tree: PyTree) -> torch.Tensor:
@@ -62,6 +103,17 @@ def tree_l2(tree: PyTree) -> torch.Tensor:
     for s in sq[1:]:
         total = total + s
     return torch.sqrt(total)
+
+
+def tree_any_nan(tree: PyTree) -> torch.Tensor:
+    """0-d bool tensor on the leaves' device: any non-finite value (NaN
+    or inf), checked in float32; no host read."""
+    flags = [torch.any(~torch.isfinite(x.float())) for x in tree_leaves(tree)]
+    return functools.reduce(torch.logical_or, flags)
+
+
+def tree_cast(tree: PyTree, dtype: torch.dtype) -> PyTree:
+    return tree_map(lambda x: x.to(dtype), tree)
 
 
 def flatten_to_vector(tree: PyTree) -> tuple[torch.Tensor, Callable]:
@@ -115,3 +167,21 @@ def split_vector(template: PyTree, vec: torch.Tensor) -> PyTree:
         out.append(vec[off:off + n].view(x.shape))
         off += n
     return tree_unflatten(template, out)
+
+
+def named_leaves(tree: PyTree, prefix: str = "") -> Iterable[tuple[str, Any]]:
+    """Yield ``(dotted_path, leaf)`` pairs of a nested dict, keys sorted."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from named_leaves(tree[k], f"{prefix}{k}.")
+    else:
+        yield prefix.rstrip("."), tree
+
+
+def map_named(fn: Callable[[str, Any], Any], tree: PyTree,
+              prefix: str = "") -> PyTree:
+    """Map ``fn(dotted_path, leaf)`` over a nested dict, keeping its
+    insertion order."""
+    if isinstance(tree, dict):
+        return {k: map_named(fn, v, f"{prefix}{k}.") for k, v in tree.items()}
+    return fn(prefix.rstrip("."), tree)

@@ -161,7 +161,7 @@ def test_port_imports_neither_jax_nor_the_reference():
     (the optimizer, the checkpoint and the token data with it), and one
     sharded step of it on a one-rank host mesh (the sharding, mesh and
     step modules), the roofline's cost model and the dry-run's plan
-    run."""
+    run, and ``scripts/validate_telemetry_torch.py`` imports."""
     code = textwrap.dedent("""
         import importlib, pkgutil, sys
         sys.modules["jax"] = None
@@ -286,6 +286,14 @@ def test_port_imports_neither_jax_nor_the_reference():
             "flops_total"] > 0
         assert dryrun.plan_entry("seamless-m4t-large-v2", "long_500k") \
             is None
+        import importlib.util, os
+        spec = importlib.util.spec_from_file_location(
+            "validate_telemetry_torch",
+            os.path.join(os.path.dirname(repro_torch.__file__), "..", "..",
+                         "scripts", "validate_telemetry_torch.py"))
+        script = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(script)
+        assert callable(script.tiny_run)
         assert not [k for k, v in sys.modules.items() if v is not None
                     and (k.split(".")[0] in ("jax", "jaxlib", "repro"))]
         print("ok")

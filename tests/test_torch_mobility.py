@@ -329,8 +329,6 @@ def test_launcher_builds_the_reference_configs():
     for name in ("_dynamics_config", "_mobility_config",
                  "_topology_config"):
         want = dc.asdict(getattr(jtrain, name)(args))
-        if "backhaul" in want:     # a field the port's link leaves out
-            assert want["backhaul"].pop("payload_factor") is None
         assert dc.asdict(getattr(ttrain, name)(args)) == want, name
 
 

@@ -455,3 +455,270 @@ def test_one_device_round_matches():
     for g, w in zip(pytree.tree_leaves(got),
                     jax.tree_util.tree_leaves(want)):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-6)
+
+
+# ------------------------------------------------- the last public surface
+# pytree helpers, solve_population, the backhaul's wire factor, the edge's
+# count, the session's fleet size, strided conv2d, the disabled profiler
+
+def _np_tree(seed, dtype):
+    """Nested dicts whose insertion order is not the sorted order; float32
+    draws, rounded to bf16 when ``dtype`` is bf16."""
+    rng = np.random.default_rng(seed)
+    tree = {"z": {"w": (3, 4), "b": (4,)}, "a": (2, 3, 2),
+            "m": {"y": {"k": (5,)}, "c": (1, 6)}}
+
+    def draw(node):
+        if isinstance(node, dict):
+            return {k: draw(v) for k, v in node.items()}
+        x = rng.standard_normal(node).astype(np.float32)
+        return np.array(jnp.asarray(x, dtype), np.float32)
+    return draw(tree)
+
+
+def _both(tree, dtype):
+    """The same numbers as a reference pytree and a port pytree."""
+    tdtype = torch.bfloat16 if dtype == jnp.bfloat16 else torch.float32
+    # both built in the tree's insertion order (jax.tree.map would sort)
+    return (pytree.tree_map(lambda x: jnp.asarray(x, dtype), tree),
+            pytree.tree_map(lambda x: torch.tensor(x).to(tdtype), tree))
+
+
+def _assert_leaves_equal(got, want):
+    gl = pytree.tree_leaves(got)
+    wl = jax.tree_util.tree_leaves(want)
+    assert len(gl) == len(wl)
+    for g, w in zip(gl, wl):
+        assert str(g.dtype).split(".")[-1] == str(w.dtype), (g.dtype, w.dtype)
+        np.testing.assert_array_equal(g.float().numpy(),
+                                      np.asarray(w, np.float32))
+
+
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16],
+                         ids=["float32", "bfloat16"])
+def test_pytree_helpers_match_the_reference(dtype):
+    """Exact but ``tree_dot``: rtol 1e-6 where the products do not cancel
+    (a tree with itself, with its absolute values), and within 1e-6 of
+    the sum of |products| where they do (a float32 sum in another order
+    than XLA's)."""
+    ja, ta = _both(_np_tree(0, dtype), dtype)
+    jb, tb = _both(_np_tree(1, dtype), dtype)
+    assert pytree.tree_bytes(ta) == jtree.tree_bytes(ja) == \
+        jtree.tree_size(ja) * (2 if dtype == jnp.bfloat16 else 4)
+    _assert_leaves_equal(pytree.tree_zeros_like(ta), jtree.tree_zeros_like(ja))
+    _assert_leaves_equal(pytree.tree_add(ta, tb), jtree.tree_add(ja, jb))
+    for s in (0.3, -1.5, 2):
+        _assert_leaves_equal(pytree.tree_scale(ta, s),
+                             jtree.tree_scale(ja, s))
+    for jd, td in ((jnp.bfloat16, torch.bfloat16),
+                   (jnp.float32, torch.float32)):
+        _assert_leaves_equal(pytree.tree_cast(tb, td),
+                             jtree.tree_cast(jb, jd))
+    jabs = jax.tree.map(jnp.abs, ja)
+    tabs = pytree.tree_map(torch.abs, ta)
+    for (x, y), (u, v) in (((ta, ta), (ja, ja)), ((ta, tabs), (ja, jabs)),
+                           ((tabs, pytree.tree_cast(tabs, torch.float32)),
+                            (jabs, jtree.tree_cast(jabs, jnp.float32)))):
+        got, want = pytree.tree_dot(x, y), jtree.tree_dot(u, v)
+        assert str(got.dtype).split(".")[-1] == str(want.dtype)
+        assert got.dim() == 0
+        np.testing.assert_allclose(float(got), float(want), rtol=1e-6)
+    got, want = pytree.tree_dot(ta, tb), jtree.tree_dot(ja, jb)
+    scale = float(jtree.tree_dot(jabs, jax.tree.map(jnp.abs, jb)))
+    assert abs(float(got) - float(want)) <= 1e-6 * scale
+    assert pytree.tree_size(ta) == jtree.tree_size(ja)
+
+
+@pytest.mark.parametrize("bad", [None, float("nan"), float("inf"),
+                                 float("-inf")])
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16],
+                         ids=["float32", "bfloat16"])
+def test_tree_any_nan_matches_the_reference(dtype, bad):
+    tree = _np_tree(2, dtype)
+    if bad is not None:
+        tree["m"]["y"]["k"][3] = bad
+    jt, tt = _both(tree, dtype)
+    got = pytree.tree_any_nan(tt)
+    assert got.dtype == torch.bool and got.dim() == 0
+    assert bool(got) == bool(jtree.tree_any_nan(jt)) == (bad is not None)
+
+
+def test_named_leaves_and_map_named_match_the_reference():
+    """``named_leaves`` walks keys sorted, ``map_named`` keeps insertion
+    order; both strip the trailing dot, and a bare leaf is named ""."""
+    tree = _np_tree(3, jnp.float32)
+    jt, tt = _both(tree, jnp.float32)
+    jnames = [n for n, _ in jtree.named_leaves(jt)]
+    assert [n for n, _ in pytree.named_leaves(tt)] == jnames
+    assert jnames == sorted(jnames) and jnames[0] == "a"
+    for (_, g), (_, w) in zip(pytree.named_leaves(tt),
+                              jtree.named_leaves(jt)):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    assert list(pytree.named_leaves(tt["a"], "pre.")) == \
+        [("pre", tt["a"])]
+    assert [n for n, _ in pytree.named_leaves(tt["a"])] == \
+        [n for n, _ in jtree.named_leaves(jt["a"])] == [""]
+
+    def paths(tree):
+        out = []
+
+        def walk(node):
+            for k, v in node.items():
+                if isinstance(v, dict):
+                    walk(v)
+                else:
+                    out.append(v)
+        walk(tree)
+        return out
+    tm = pytree.map_named(lambda n, x: n, tt)
+    jm = jtree.map_named(lambda n, x: n, jt)
+    assert tm == jm
+    assert paths(tm) == paths(jm) == ["z.w", "z.b", "a", "m.y.k", "m.c"]
+    assert pytree.map_named(lambda n, x: n, tt["a"], "p.") == "p"
+    _assert_leaves_equal(pytree.map_named(lambda n, x: x * len(n), tt),
+                         jtree.map_named(lambda n, x: x * len(n), jt))
+
+
+def test_solve_population_matches_the_reference_exactly():
+    a, b = np.random.default_rng(12), np.random.default_rng(12)
+    sizes = np.full(12, 40)
+    jf = jpop.make_fleet(a, jpop.FleetConfig(n_devices=12), sizes)
+    tf = population.make_fleet(b, population.FleetConfig(n_devices=12),
+                               sizes)
+    jenvs, tenvs = jf.round_envs(a, 1e6, 3.2e7), tf.round_envs(b, 1e6, 3.2e7)
+    got = schedule.solve_population(tenvs)
+    want = jsched.solve_population(jenvs)
+    assert len(got) == len(want) == 12
+    assert [dataclasses.asdict(s) for s in got] == \
+        [dataclasses.asdict(s) for s in want] == \
+        [dataclasses.asdict(schedule.solve(e)) for e in tenvs]
+
+
+def test_backhaul_costs_and_wire_factor_match_the_reference():
+    """The reference's own cases (``tests/test_topology.py``), both
+    sides: the wire factor derived from the codec unless overridden, the
+    modelled payload and its (latency, energy)."""
+    from repro import topology as jtopo
+    from repro_torch import topology
+    for mod in (jtopo, topology):
+        B = mod.BackhaulConfig
+        assert B.zero_cost().ship_cost(1e6) == (0.0, 0.0)
+        b = B(rate_bps=1e6, latency_s=0.5, energy_per_bit=1e-9,
+              payload_factor=2.0)
+        t, e = b.ship_cost(1e6)
+        assert t == pytest.approx(0.5 + 2.0)
+        assert e == pytest.approx(2e6 * 1e-9)
+        assert b.payload_bits(1e6) == 2e6
+        assert B(codec="int8").wire_factor == 0.5
+        assert B(codec="int8", payload_factor=3.0).wire_factor == 3.0
+        assert B(rate_bps=1e6, codec="bf16",
+                 latency_s=0.0).ship_cost(1e6)[0] == pytest.approx(1.0)
+    for kw in (dict(codec="int8", payload_factor=1.25, rate_bps=3e7,
+                    latency_s=0.02, energy_per_bit=2e-9),
+               dict(codec="bf16"), dict()):
+        jb, tb = jtopo.BackhaulConfig(**kw), topology.BackhaulConfig(**kw)
+        assert dataclasses.asdict(jb) == dataclasses.asdict(tb)
+        assert tb.wire_factor == jb.wire_factor
+        assert tb.payload_bits(12345.0) == jb.payload_bits(12345.0)
+        assert tb.ship_cost(12345.0) == jb.ship_cost(12345.0)
+    assert [f.name for f in dataclasses.fields(topology.BackhaulConfig)] \
+        == [f.name for f in dataclasses.fields(jtopo.BackhaulConfig)]
+
+
+@pytest.mark.parametrize("factor", [0.0, -1.0])
+def test_backhaul_payload_factor_must_be_positive(factor):
+    from repro import topology as jtopo
+    from repro_torch import topology
+    for mod in (jtopo, topology):
+        with pytest.raises(ValueError, match="payload_factor must be > 0"):
+            mod.BackhaulConfig(payload_factor=factor)
+
+
+def test_edge_aggregator_counts_its_absorbs():
+    from repro.topology import edge as jedge
+    from repro_torch.topology import edge
+    tree = _np_tree(4, jnp.float32)
+    jt, tt = _both(tree, jnp.float32)
+    jmask = jax.tree.map(jnp.ones_like, jt)
+    tmask = pytree.tree_map(torch.ones_like, tt)
+    je, te = jedge.EdgeAggregator(0, jt), edge.EdgeAggregator(0, tt)
+    assert te.n_absorbed == je.n_absorbed == 0
+    for w in (1.0, 2.0, 0.5):
+        je.absorb(jt, jmask, w)
+        te.absorb(tt, tmask, w)
+    assert te.n_absorbed == je.n_absorbed == 3
+
+
+def test_set_fleet_size_on_both_telemetry_classes():
+    """The live session hands the fleet size to its registry (rollup
+    engages at the threshold) and records nothing; the null session
+    ignores it."""
+    from repro import telemetry as jtel
+    from repro_torch import telemetry
+    for mod in (jtel, telemetry):
+        tel = mod.Telemetry(rollup=mod.RollupPolicy(device_threshold=8))
+        tel.set_fleet_size(7)
+        assert tel.registry.fleet_size == 7 and not tel.registry.rollup_active
+        tel.set_fleet_size(8)
+        assert tel.registry.fleet_size == 8 and tel.registry.rollup_active
+        assert tel.registry.names() == [] and len(tel.sink) == 0
+        assert mod.NULL_TELEMETRY.set_fleet_size(8) is None
+
+
+@pytest.mark.parametrize("padding", ["SAME", "VALID", ((1, 2), (0, 1)),
+                                     ((2, 2), (1, 1))],
+                         ids=["same", "valid", "asym", "sym"])
+@pytest.mark.parametrize("stride", [1, 2])
+@pytest.mark.parametrize("size", [9, 10], ids=["odd", "even"])
+def test_conv2d_stride_and_padding_match_the_reference(size, stride,
+                                                       padding):
+    """The port's conv takes a (B, C, H, W) view; the reference NHWC."""
+    from repro.models import cnn as jcnn
+    from repro_torch.models import cnn
+    rng = np.random.default_rng(size * 10 + stride)
+    x = rng.standard_normal((2, size, size + 3, 3)).astype(np.float32)
+    for k in (5, 4):
+        p = {"w": rng.standard_normal((k, k, 3, 6)).astype(np.float32),
+             "b": rng.standard_normal(6).astype(np.float32)}
+        want = np.asarray(jcnn.conv2d(
+            {n: jnp.asarray(v) for n, v in p.items()}, jnp.asarray(x),
+            stride=stride, padding=padding))
+        got = cnn.conv2d({n: torch.tensor(v) for n, v in p.items()},
+                         torch.tensor(x).permute(0, 3, 1, 2),
+                         stride=stride, padding=padding)
+        got = got.permute(0, 2, 3, 1).numpy()
+        assert got.shape == want.shape
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+def test_conv2d_default_keeps_its_one_op(monkeypatch):
+    """Stride 1, SAME, an odd kernel: one ``F.conv2d`` with its symmetric
+    pad, no ``F.pad`` (the model's own calls)."""
+    from repro_torch.models import cnn
+    calls = []
+    conv = cnn.F.conv2d
+
+    def record(*args, **kw):
+        calls.append((kw["stride"], kw["padding"]))
+        return conv(*args, **kw)
+
+    def no_pad(*args, **kw):
+        raise AssertionError("F.pad on the stride-1 SAME path")
+    monkeypatch.setattr(cnn.F, "conv2d", record)
+    monkeypatch.setattr(cnn.F, "pad", no_pad)
+    cnn.conv2d({"w": torch.ones(5, 5, 2, 3), "b": torch.zeros(3)},
+               torch.ones(1, 2, 7, 7))
+    assert calls == [(1, (2, 2))]
+
+
+@pytest.mark.parametrize("kw", [dict(out_dir=None),
+                                dict(out_dir="x", enabled=False)],
+                         ids=["no-dir", "disabled"])
+def test_profile_trace_disabled_yields_none(tmp_path, kw):
+    from repro_torch.telemetry import profile_trace
+    if kw["out_dir"] is not None:
+        kw = dict(kw, out_dir=str(tmp_path / kw["out_dir"]))
+    with profile_trace(**kw) as prof_dir:
+        assert prof_dir is None
+        assert torch.autograd.profiler._is_profiler_enabled is False
+    assert list(tmp_path.iterdir()) == []
