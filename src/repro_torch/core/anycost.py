@@ -15,6 +15,7 @@ import torch
 from repro_torch.core import aggregation, compression, shrinking
 from repro_torch.core.schedule import Strategy
 from repro_torch.models.registry import Model, loss_fn
+from repro_torch.telemetry import wallclock
 from repro_torch.utils.pytree import (flat_vector, split_vector,
                                       tree_leaves, tree_map, tree_size,
                                       tree_sub, tree_unflatten)
@@ -64,13 +65,14 @@ class AnycostClient:
         lr = self.lr
         p = tree_map(lambda t: t.detach().clone(), params)
         for s in range(batches["images"].shape[0]):
-            batch = {k: v[s] for k, v in batches.items()}
-            leaves = [t.requires_grad_() for t in tree_leaves(p)]
-            loss = loss_fn(self.model, tree_unflatten(p, leaves), batch)
-            grads = torch.autograd.grad(loss, leaves)
-            with torch.no_grad():
-                p = tree_unflatten(p, [a - lr * g.to(a.dtype)
-                                       for a, g in zip(leaves, grads)])
+            with wallclock.span("train.step"):
+                batch = {k: v[s] for k, v in batches.items()}
+                leaves = [t.requires_grad_() for t in tree_leaves(p)]
+                loss = loss_fn(self.model, tree_unflatten(p, leaves), batch)
+                grads = torch.autograd.grad(loss, leaves)
+                with torch.no_grad():
+                    p = tree_unflatten(p, [a - lr * g.to(a.dtype)
+                                           for a, g in zip(leaves, grads)])
         return p
 
     def _local_steps_batched(self, params: PyTree, batches: dict, *,
@@ -87,9 +89,10 @@ class AnycostClient:
         grad = torch.func.grad(lambda q, batch: loss_fn(model, q, batch))
         p, in_dims = params, None if shared else 0
         for s in range(batches["images"].shape[1]):
-            batch = {k: v[:, s] for k, v in batches.items()}
-            g = torch.func.vmap(grad, in_dims=(in_dims, 0))(p, batch)
-            p = tree_map(lambda a, b: a - lr * b.to(a.dtype), p, g)
+            with wallclock.span("train.step"):
+                batch = {k: v[:, s] for k, v in batches.items()}
+                g = torch.func.vmap(grad, in_dims=(in_dims, 0))(p, batch)
+                p = tree_map(lambda a, b: a - lr * b.to(a.dtype), p, g)
             in_dims = 0
         return p
 
@@ -133,27 +136,30 @@ class AnycostClient:
         holds one uniform per element of the full-width update."""
         if sub is None:
             sub = shrinking.shrink(sorted_global, alpha, self.spec)
-        update_sub = tree_sub(sub, trained)          # u = w_before - w_after
-        full_update, width_mask = shrinking.expand_update(
-            update_sub, sorted_global, alpha, self.spec)
-        beta = float(strategy.beta)
-        rho, levels = self.finish_plan(beta, planner)
-        comp = compression.compress_update(full_update, beta, rand,
-                                           rho=rho, n_levels=levels)
-        # the transmitted mask = width mask AND sparsity mask; both trees
-        # are views of one flat buffer each, which the streaming
-        # aggregation reads without a copy
-        mask_vec = flat_vector(width_mask) * flat_vector(comp.mask)
-        mask = split_vector(width_mask, mask_vec)
-        values = split_vector(width_mask,
-                              flat_vector(comp.values) * mask_vec)
-        n = tree_size(full_update)
-        n_samples = n_steps * self.batch_size
-        bits = float(comp.bits)
-        return ClientUpdate(
-            values=values, mask=mask, alpha=alpha, beta_target=beta,
-            beta_realized=bits / (32.0 * n), bits=bits,
-            n_samples=n_samples, flops=alpha * w_per_sample * n_samples)
+        with wallclock.span("materialize.expand"):
+            update_sub = tree_sub(sub, trained)      # u = w_before - w_after
+            full_update, width_mask = shrinking.expand_update(
+                update_sub, sorted_global, alpha, self.spec)
+        with wallclock.span("materialize.compress"):
+            beta = float(strategy.beta)
+            rho, levels = self.finish_plan(beta, planner)
+            comp = compression.compress_update(full_update, beta, rand,
+                                               rho=rho, n_levels=levels)
+            # the transmitted mask = width mask AND sparsity mask; both
+            # trees are views of one flat buffer each, which the streaming
+            # aggregation reads without a copy
+            mask_vec = flat_vector(width_mask) * flat_vector(comp.mask)
+            mask = split_vector(width_mask, mask_vec)
+            values = split_vector(width_mask,
+                                  flat_vector(comp.values) * mask_vec)
+        with wallclock.span("materialize.costs"):
+            n = tree_size(full_update)
+            n_samples = n_steps * self.batch_size
+            bits = float(comp.bits)
+            return ClientUpdate(
+                values=values, mask=mask, alpha=alpha, beta_target=beta,
+                beta_realized=bits / (32.0 * n), bits=bits,
+                n_samples=n_samples, flops=alpha * w_per_sample * n_samples)
 
 
 class AnycostServer:
@@ -180,6 +186,9 @@ class AnycostServer:
             weights = aggregation.optimal_coefficients(
                 [u.alpha for u in updates],
                 [max(u.beta_target, 1e-6) for u in updates])
-        agg = aggregation.aio_aggregate([u.values for u in updates],
-                                        [u.mask for u in updates], weights)
-        return self.apply_update(params, agg)
+        with wallclock.span("aggregate.aio"):
+            agg = aggregation.aio_aggregate([u.values for u in updates],
+                                            [u.mask for u in updates],
+                                            weights)
+        with wallclock.span("aggregate.apply"):
+            return self.apply_update(params, agg)

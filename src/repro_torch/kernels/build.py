@@ -23,6 +23,8 @@ from pathlib import Path
 
 import torch
 
+from repro_torch.telemetry import wallclock
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 SOURCES = ("sparsify", "quantize", "fused_compress", "aio_agg")
@@ -92,8 +94,9 @@ def build_all() -> list[str]:
 def _library(name: str) -> ctypes.CDLL:
     lib = _LIBS.get(name)
     if lib is None:
-        build_all()
-        lib = ctypes.CDLL(str(library_path(name)))
+        with wallclock.span("setup.kernels"):
+            build_all()
+            lib = ctypes.CDLL(str(library_path(name)))
         lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
         lib.repro_cuda_error_string.restype = ctypes.c_char_p
         _LIBS[name] = lib

@@ -34,6 +34,7 @@ import torch
 
 from repro_torch.core import shrinking
 from repro_torch.core.anycost import AnycostClient
+from repro_torch.telemetry import wallclock
 from repro_torch.utils.pytree import tree_leaves, tree_map
 
 PyTree = Any
@@ -75,16 +76,22 @@ class ClientPool:
 
     def _run_group(self, idxs: list[int], jobs: list[TrainJob],
                    params: PyTree, shared: bool) -> list[PyTree]:
-        if len(idxs) == 1:
-            p = params if shared else jobs[idxs[0]].sub_params
-            return [self.client._local_steps(p, jobs[idxs[0]].batches)]
-        stacked_b = _tree_stack([jobs[j].batches for j in idxs])
-        if not shared:
-            params = _tree_stack([jobs[j].sub_params for j in idxs])
-        out = self.client._local_steps_batched(params, stacked_b,
-                                               shared=shared)
-        return [tree_map(lambda x, i=i: x[i], out)
-                for i in range(len(idxs))]
+        first = jobs[idxs[0]]
+        with wallclock.span("train.group", {
+                "alpha": first.alpha, "lanes": len(idxs),
+                "steps": int(first.batches["images"].shape[0])}):
+            if len(idxs) == 1:
+                p = params if shared else first.sub_params
+                return [self.client._local_steps(p, first.batches)]
+            with wallclock.span("train.stack"):
+                stacked_b = _tree_stack([jobs[j].batches for j in idxs])
+                if not shared:
+                    params = _tree_stack([jobs[j].sub_params for j in idxs])
+            out = self.client._local_steps_batched(params, stacked_b,
+                                                   shared=shared)
+            with wallclock.span("train.unstack"):
+                return [tree_map(lambda x, i=i: x[i], out)
+                        for i in range(len(idxs))]
 
     def train_shared(self, sorted_global: PyTree,
                      jobs: list[TrainJob]) -> list[PyTree]:
@@ -93,23 +100,26 @@ class ClientPool:
         job's ``sub_params`` to the shrunk params it trained from."""
         out: list = [None] * len(jobs)
         subs: dict = {}
-        for (alpha, _, _), idxs in self._groups(jobs).items():
-            if alpha not in subs:
-                subs[alpha] = shrinking.shrink(sorted_global, alpha,
-                                               self.client.spec)
-            sub = subs[alpha]
-            for j in idxs:
-                jobs[j].sub_params = sub
-            for j, trained in zip(idxs, self._run_group(idxs, jobs, sub,
-                                                        shared=True)):
-                out[j] = trained
+        with wallclock.span("train"):
+            for (alpha, _, _), idxs in self._groups(jobs).items():
+                if alpha not in subs:
+                    with wallclock.span("train.shrink"):
+                        subs[alpha] = shrinking.shrink(sorted_global, alpha,
+                                                       self.client.spec)
+                sub = subs[alpha]
+                for j in idxs:
+                    jobs[j].sub_params = sub
+                for j, trained in zip(idxs, self._run_group(
+                        idxs, jobs, sub, shared=True)):
+                    out[j] = trained
         return out
 
     def train_stacked(self, jobs: list[TrainJob]) -> list[PyTree]:
         """Train jobs that carry their own (per-version) sub params."""
         out: list = [None] * len(jobs)
-        for idxs in self._groups(jobs).values():
-            for j, trained in zip(idxs, self._run_group(idxs, jobs, None,
-                                                        shared=False)):
-                out[j] = trained
+        with wallclock.span("train"):
+            for idxs in self._groups(jobs).values():
+                for j, trained in zip(idxs, self._run_group(
+                        idxs, jobs, None, shared=False)):
+                    out[j] = trained
         return out

@@ -121,7 +121,7 @@ from repro_torch.orchestrator.policies import (STALE_REQUEUE,
                                                unnormalized_weight)
 from repro_torch.sysmodel.population import FleetConfig, make_fleet
 from repro_torch.telemetry import (NULL_TELEMETRY, MetricsRegistry,
-                                   profile_trace)
+                                   profile_trace, wallclock)
 from repro_torch.topology.codec import (decode_partial, encode_partial,
                                         payload_bits)
 from repro_torch.topology.edge import (CodecErrorFeedback, EdgeAggregator,
@@ -206,6 +206,7 @@ class PendingUpdate:
 class Simulation:
     """Shared state + the per-device round body."""
 
+    @wallclock.spanned("setup.build")
     def __init__(self, run_cfg: FLRunConfig,
                  fleet_cfg: Optional[FleetConfig] = None, *,
                  device="cuda", uniforms: Optional[UniformSource] = None,
@@ -234,27 +235,31 @@ class Simulation:
                 f"trainer (--mode pod, ROADMAP queue 1, 'Pod path' (b))")
         self.model = build_model(arch_cfg)
         self.spec = shrinking.cnn_shrink_spec(arch_cfg)
-        self.train, self.test = make_image_task(
-            rng, run_cfg.n_train, run_cfg.n_test,
-            shape=cnn_mod.image_shape(arch_cfg))
-        test_x = torch.from_numpy(self.test.x).to(self.device)
-        test_y = torch.from_numpy(self.test.y).to(self.device)
         fleet_cfg = self.fleet_cfg = fleet_cfg or FleetConfig()
         # engages the registry's rollup policy (if one was configured)
         # past its threshold; records nothing, so no guard is needed
         self.registry.set_fleet_size(fleet_cfg.n_devices)
-        if run_cfg.iid:
-            self.parts = partition_iid(rng, run_cfg.n_train,
-                                       fleet_cfg.n_devices)
-        else:
-            self.parts = partition_dirichlet(rng, self.train.y,
-                                             fleet_cfg.n_devices,
-                                             run_cfg.dirichlet_alpha)
-        self.fleet = make_fleet(
-            rng, fleet_cfg, np.array([len(p) for p in self.parts]))
+        with wallclock.span("setup.data"):
+            self.train, self.test = make_image_task(
+                rng, run_cfg.n_train, run_cfg.n_test,
+                shape=cnn_mod.image_shape(arch_cfg))
+            if run_cfg.iid:
+                self.parts = partition_iid(rng, run_cfg.n_train,
+                                           fleet_cfg.n_devices)
+            else:
+                self.parts = partition_dirichlet(rng, self.train.y,
+                                                 fleet_cfg.n_devices,
+                                                 run_cfg.dirichlet_alpha)
+        with wallclock.span("setup.test_h2d"):
+            test_x = torch.from_numpy(self.test.x).to(self.device)
+            test_y = torch.from_numpy(self.test.y).to(self.device)
+        with wallclock.span("setup.fleet"):
+            self.fleet = make_fleet(
+                rng, fleet_cfg, np.array([len(p) for p in self.parts]))
         self.W = flops_per_sample(arch_cfg)
-        self.params = self.model.init(
-            torch.Generator().manual_seed(run_cfg.seed), self.device)
+        with wallclock.span("setup.model"):
+            self.params = self.model.init(
+                torch.Generator().manual_seed(run_cfg.seed), self.device)
         self._n_params = tree_size(self.params)
         self.S_bits = 32.0 * self._n_params
         self.client = AnycostClient(self.model, self.spec, lr=run_cfg.lr,
@@ -418,6 +423,7 @@ class Simulation:
             self.planner = compression.BetaPlanner.fit(
                 probe_update, draw(self._n_params))
 
+    @wallclock.spanned("prepare")
     def prepare(self, i: int, env: schedule.DeviceEnv
                 ) -> Optional[PendingUpdate]:
         """Strategy + minibatch draw for device i (consumes the streams in
@@ -425,19 +431,20 @@ class Simulation:
         satisfies the budgets (the device sits this round out); a
         baseline always runs, at its realized cost."""
         rc = self.run_cfg
-        if self.baseline is None:
-            strat = schedule.solve(env)
-            if not strat.feasible:
-                return None
-            if not rc.use_ems:
-                strat = dataclasses.replace(strat, alpha=1.0)
-            if not rc.use_fgc:
-                strat = dataclasses.replace(strat, beta=1.0)
-            alpha = bucket_alpha(strat.alpha, rc.alpha_buckets)
-        else:
-            strat = self.baseline.strategy(env, tier=int(self.tiers[i]))
-            alpha = bucket_alpha(strat.alpha, rc.alpha_buckets) \
-                if rc.method == "heterofl" else 1.0
+        with wallclock.span("prepare.strategy"):
+            if self.baseline is None:
+                strat = schedule.solve(env)
+                if not strat.feasible:
+                    return None
+                if not rc.use_ems:
+                    strat = dataclasses.replace(strat, alpha=1.0)
+                if not rc.use_fgc:
+                    strat = dataclasses.replace(strat, beta=1.0)
+                alpha = bucket_alpha(strat.alpha, rc.alpha_buckets)
+            else:
+                strat = self.baseline.strategy(env, tier=int(self.tiers[i]))
+                alpha = bucket_alpha(strat.alpha, rc.alpha_buckets) \
+                    if rc.method == "heterofl" else 1.0
         draw = self.uniforms.device_stream()
         batches = _device_batches(self.rng, self.train.x, self.train.y,
                                   self.parts[i], rc.batch_size, rc.tau,
@@ -448,9 +455,11 @@ class Simulation:
                              cell=self.fleet.cell_of(i))
 
     def train_one(self, p: PendingUpdate, sorted_params: PyTree) -> PyTree:
-        sub = shrinking.shrink(sorted_params, p.alpha, self.spec)
+        with wallclock.span("train.shrink"):
+            sub = shrinking.shrink(sorted_params, p.alpha, self.spec)
         return self.client._local_steps(sub, p.batches)
 
+    @wallclock.spanned("materialize")
     def materialize(self, p: PendingUpdate, trained: PyTree,
                     sorted_params: PyTree, *,
                     sub: Optional[PyTree] = None) -> PendingUpdate:
@@ -474,18 +483,22 @@ class Simulation:
                     upd, bits=32.0 * strat.alpha * self._n_params,
                     beta_realized=1.0)
         else:
-            full_update, wmask = shrinking.expand_update(
-                tree_sub(sub, trained), sorted_params, p.alpha, self.spec)
-            comp = self.baseline.compress(full_update, env, p.draw)
-            mask = tree_map(lambda a, b: a * b, wmask, comp.mask)
-            vals = tree_map(lambda v, m: v * m, comp.values, mask)
-            n_samp = p.n_steps * rc.batch_size
-            bits = float(comp.bits)
-            upd = ClientUpdate(
-                values=vals, mask=mask, alpha=p.alpha,
-                beta_target=strat.beta, beta_realized=bits / self.S_bits,
-                bits=bits, n_samples=n_samp,
-                flops=p.alpha * self.W * n_samp)
+            with wallclock.span("materialize.expand"):
+                full_update, wmask = shrinking.expand_update(
+                    tree_sub(sub, trained), sorted_params, p.alpha,
+                    self.spec)
+            with wallclock.span("materialize.compress"):
+                comp = self.baseline.compress(full_update, env, p.draw)
+                mask = tree_map(lambda a, b: a * b, wmask, comp.mask)
+                vals = tree_map(lambda v, m: v * m, comp.values, mask)
+            with wallclock.span("materialize.costs"):
+                n_samp = p.n_steps * rc.batch_size
+                bits = float(comp.bits)
+                upd = ClientUpdate(
+                    values=vals, mask=mask, alpha=p.alpha,
+                    beta_target=strat.beta, beta_realized=bits / self.S_bits,
+                    bits=bits, n_samples=n_samp,
+                    flops=p.alpha * self.W * n_samp)
             if rc.method == "fedhq":
                 p.fedhq_level = self.baseline.fedhq_levels(env)
         p.update = upd
@@ -500,6 +513,7 @@ class Simulation:
         p.energy = e_cmp + e_com
         return p
 
+    @wallclock.spanned("aggregate")
     def aggregate(self, sorted_params: PyTree, accepted: list[PendingUpdate],
                   weights: torch.Tensor) -> PyTree:
         """Eq. 5 and the server step."""
@@ -507,6 +521,7 @@ class Simulation:
                                      [p.update for p in accepted],
                                      weights=weights)
 
+    @wallclock.spanned("eval")
     def evaluate(self, params: PyTree) -> tuple[float, float]:
         acc, loss = self.ev(params)
         return float(acc), float(loss)
@@ -653,12 +668,14 @@ def _hier_round_merge(sim: Simulation, policy,
                                          p.fedhq_level) * s
                      for p, s in zip(acc_k, scales_k)]
             if route == "streaming":
-                edge = EdgeAggregator(k, sorted_params)
-                for p, w_un in zip(acc_k, w_uns):
-                    edge.absorb(p.update.values, p.update.mask, w_un)
-                # the exact encoded size (planes + int8 scale headers)
-                # is what the link serializes and the tariff charges
-                enc = sim.encode_ship(k, edge.ship())
+                with wallclock.span("aggregate.edge"):
+                    edge = EdgeAggregator(k, sorted_params)
+                    for p, w_un in zip(acc_k, w_uns):
+                        edge.absorb(p.update.values, p.update.mask, w_un)
+                    # the exact encoded size (planes + int8 scale
+                    # headers) is what the link serializes and the
+                    # tariff charges
+                    enc = sim.encode_ship(k, edge.ship())
                 parts.append((k, enc))
                 bits = enc.bits
                 if tel.enabled and sim.codec_ef is not None:
@@ -702,31 +719,34 @@ def _hier_round_merge(sim: Simulation, policy,
     for _ in ships:
         queue.pop()
     new_params = None
-    if parts:
-        decoded = [(k, decode_partial(e)) for k, e in parts]
-        cell_aggs = []
-        if tel.enabled:
-            # finalize each cell's aggregate now: the cloud merge below
-            # writes into the first decoded partial's planes
-            cell_aggs = [(k, aggregation.partial_finalize(d))
-                         for k, d in decoded]
-        # in place: the first decoded partial becomes the cloud's
-        # accumulator (with f32, that is the edge's own planes)
-        merged = cloud_merge([d for _, d in decoded])
-        new_params = finalize_apply(sorted_params, merged,
-                                    sim.server.server_lr)
-        if tel.enabled:
-            delta = tree_sub(sorted_params, new_params)
-            for k, cell_agg in cell_aggs:
-                sim.learn.record_cell(tel, k, round_idx, cell_agg, delta)
-    elif route_pairs and route == "mesh":
-        new_params = _mesh_route_params(sim, route_pairs, sorted_params)
-    elif route_pairs:              # batched: the flat (I, N) Eq. 5
-        agg = aggregation.aio_aggregate(
-            [p.update.values for p, _ in route_pairs],
-            [p.update.mask for p, _ in route_pairs],
-            torch.tensor([w for _, w in route_pairs], dtype=torch.float32))
-        new_params = sim.server.apply_update(sorted_params, agg)
+    cell_aggs = []
+    with wallclock.span("aggregate.cloud"):
+        if parts:
+            decoded = [(k, decode_partial(e)) for k, e in parts]
+            if tel.enabled:
+                # finalize each cell's aggregate now: the cloud merge
+                # below writes into the first decoded partial's planes
+                cell_aggs = [(k, aggregation.partial_finalize(d))
+                             for k, d in decoded]
+            # in place: the first decoded partial becomes the cloud's
+            # accumulator (with f32, that is the edge's own planes)
+            merged = cloud_merge([d for _, d in decoded])
+            new_params = finalize_apply(sorted_params, merged,
+                                        sim.server.server_lr)
+        elif route_pairs and route == "mesh":
+            new_params = _mesh_route_params(sim, route_pairs,
+                                            sorted_params)
+        elif route_pairs:          # batched: the flat (I, N) Eq. 5
+            agg = aggregation.aio_aggregate(
+                [p.update.values for p, _ in route_pairs],
+                [p.update.mask for p, _ in route_pairs],
+                torch.tensor([w for _, w in route_pairs],
+                             dtype=torch.float32))
+            new_params = sim.server.apply_update(sorted_params, agg)
+    if parts and tel.enabled:
+        delta = tree_sub(sorted_params, new_params)
+        for k, cell_agg in cell_aggs:
+            sim.learn.record_cell(tel, k, round_idx, cell_agg, delta)
     # latency split along the critical cell: its barrier splits into
     # compute (until the slowest accepted T_cmp elapses) and uplink (the
     # rest); shipping is the backhaul share.  The three sum to lat.
@@ -750,7 +770,7 @@ def _run_round_based(sim: Simulation, policy, orch: OrchestratorConfig,
     params = sim.params
     t_wall = 0.0
 
-    for t in range(rc.rounds):
+    for t in wallclock.loop("round", range(rc.rounds)):
         # round-boundary handover, before dispatch, so the round's
         # channels, selection and edge merges see the new binding; one
         # HANDOVER event a move
@@ -770,11 +790,13 @@ def _run_round_based(sim: Simulation, policy, orch: OrchestratorConfig,
             sim.fleet.cells = new_cells
             n_handover = len(moves)
         envs = sim.fleet.round_envs(sim.rng, sim.W, sim.S_bits, t=t_wall)
-        sorted_params = sim.sort_params(params)
+        with wallclock.span("round.sort"):
+            sorted_params = sim.sort_params(params)
         sim.ensure_planner(sorted_params)
 
-        selected, envs_eff, n_unavail, headroom = sim.gate_round(t_wall,
-                                                                 envs)
+        with wallclock.span("round.gate"):
+            selected, envs_eff, n_unavail, headroom = sim.gate_round(t_wall,
+                                                                     envs)
         t_max_eff = sim.effective_T_max(t_wall)
         occupancy = int(np.bincount(sim.fleet.cells).max()) \
             if sim.fleet.cells is not None else 0
@@ -813,7 +835,8 @@ def _run_round_based(sim: Simulation, policy, orch: OrchestratorConfig,
         if use_pool:
             trained = sim.pool.train_shared(sorted_params, jobs)
         else:
-            trained = [sim.train_one(p, sorted_params) for p in live]
+            with wallclock.span("train"):
+                trained = [sim.train_one(p, sorted_params) for p in live]
 
         en, fl, cb = 0.0, 0.0, 0.0
         en_cmp = en_com = 0.0
@@ -879,14 +902,15 @@ def _run_round_based(sim: Simulation, policy, orch: OrchestratorConfig,
         if not live:               # no device trained this round
             for p in aborted:
                 sim.fleet.debit(p.client_id, p.energy, p.completes_at)
-            hist.log_round(
-                t, latency_s=0.0, energy_j=en, flops=0.0, comm_bits=0.0,
-                mean_alpha=0.0, mean_beta=0.0, mean_gain=0.0,
-                t_wall=t_wall, n_unavailable=n_unavail,
-                n_aborted=len(aborted), mean_soc=sim.mean_soc(t_wall),
-                n_handovers=n_handover, max_cell_occupancy=occupancy,
-                t_max_effective=t_max_eff, energy_train_j=en_cmp,
-                energy_uplink_j=en_com)
+            with wallclock.span("round.log"):
+                hist.log_round(
+                    t, latency_s=0.0, energy_j=en, flops=0.0,
+                    comm_bits=0.0, mean_alpha=0.0, mean_beta=0.0,
+                    mean_gain=0.0, t_wall=t_wall, n_unavailable=n_unavail,
+                    n_aborted=len(aborted), mean_soc=sim.mean_soc(t_wall),
+                    n_handovers=n_handover, max_cell_occupancy=occupancy,
+                    t_max_effective=t_max_eff, energy_train_j=en_cmp,
+                    energy_uplink_j=en_com)
             if sim.fleet_dynamic:
                 # the server idles a deadline, so that traces and
                 # batteries move on (a static fleet must not drift)
@@ -896,10 +920,11 @@ def _run_round_based(sim: Simulation, policy, orch: OrchestratorConfig,
         bh_bits, n_cells_rep, e_ship = 0.0, 0, 0.0
         agg_delta = None
         if sim.topo is not None:
-            (accepted, new_params, lat, e_ship, bh_bits, n_cells_rep,
-             lat_parts) = _hier_round_merge(sim, policy, live, aborted,
-                                            sorted_params, queue, t_wall,
-                                            round_idx=t)
+            with wallclock.span("aggregate"):
+                (accepted, new_params, lat, e_ship, bh_bits, n_cells_rep,
+                 lat_parts) = _hier_round_merge(sim, policy, live, aborted,
+                                                sorted_params, queue,
+                                                t_wall, round_idx=t)
             en += e_ship
             t_wall += lat
             for p in live + aborted:
@@ -934,21 +959,23 @@ def _run_round_based(sim: Simulation, policy, orch: OrchestratorConfig,
                     for p, wv in zip(accepted, w.tolist()):
                         sim.learn.note_contribution(p.client_id, wv)
 
-        log = hist.log_round(
-            t, latency_s=lat, energy_j=en, flops=fl, comm_bits=cb,
-            mean_alpha=float(np.mean([p.update.alpha for p in live])),
-            mean_beta=float(np.mean([p.update.beta_realized
-                                     for p in live])),
-            mean_gain=float(np.mean([p.strat.gain for p in live])),
-            t_wall=t_wall, n_clients=len(accepted),
-            n_dropped=len(live) - len(accepted),
-            n_unavailable=n_unavail, n_aborted=len(aborted),
-            mean_soc=sim.mean_soc(t_wall), t_max_effective=t_max_eff,
-            n_cells_reporting=n_cells_rep, backhaul_bits=bh_bits,
-            n_handovers=n_handover, max_cell_occupancy=occupancy,
-            energy_train_j=en_cmp, energy_uplink_j=en_com,
-            energy_backhaul_j=e_ship, latency_train_s=lat_parts[0],
-            latency_uplink_s=lat_parts[1], latency_backhaul_s=lat_parts[2])
+        with wallclock.span("round.log"):
+            log = hist.log_round(
+                t, latency_s=lat, energy_j=en, flops=fl, comm_bits=cb,
+                mean_alpha=float(np.mean([p.update.alpha for p in live])),
+                mean_beta=float(np.mean([p.update.beta_realized
+                                         for p in live])),
+                mean_gain=float(np.mean([p.strat.gain for p in live])),
+                t_wall=t_wall, n_clients=len(accepted),
+                n_dropped=len(live) - len(accepted),
+                n_unavailable=n_unavail, n_aborted=len(aborted),
+                mean_soc=sim.mean_soc(t_wall), t_max_effective=t_max_eff,
+                n_cells_reporting=n_cells_rep, backhaul_bits=bh_bits,
+                n_handovers=n_handover, max_cell_occupancy=occupancy,
+                energy_train_j=en_cmp, energy_uplink_j=en_com,
+                energy_backhaul_j=e_ship, latency_train_s=lat_parts[0],
+                latency_uplink_s=lat_parts[1],
+                latency_backhaul_s=lat_parts[2])
         if tel.enabled:
             if agg_delta is not None:
                 for p in accepted:
@@ -1202,8 +1229,9 @@ def _run_fedbuff(sim: Simulation, policy, orch: OrchestratorConfig,
         if use_pool:
             trained = sim.pool.train_stacked(jobs)
         else:
-            trained = [sim.client._local_steps(j.sub_params, j.batches)
-                       for j in jobs]
+            with wallclock.span("train"):
+                trained = [sim.client._local_steps(j.sub_params, j.batches)
+                           for j in jobs]
         # stream each decoded update into one O(N) AIO accumulator and drop
         # it on the spot: unnormalized weights times the staleness
         # discount (Eq. 5's ratio cancels the cohort normalization)
@@ -1251,8 +1279,9 @@ def _run_fedbuff(sim: Simulation, policy, orch: OrchestratorConfig,
                 b.update = dataclasses.replace(b.update, values=None,
                                                mask=None)
         prev_current = current
-        current = finalize_apply(current, stream_acc.ship(),
-                                 sim.server.server_lr)
+        with wallclock.span("aggregate"):
+            current = finalize_apply(current, stream_acc.ship(),
+                                     sim.server.server_lr)
         if tel.enabled:
             agg_delta = tree_sub(prev_current, current)
             for b in buffer:
@@ -1280,20 +1309,24 @@ def _run_fedbuff(sim: Simulation, policy, orch: OrchestratorConfig,
         lo = max(trig.dispatched_at, last_agg_t)
         compute_end = min(trig.dispatched_at + trig.t_cmp, now)
         lat_train = max(0.0, compute_end - lo)
-        log = hist.log_round(
-            n_agg - 1, latency_s=lat, energy_j=en, flops=fl, comm_bits=cb,
-            mean_alpha=float(np.mean([b.update.alpha for b in buffer])),
-            mean_beta=float(np.mean([b.update.beta_realized
-                                     for b in buffer])),
-            mean_gain=float(np.mean([b.strat.gain for b in buffer])),
-            t_wall=now, n_clients=len(buffer),
-            mean_staleness=float(np.mean([b.staleness for b in buffer])),
-            max_staleness=int(max(b.staleness for b in buffer)),
-            n_stale_dropped=n_stale, n_aborted=n_aborted,
-            mean_soc=sim.mean_soc(now),
-            t_max_effective=sim.effective_T_max(now),
-            energy_train_j=en_cmp, energy_uplink_j=en_com,
-            latency_train_s=lat_train, latency_uplink_s=lat - lat_train)
+        with wallclock.span("round.log"):
+            log = hist.log_round(
+                n_agg - 1, latency_s=lat, energy_j=en, flops=fl,
+                comm_bits=cb,
+                mean_alpha=float(np.mean([b.update.alpha for b in buffer])),
+                mean_beta=float(np.mean([b.update.beta_realized
+                                         for b in buffer])),
+                mean_gain=float(np.mean([b.strat.gain for b in buffer])),
+                t_wall=now, n_clients=len(buffer),
+                mean_staleness=float(np.mean([b.staleness
+                                              for b in buffer])),
+                max_staleness=int(max(b.staleness for b in buffer)),
+                n_stale_dropped=n_stale, n_aborted=n_aborted,
+                mean_soc=sim.mean_soc(now),
+                t_max_effective=sim.effective_T_max(now),
+                energy_train_j=en_cmp, energy_uplink_j=en_com,
+                latency_train_s=lat_train,
+                latency_uplink_s=lat - lat_train)
         if tel.enabled and tel.health is not None:
             tel.health.evaluate(n_agg - 1, now, sim.registry, tel)
         done = orch.max_wallclock_s is None and n_agg >= rc.rounds

@@ -27,6 +27,7 @@ from repro_torch.core.anycost import (AnycostClient, AnycostServer,  # noqa: F40
                                       DEFAULT_ALPHA_BUCKETS)
 from repro_torch.models.registry import cls_loss
 from repro_torch.sysmodel.population import FleetConfig
+from repro_torch.telemetry import wallclock
 
 PyTree = Any
 
@@ -265,15 +266,21 @@ def _make_eval(model, test_x: torch.Tensor, test_y: torch.Tensor):
 def _device_batches(rng: np.random.Generator, x: np.ndarray, y: np.ndarray,
                     idx: np.ndarray, batch_size: int, tau: float,
                     device) -> dict:
-    """Stack tau-epoch minibatches -> (steps, B, ...) tensors on device."""
-    n = len(idx)
-    bs = min(batch_size, n)
-    steps = max(int(round(tau * n / bs)), 1)
-    order = np.concatenate([rng.permutation(n)
-                            for _ in range(math.ceil(steps * bs / n) + 1)])
-    sel = idx[order[:steps * bs]].reshape(steps, bs)
-    return {"images": torch.from_numpy(x[sel]).to(device),
-            "labels": torch.from_numpy(y[sel]).to(device)}
+    """Stack tau-epoch minibatches -> (steps, B, ...) tensors on device;
+    the bytes handed over count as ``h2d_bytes``."""
+    with wallclock.span("prepare.draw"):
+        n = len(idx)
+        bs = min(batch_size, n)
+        steps = max(int(round(tau * n / bs)), 1)
+        order = np.concatenate([rng.permutation(n) for _ in
+                                range(math.ceil(steps * bs / n) + 1)])
+        sel = idx[order[:steps * bs]].reshape(steps, bs)
+        images, labels = x[sel], y[sel]
+    with wallclock.span("prepare.h2d"):
+        out = {"images": torch.from_numpy(images).to(device),
+               "labels": torch.from_numpy(labels).to(device)}
+    wallclock.count("h2d_bytes", images.nbytes + labels.nbytes)
+    return out
 
 
 def run_fl(run_cfg: FLRunConfig, fleet_cfg: Optional[FleetConfig] = None,

@@ -147,6 +147,28 @@ def test_aio_kernel_matches_plain_version_at_main_path_shape(cuda):
     assert torch.equal(got[:100], torch.zeros(100, device=cuda))
 
 
+def test_the_first_kernel_call_times_the_library_load(cuda, monkeypatch):
+    """Under a recorder, the first launch of a kernel whose library this
+    process has not loaded yet records one ``setup.kernels`` span (the
+    build if the cache lacks the library, and the load); later launches
+    record none."""
+    from repro_torch.kernels import build
+    from repro_torch.telemetry import wallclock
+    monkeypatch.setattr(build, "_LIBS", {})
+    monkeypatch.setattr(build, "_FUNCS", {})
+    monkeypatch.setattr(aio_agg._AGGREGATE, "_fn", None)
+    u = torch.ones(3, 1000, device=cuda)
+    w = torch.ones(3, device=cuda)
+    with wallclock.recording() as rec:
+        aio_agg.aio_aggregate(u, u, w)
+        first = rec.spans()
+        for _ in range(3):
+            aio_agg.aio_aggregate(u, u, w)
+    assert first["setup.kernels"].calls == 1
+    assert rec.spans()["setup.kernels"].calls == 1
+    assert first["setup.kernels"].total_ns > 0
+
+
 def test_threshold_and_quantize_kernels_match_plain_versions(cuda):
     """#3 over the whole flat update in one launch, then #4 over the flat
     masked vector, as the beta planner runs them."""
