@@ -14,6 +14,7 @@ import torch
 
 from repro_torch.core import aggregation, compression, shrinking
 from repro_torch.core.schedule import Strategy
+from repro_torch.models import cnn_lanes
 from repro_torch.models.registry import Model, loss_fn
 from repro_torch.telemetry import wallclock
 from repro_torch.utils.pytree import (flat_vector, split_vector,
@@ -81,18 +82,35 @@ class AnycostClient:
         ``batches[k]: (lanes, steps, B, ...)``; ``params`` either one tree
         that every lane starts from (``shared=True``, ``in_dims=None``)
         or stacked ``(lanes, ...)`` (``in_dims=0``).  Each step is one
-        ``torch.func.vmap`` of ``torch.func.grad`` and the same update
-        ``p - lr * grad``; the returned leaves are stacked per lane.  The
-        convolutions sum in another order than one client's alone, so a
-        lane agrees with :meth:`_local_steps` up to float32 rounding."""
+        ``torch.func.vmap`` of the loss's gradient and the same update
+        ``p - lr * grad``; the returned leaves are stacked per lane.  For
+        a CNN the vmapped function is
+        :func:`~repro_torch.models.cnn_lanes.lane_grad`'s, which runs every
+        lane's forward and backward at once with the lane axis written out
+        and differentiates only the loss by ``grad`` (counter
+        ``train.lane_steps``, lanes a step); for any other family it is
+        vmap's per-op batching of ``grad`` of the whole loss
+        (``train.vmap_grad_steps``).  The convolutions sum in another
+        order than one client's alone, so a lane agrees with
+        :meth:`_local_steps` up to float32 rounding."""
         model, lr = self.model, self.lr
-        grad = torch.func.grad(lambda q, batch: loss_fn(model, q, batch))
+        lanes = batches["images"].shape[0]
+        if model.cfg.family == "cnn":
+            # the loss of given logits, as loss_fn defines it
+            logits = model._replace(forward=lambda z, batch, **kw: z)
+            grad = cnn_lanes.lane_grad(
+                lambda z, batch: loss_fn(logits, z, batch))
+            counter = "train.lane_steps"
+        else:
+            grad = torch.func.grad(lambda q, batch: loss_fn(model, q, batch))
+            counter = "train.vmap_grad_steps"
         p, in_dims = params, None if shared else 0
         for s in range(batches["images"].shape[1]):
             with wallclock.span("train.step"):
                 batch = {k: v[:, s] for k, v in batches.items()}
                 g = torch.func.vmap(grad, in_dims=(in_dims, 0))(p, batch)
                 p = tree_map(lambda a, b: a - lr * b.to(a.dtype), p, g)
+                wallclock.count(counter, lanes)
             in_dims = 0
         return p
 

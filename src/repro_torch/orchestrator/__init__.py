@@ -6,7 +6,8 @@
 ``policies``     the sync, semisync and fedbuff arrival/aggregation
                  policies behind one interface.
 ``client_pool``  batched client execution: one ``torch.func.vmap`` call
-                 per width bucket and step.
+                 per width bucket and step (a CNN's lanes written out
+                 inside it, ``models/cnn_lanes``).
 ``runner``       the run loop ``train/fl_loop.run_fl`` delegates to.
 """
 from repro_torch.orchestrator.events import Event, EventQueue

@@ -2,9 +2,12 @@
 
 The synchronous loop trains each simulated device's local SGD in turn,
 one minibatch at a time.  Devices in the same alpha bucket train the
-*same sub-model shape* (EMS slices to the same widths), so their local
-rounds are one ``torch.func.vmap`` over stacked minibatches
-(``AnycostClient._local_steps_batched``):
+*same sub-model shape* (EMS slices to the same widths), so each local
+step of theirs is one ``torch.func.vmap`` call over stacked minibatches
+(``AnycostClient._local_steps_batched``).  Inside that call a CNN runs
+every lane's forward and backward at once with the lane axis written
+out (``models/cnn_lanes``: the convolutions batched GEMMs on a card);
+any other family's steps are vmap's per-op batching of ``grad``:
 
 * ``train_shared``  — every client starts from the same (sorted, shrunk)
   global params (``in_dims=None``), one shrink per bucket instead of one
@@ -16,7 +19,9 @@ rounds are one ``torch.func.vmap`` over stacked minibatches
 
 Groups are keyed by ``(alpha, n_steps, batch signature)`` and taken in
 first-seen order; results come back in job order; a group of one runs
-the plain per-client step.
+the plain per-client step.  A CNN's group larger than the card's free
+memory holds (``cnn_lanes.lanes_that_fit``) trains in runs of as many
+lanes as it does, each run a group of its own.
 
 Unlike the reference, a group is not padded to a power of two of at least
 8 lanes.  The reference pads only to bound XLA's compile cache (one
@@ -34,6 +39,7 @@ import torch
 
 from repro_torch.core import shrinking
 from repro_torch.core.anycost import AnycostClient
+from repro_torch.models import cnn_lanes
 from repro_torch.telemetry import wallclock
 from repro_torch.utils.pytree import tree_leaves, tree_map
 
@@ -74,6 +80,14 @@ class ClientPool:
             groups.setdefault(key, []).append(j)
         return groups
 
+    def _runs(self, idxs: list[int], jobs: list[TrainJob],
+              params: PyTree) -> list[list[int]]:
+        """A group's lanes in runs that the card holds at once."""
+        if self.client.model.cfg.family != "cnn" or len(idxs) == 1:
+            return [idxs]
+        n = cnn_lanes.lanes_that_fit(params, jobs[idxs[0]].batches["images"])
+        return [idxs[i:i + n] for i in range(0, len(idxs), n)]
+
     def _run_group(self, idxs: list[int], jobs: list[TrainJob],
                    params: PyTree, shared: bool) -> list[PyTree]:
         first = jobs[idxs[0]]
@@ -109,9 +123,10 @@ class ClientPool:
                 sub = subs[alpha]
                 for j in idxs:
                     jobs[j].sub_params = sub
-                for j, trained in zip(idxs, self._run_group(
-                        idxs, jobs, sub, shared=True)):
-                    out[j] = trained
+                for run in self._runs(idxs, jobs, sub):
+                    for j, trained in zip(run, self._run_group(
+                            run, jobs, sub, shared=True)):
+                        out[j] = trained
         return out
 
     def train_stacked(self, jobs: list[TrainJob]) -> list[PyTree]:
@@ -119,7 +134,8 @@ class ClientPool:
         out: list = [None] * len(jobs)
         with wallclock.span("train"):
             for idxs in self._groups(jobs).values():
-                for j, trained in zip(idxs, self._run_group(
-                        idxs, jobs, None, shared=False)):
-                    out[j] = trained
+                for run in self._runs(idxs, jobs, jobs[idxs[0]].sub_params):
+                    for j, trained in zip(run, self._run_group(
+                            run, jobs, None, shared=False)):
+                        out[j] = trained
         return out

@@ -18,7 +18,9 @@ Tolerances:
   within 1e-3 of the local update's norm, as ``tests/test_torch_fl.py``
   holds a round's parameters (XLA's and PyTorch's convolution sums can
   tip a near-tie of a max-pool window, which routes one gradient
-  elsewhere: seen at 3.0e-4 of the norm on these inputs);
+  elsewhere: seen at 3.0e-4 of the norm on these inputs); the same jobs
+  through the lanes' batched GEMMs that the pool runs on a card, in
+  float64 on both sides, to the same tolerances;
 - semisync, flat and on a 4-device 2-cell hierarchy: the clients
   accepted and dropped and the cells reporting exact, and the flat
   round's latency (the binding deadline); energy, bits, losses and the
@@ -55,6 +57,7 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import shrinking  # noqa: E402
 from repro_torch.core.anycost import AnycostClient  # noqa: E402
 from repro_torch.launch import train as launch_train  # noqa: E402
+from repro_torch.models import cnn_lanes  # noqa: E402
 from repro_torch.models.registry import build_model  # noqa: E402
 from repro_torch.orchestrator import client_pool, policies  # noqa: E402
 from repro_torch.orchestrator import runner  # noqa: E402
@@ -257,9 +260,13 @@ def _assert_near_reference(got, want, start):
         <= 1e-3 * np.linalg.norm(want - start)
 
 
-@pytest.mark.parametrize("stacked", [False, True])
-def test_client_pool_matches_the_loop_and_the_reference_pool(stacked):
+def _pool_against_loop_and_reference(stacked, dtype=np.float32):
     client, jclient, params, jparams, alphas, batches = _pool_setup()
+    if dtype != np.float32:
+        params = tree_map(lambda x: x.to(torch.float64), params)
+        jparams = jax.tree.map(lambda x: x.astype(dtype), jparams)
+        batches = [dict(b, images=b["images"].astype(dtype))
+                   for b in batches]
     pool, jp = client_pool.ClientPool(client), jpool.ClientPool(jclient)
     tb = [{k: torch.tensor(v) for k, v in b.items()} for b in batches]
     jb = [{k: jax.numpy.asarray(v) for k, v in b.items()} for b in batches]
@@ -286,8 +293,26 @@ def test_client_pool_matches_the_loop_and_the_reference_pool(stacked):
                                              zip(alphas, jb))])
     assert len(got) == len(alphas)
     for g, w, s, b in zip(got, want, subs, tb):
+        assert all(x.dtype == np.dtype(dtype) for x in tree_leaves(w))
         _assert_close(g, client._local_steps(s, b))
         _assert_near_reference(g, w, s)
+
+
+@pytest.mark.parametrize("stacked", [False, True])
+def test_client_pool_matches_the_loop_and_the_reference_pool(stacked):
+    _pool_against_loop_and_reference(stacked)
+
+
+@pytest.mark.parametrize("stacked", [False, True])
+def test_the_cards_lane_gemms_match_the_loop_and_the_reference_pool(
+        monkeypatch, stacked):
+    """The same jobs through the convolutions the pool runs on a card
+    (``cnn_lanes``' batched GEMMs), both sides in float64: in float32 the
+    GEMMs' rounding tips units at a ReLU's zero or a pool's runner-up
+    that the loop's convolution does not (1.3e-2 of an update)."""
+    monkeypatch.setattr(cnn_lanes, "_gemm", lambda x: True)
+    with jax.enable_x64(True):
+        _pool_against_loop_and_reference(stacked, np.float64)
 
 
 # ------------------------------------------------------------------ semisync

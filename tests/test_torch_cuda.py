@@ -490,44 +490,55 @@ def test_flat_baseline_round_launches_quantize_and_aggregate(cuda, method):
     assert np.isfinite(hist.rounds[-1].test_loss)
 
 
-def test_vmapped_group_of_four_lanes_matches_the_loop_on_the_card(cuda):
+@pytest.mark.parametrize("name,alpha,dtype", [
+    ("fmnist-cnn", 0.55, "float32"), ("vgg9-cifar", 0.25, "float64"),
+    ("vgg9-cifar", 0.4, "float64"), ("vgg9-cifar", 1.0, "float64")])
+def test_vmapped_group_of_four_lanes_matches_the_loop_on_the_card(
+        cuda, name, alpha, dtype):
     """The client pool's batched step: one vmapped group of 4 lanes, from
     shared and from stacked parameters, against each client's own
     ``_local_steps`` on the card, 2 steps each on the synthetic task's
-    images as the runs train them: parameters within rtol 1e-5, beside
-    an absolute 1e-5 of the leaf's largest magnitude (the vmapped
-    convolutions sum in another order).  On white-noise images a near-tie
-    of a max-pool window can route one lane's gradient elsewhere (seen on
-    the CPU at 2.2e-5 of the update's norm), which no float tolerance
-    covers."""
+    images as the runs train them, fmnist-cnn and VGG-9 at the cell's
+    three widths: parameters within rtol 1e-5, beside an absolute 1e-5 of
+    the leaf's largest magnitude (the lanes' batched GEMMs sum in another
+    order than cuDNN).  On white-noise images a near-tie of a max-pool
+    window can route one lane's gradient elsewhere (seen on the CPU at
+    2.2e-5 of the update's norm), which no float tolerance covers.  VGG-9
+    pools a hundred times more windows a step, and in float32 such
+    near-ties route a lane's gradient elsewhere at every width (3e-2 of a
+    leaf after two steps, on the card); it runs in float64, where the
+    same code keeps them apart."""
     from repro_torch.configs import get_config
     from repro_torch.core import shrinking
     from repro_torch.core.anycost import AnycostClient
     from repro_torch.data.synthetic import make_image_task
     from repro_torch.device import resolve_device
+    from repro_torch.models.cnn import image_shape
     from repro_torch.models.registry import build_model
     from repro_torch.orchestrator.client_pool import ClientPool, TrainJob
     from repro_torch.utils.pytree import tree_leaves, tree_map
     resolve_device("cuda")              # float32 convolutions, no TF32
-    cfg = get_config("fmnist-cnn")
+    cfg = get_config(name)
     client = AnycostClient(build_model(cfg), shrinking.cnn_shrink_spec(cfg),
                            lr=0.1, batch_size=32)
-    params = shrinking.sort_channels(build_model(cfg).init(
-        torch.Generator().manual_seed(0), cuda), client.spec)
+    dt = getattr(torch, dtype)
+    params = tree_map(lambda x: x.to(dt), shrinking.sort_channels(
+        build_model(cfg).init(torch.Generator().manual_seed(0), cuda),
+        client.spec))
     rng = np.random.default_rng(0)
-    task, _ = make_image_task(rng, 256, 8, shape=(28, 28, 1))
-    batches = [{"images": torch.tensor(task.x[i], device=cuda),
+    task, _ = make_image_task(rng, 256, 8, shape=image_shape(cfg))
+    batches = [{"images": torch.tensor(task.x[i], device=cuda, dtype=dt),
                 "labels": torch.tensor(task.y[i], device=cuda)}
                for i in rng.permutation(256).reshape(4, 2, 32)]
-    sub = shrinking.shrink(params, 0.55, client.spec)
+    sub = shrinking.shrink(params, alpha, client.spec)
     pool = ClientPool(client)
     subs = [tree_map(lambda x, j=j: x * (1.0 - 0.01 * j), sub)
             for j in range(4)]
     for got, starts in (
-            (pool.train_shared(params, [TrainJob(j, 0.55, b)
+            (pool.train_shared(params, [TrainJob(j, alpha, b)
                                         for j, b in enumerate(batches)]),
              [sub] * 4),
-            (pool.train_stacked([TrainJob(j, 0.55, b, sub_params=s)
+            (pool.train_stacked([TrainJob(j, alpha, b, sub_params=s)
                                  for j, (b, s) in enumerate(zip(batches,
                                                                 subs))]),
              subs)):
@@ -537,6 +548,46 @@ def test_vmapped_group_of_four_lanes_matches_the_loop_on_the_card(cuda):
                 assert x.device.type == "cuda"
                 torch.testing.assert_close(
                     x, y, rtol=1e-5, atol=1e-5 * float(y.abs().max()))
+
+
+@pytest.mark.parametrize("name", ["fmnist-cnn", "vgg9-cifar"])
+def test_lane_bytes_bounds_what_a_group_holds_on_the_card(cuda, name):
+    """What a pooled group of 8 full-width lanes, 2 steps of 32 images,
+    adds to the card's peak above its jobs' inputs is at most
+    ``cnn_lanes.lane_bytes`` a lane, and more than half of it: the pool's
+    runs fit the memory and are not cut far shorter than they need."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import shrinking
+    from repro_torch.core.anycost import AnycostClient
+    from repro_torch.device import resolve_device
+    from repro_torch.models import cnn_lanes
+    from repro_torch.models.cnn import image_shape
+    from repro_torch.models.registry import build_model
+    from repro_torch.orchestrator.client_pool import ClientPool, TrainJob
+    resolve_device("cuda")
+    cfg = get_config(name)
+    client = AnycostClient(build_model(cfg), shrinking.cnn_shrink_spec(cfg),
+                           lr=0.1, batch_size=32)
+    params = shrinking.sort_channels(build_model(cfg).init(
+        torch.Generator().manual_seed(0), cuda), client.spec)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    batches = [{"images": torch.rand(2, 32, *image_shape(cfg),
+                                     generator=gen, device=cuda),
+                "labels": torch.randint(0, cfg.vocab_size, (2, 32),
+                                        generator=gen, device=cuda)}
+               for _ in range(8)]
+    pool = ClientPool(client)
+    pool.train_shared(params, [TrainJob(j, 1.0, b)
+                               for j, b in enumerate(batches)])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    pool.train_shared(params, [TrainJob(j, 1.0, b)
+                               for j, b in enumerate(batches)])
+    torch.cuda.synchronize()
+    held = (torch.cuda.max_memory_allocated() - base) / 8
+    est = cnn_lanes.lane_bytes(params, batches[0]["images"])
+    assert held <= est < 2 * held, (held, est)
 
 
 @pytest.mark.parametrize("policy", ["sync_pooled", "semisync", "fedbuff"])

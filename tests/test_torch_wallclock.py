@@ -6,7 +6,8 @@ gives the same parameters, ``History`` and event trace with a recorder
 on as with none.  The recorder's tree: one ``prepare`` a device and one
 ``materialize`` a trained device in each round, as many ``train.step``
 as the groups' steps (pooled) or the devices' (unpooled), each self time
-the total less its children's, ``h2d_bytes`` the minibatches' bytes.
+the total less its children's, ``h2d_bytes`` the minibatches' bytes,
+``train.lane_steps`` the lanes' steps of the pool's groups.
 Under ``profile_trace`` (a CPU ``torch.profiler``) every span name is a
 ``user_annotation`` nested in its parent's.  Aggregates stay one per
 name however many spans close.
@@ -168,9 +169,15 @@ def test_the_span_tree_of_a_round(runs, method, pool):
         assert 0 <= st.self_ns <= st.total_ns
     sample = sim.train.x[0].nbytes + sim.train.y[0].nbytes
     bs = sim.run_cfg.batch_size
-    assert rec.counters() == {"h2d_bytes": TINY["rounds"] * sum(
+    want = {"h2d_bytes": TINY["rounds"] * sum(
         _steps(sim, i) * min(bs, len(sim.parts[i])) * sample
         for i in range(N_DEVICES))}
+    # every lane's step of a group of more than one, written out (a CNN)
+    lane_steps = sum(r.info["lanes"] * r.info["steps"] for r in records
+                     if r.name == "train.group" and r.info["lanes"] > 1)
+    if lane_steps:
+        want["train.lane_steps"] = lane_steps
+    assert rec.counters() == want
     assert {"setup.build", "setup.data", "setup.model", "setup.fleet",
             "setup.test_h2d", "round.sort", "round.gate", "round.log",
             "prepare.strategy", "prepare.draw", "prepare.h2d",
