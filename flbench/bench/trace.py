@@ -76,9 +76,36 @@ def reduce_trace(events: list[dict]) -> dict:
             "idle_by_phase": dict(gaps)}
 
 
-def profile_rounds(step, n_rounds: int) -> dict:
+def device_by_phase(events: list[dict]) -> dict:
+    """Device seconds (the union of their intervals) of the kernels,
+    copies and memsets launched inside each ``flbench.<phase>``
+    annotation but the round, by phase: a device event is tied to its
+    runtime launch by the trace's ``correlation`` and goes to the
+    innermost annotation around the launch on the host."""
+    phases = [(e["ts"], e["ts"] + e["dur"], e["name"][len("flbench."):])
+              for e in events if e.get("cat") == "user_annotation"
+              and e.get("name", "").startswith("flbench.")
+              and e["name"] != "flbench.round" and "dur" in e]
+    launched = {e["args"]["correlation"]: e["ts"] for e in events
+                if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                and "correlation" in e.get("args", {})}
+    by = defaultdict(list)
+    for e in events:
+        if e.get("cat") not in DEVICE_CATS or "dur" not in e:
+            continue
+        t = launched.get(e.get("args", {}).get("correlation"))
+        inside = [p for p in phases if t is not None and p[0] <= t <= p[1]]
+        if inside:
+            name = min(inside, key=lambda p: p[1] - p[0])[2]
+            by[name].append((e["ts"], e["ts"] + e["dur"]))
+    return {k: union_length(v) * 1e-6 for k, v in by.items()}
+
+
+def profile_rounds(step, n_rounds: int, reducers: dict | None = None
+                   ) -> dict:
     """Run ``step()`` ``n_rounds`` times under the profiler; the reduced
-    trace."""
+    trace, with ``{key: reducer(events)}`` beside it for each of
+    ``reducers``."""
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
 
@@ -98,7 +125,10 @@ def profile_rounds(step, n_rounds: int) -> dict:
             events = json.load(f)["traceEvents"]
     finally:
         os.unlink(path)
-    return reduce_trace(events)
+    out = reduce_trace(events)
+    for key, fn in (reducers or {}).items():
+        out[key] = fn(events)
+    return out
 
 
 def top(d: dict, n: int = 10) -> list:

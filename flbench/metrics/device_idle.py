@@ -1,9 +1,14 @@
-"""Share of the profiled rounds in which no kernel, copy or memset runs on
-the device, in percent."""
+"""Share of the window's rounds in which no kernel, copy or memset runs
+on the device, in percent: one minus the device's busy time a round in
+the profiled rounds (the union of their intervals in the trace) over the
+window's seconds a round.  The window's rounds run without the profiler,
+whose own cost on the host would otherwise count as the device's idle
+time."""
 
 
 def read(ctx):
     tr = ctx.get("trace") or {}
-    if not tr.get("window_s"):
+    if not tr.get("busy_s") or not ctx.get("window_rounds"):
         return None
-    return 100.0 * (1.0 - tr["busy_s"] / tr["window_s"])
+    busy = tr["busy_s"] / ctx["profiled_rounds"]
+    return 100.0 * (1.0 - busy * ctx["window_rounds"] / ctx["window_s"])

@@ -7,8 +7,8 @@ launch counter it reads (``COUNTER``), and ``cost(shape, launches)``:
 the bytes each input is read once and each output written once, and the
 float32 operations, over ``launches`` launches at the cell's shapes
 (``shape``: ``N`` elements of an update, ``K`` kernels of FGC,
-``agg_rows``, the updates each Eq. 5 launch stacked, in order, and
-``folds``, the edge accumulators the absorbs filled).
+``agg``, the (rows, elements) of each Eq. 5 launch's stack, in order,
+and ``folds``, the edge accumulators the absorbs filled).
 """
 from __future__ import annotations
 

@@ -7,28 +7,31 @@ from the root of a checkout.  ``BENCHMARK.json`` names the cell's
 configuration and traffic; their files are ``flbench/configs/<config>.json``
 and ``flbench/traffic/<traffic>.json``, and the cell's own settings (why,
 the checked rounds, the limits of the comparison) are
-``flbench/workloads/<cell>.json``.  Every metric is read by
+``flbench/workloads/<cell>.json``.  The configuration names its program
+(``"program"``), the module ``flbench/programs/<program>.py`` that builds
+the system under test and follows it with the plain reference
+(``programs/__init__.py``).  Every metric is read by
 ``flbench/metrics/<name>.py``.
 
-A run builds the port's ``Simulation`` from the seed and drives its round
-loop through the checked rounds (set-up: they warm up every shape and
-fit the beta planner; what they produce is recorded, the sampled
-devices' local training step by step), then measures whole rounds for
-``--seconds``.  With ``--trace 1`` the
-window's rounds are timed phase by phase and two more rounds run under
-``torch.profiler``.  Once the window has closed and the program's state
-is freed, the plain reference judges the checked rounds stage by stage
-(``bench/check.py``) and the comparison decides ``correct``.
+A run builds the program from the seed and drives its checked rounds
+(set-up: they warm up every shape, and what they produce is recorded),
+then measures whole rounds for ``--seconds``.  With ``--trace 1`` the
+program's hooks may time the window's rounds phase by phase, and more
+rounds (two, or the cell's ``profiled_rounds``) run under
+``torch.profiler``.  Once the window has closed
+and the program's state is freed, the plain reference judges what the
+checked rounds produced and the comparison decides ``correct``.
 The last line of standard output is the result; the numbers compared,
 each beside its limit, are the last lines of standard error.
 
 The run's context (``ctx``) that the metric readers take holds
 ``setup_s``, ``window_s``, ``window_rounds``, ``window_peak_bytes``, and
 with ``--trace 1`` also ``spans`` (seconds per phase over ``span_rounds``
-rounds), ``trace`` (``bench/trace.reduce_trace``), ``launches`` (the
-program's kernel launch counts over the profiled rounds) and ``shape``
-(``N``, ``K``, ``agg_rows``, ``folds``, ``flops`` of the profiled
-rounds).
+rounds, where the program's hooks time them), ``profiled_rounds``,
+``trace`` (``bench/trace.reduce_trace``), ``launches`` (the program's
+kernel launch counts over the profiled rounds) and ``shape`` (what the
+profiled rounds computed: ``flops`` and the ``peak`` they are held
+against, and the program's own sizes for the kernels' rooflines).
 """
 from __future__ import annotations
 
@@ -59,6 +62,9 @@ if str(HERE) not in sys.path:
 
 #: top-level module names that may not be loaded in a run
 FORBIDDEN = ("jax", "jaxlib", "flax", "repro")
+#: rounds under the profiler in a traced run, unless the cell's settings
+#: name another count (``profiled_rounds``: a long round's trace takes
+#: minutes to export and read)
 PROFILED_ROUNDS = 2
 
 
@@ -117,6 +123,11 @@ def smi(query: str) -> str | None:
 CLOCKS = "clocks.sm,clocks.mem,temperature.gpu,power.draw"
 
 
+def program_module(config: dict):
+    """The module of the program the configuration names."""
+    return importlib.import_module(f"programs.{config['program']}")
+
+
 def run_cell(name: str, seed: int, seconds: float, trace: bool, *,
              device: str = "cuda", overrides: dict | None = None,
              fault=None) -> tuple[dict, list[str]]:
@@ -127,75 +138,71 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, *,
     window (the tests' planted faults)."""
     import torch
 
-    from bench import check, inputs, program, trace as trace_mod
-    from reference import fl as ref_fl, model as ref_model
+    from bench import check, trace as trace_mod
 
     manifest, entry, config, traffic, cell = load_cell(name, overrides)
     on_cuda = device == "cuda"
     sync = torch.cuda.synchronize if on_cuda else (lambda: None)
     sys.path.insert(0, str(ROOT / "src"))
     torch.set_num_threads(1)
+    mod = program_module(config)
 
     # -------------------------------------------------------------- set-up
-    uniforms = inputs.SeededUniforms(seed, device)
-    prog = program.Program(*program.build(config, traffic, seed, uniforms,
-                                          device))
-    if fault is not None:
-        fault(prog)
-    n_rounds = cell["check"]["rounds"]
-    sample = inputs.sample_devices(seed, config["fleet"]["n_devices"],
-                                   cell["check"]["sample"])
-    numels = [x.numel() for x in ref_model.leaves(prog.sim.params)]
-    cap = check.Capture()
-    rec = check.ProgramRecorder(cap, sample, numels)
-    with program.Hooks(prog, observe=rec), \
-            check.StepTap(prog, cap, seed, cell["check"]["per_width"]) as tap:
-        for t in range(n_rounds):
-            rec.t = tap.t = t
-            prog.round()
-    sync()
-    # what set-up left (the data, the capture) is not the window's to walk
-    gc.collect()
-    gc.freeze()
-    setup_s = time.perf_counter() - T0
+    prog = mod.build(config, traffic, cell, seed, device)
+    try:
+        if fault is not None:
+            fault(prog)
+        prog.checked()
+        sync()
+        # what set-up left (the data, the capture) is not the window's to
+        # walk
+        gc.collect()
+        gc.freeze()
+        setup_s = time.perf_counter() - T0
 
-    # -------------------------------------------------------------- window
-    if on_cuda:
-        pre_peak = torch.cuda.max_memory_allocated()
-        torch.cuda.reset_peak_memory_stats()
-    hooks = program.Hooks(prog, timed=True) if trace else None
-    ctx = {"setup_s": setup_s}
-    clocks = [smi(CLOCKS)] if on_cuda else []
-    with hooks or contextlib.nullcontext():
-        t_start = time.perf_counter()
-        ends = []
-        while True:
-            prog.round()
-            ends.append(time.perf_counter() - t_start)
-            if ends[-1] >= seconds:
-                break
-        ctx["window_s"] = ends[-1]
-    if on_cuda:
-        clocks.append(smi(CLOCKS))
-    n = ctx["window_rounds"] = len(ends)
-    ctx["window_peak_bytes"] = torch.cuda.max_memory_allocated() \
-        if on_cuda else 0
-    if trace:
-        ctx["spans"], ctx["span_rounds"] = hooks.take_spans(), n
-        ctx.update(_profiled(prog, config, traffic, trace_mod, ref_model))
-    peak = max(pre_peak, torch.cuda.max_memory_allocated()) \
-        if on_cuda else 0
-    forbidden = loaded_forbidden()
+        # ---------------------------------------------------------- window
+        if on_cuda:
+            pre_peak = torch.cuda.max_memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+        hooks = prog.timed_hooks() if trace else None
+        ctx = {"setup_s": setup_s}
+        clocks = [smi(CLOCKS)] if on_cuda else []
+        with hooks or contextlib.nullcontext():
+            t_start = time.perf_counter()
+            ends = []
+            while True:
+                prog.round()
+                ends.append(time.perf_counter() - t_start)
+                if ends[-1] >= seconds:
+                    break
+            ctx["window_s"] = ends[-1]
+        if on_cuda:
+            clocks.append(smi(CLOCKS))
+        n = ctx["window_rounds"] = len(ends)
+        ctx["window_peak_bytes"] = torch.cuda.max_memory_allocated() \
+            if on_cuda else 0
+        if trace:
+            ctx["spans"] = hooks.take_spans() if hooks is not None else {}
+            ctx["span_rounds"] = n
+            n_prof = ctx["profiled_rounds"] = cell.get("profiled_rounds",
+                                                       PROFILED_ROUNDS)
+            ctx.update(prog.profiled(trace_mod, n_prof))
+        peak = max(pre_peak, torch.cuda.max_memory_allocated()) \
+            if on_cuda else 0
+        forbidden = loaded_forbidden()
 
-    # ------------------------------------------------- the comparison
-    del prog, rec, tap
+        # --------------------------------------------- the comparison
+        cap = prog.release()
+    finally:
+        close = getattr(prog, "close", None)
+        if close is not None:
+            close()
+    del prog, hooks
     gc.unfreeze()
     gc.collect()
     if on_cuda:
         torch.cuda.empty_cache()
-    nums = ref_fl.follow(config, traffic, seed,
-                         inputs.SeededUniforms(seed, device), device, cap,
-                         n_rounds)
+    nums = mod.follow(config, traffic, cell, seed, device, cap)
     correct, shown = check.judge(nums, cell["check"]["limits"])
     forbidden = sorted(set(forbidden) | set(loaded_forbidden()))
     if forbidden:
@@ -235,39 +242,6 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, *,
     lines += [f"reading {k}: {nums[k]:.6g} (no limit)" for k in nums
               if k not in shown]
     return result, lines
-
-
-def _profiled(prog, config, traffic, trace_mod, ref_model) -> dict:
-    """Two more rounds under the profiler, each phase in a
-    ``record_function``; the reduced trace, the launches and the shapes
-    the roofline and the MFU read."""
-    from repro_torch.kernels import ops
-
-    from bench import program
-
-    mdl, data = config["model"], config["data"]
-    shape = {"N": sum(x.numel() for x in ref_model.leaves(prog.sim.params)),
-             "agg_rows": [], "folds": 0, "flops": 0.0}
-    shape["K"] = sum(x.shape[-1] if x.dim() >= 2 else 1
-                     for x in ref_model.leaves(prog.sim.params))
-
-    def observe(name, args, kwargs, out):
-        if name == "prepare" and out is not None:
-            shape["flops"] += 3.0 * ref_model.forward_flops(
-                mdl, out.alpha, out.n_steps * traffic["batch_size"])
-        elif name == "aggregate":
-            shape["agg_rows"].append(len(args[1]))
-        elif name == "encode_ship":         # one edge's fold shipped
-            shape["folds"] += 1
-        elif name == "evaluate":
-            shape["flops"] += ref_model.forward_flops(mdl, 1.0,
-                                                      data["n_test"])
-
-    ops.reset_launch_counts()
-    with program.Hooks(prog, observe=observe, annotate=True):
-        tr = trace_mod.profile_rounds(prog.round, PROFILED_ROUNDS)
-    return {"trace": tr, "launches": dict(ops.launch_counts()),
-            "shape": shape}
 
 
 def main(argv=None) -> int:

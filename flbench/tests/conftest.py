@@ -17,8 +17,19 @@ SMALL = {"data": {"n_train": 192, "n_test": 64}, "fleet": {"n_devices": 6},
 
 
 @pytest.fixture
-def small():
-    return {k: dict(v) for k, v in SMALL.items()}
+def small(request):
+    """A size a CPU test run can hold: the ``small`` groups of the cell's
+    settings (``workloads/<cell>.json``) where the test is run for a
+    cell that has them, :data:`SMALL` otherwise."""
+    sizes = SMALL
+    cell = getattr(getattr(request.node, "callspec", None), "params",
+                   {}).get("cell")
+    if cell is not None:
+        import json
+        settings = json.loads((HERE.parent / "workloads"
+                               / f"{cell}.json").read_text())
+        sizes = settings.get("small", SMALL)
+    return {k: dict(v) for k, v in sizes.items()}
 
 
 @pytest.fixture

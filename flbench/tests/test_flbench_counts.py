@@ -1,5 +1,6 @@
 """The operation and byte counts against hand counts at small shapes."""
 import json
+import math
 
 import pytest
 
@@ -55,7 +56,7 @@ def test_config_sizes_match_the_models():
     ("aio_merge", 24 * 100, 2 * 100),
 ])
 def test_kernel_counts_per_launch(name, n_bytes, n_flops):
-    shape = {"N": 100, "K": 7, "agg_rows": []}
+    shape = {"N": 100, "K": 7, "agg": []}
     assert roofline.kernel(name).cost(shape, 1) == (n_bytes, n_flops)
     assert roofline.kernel(name).cost(shape, 3) == (3 * n_bytes,
                                                      3 * n_flops)
@@ -73,10 +74,18 @@ def test_aio_absorb_counts_the_accumulator_once_a_fold():
 
 
 def test_aio_aggregate_counts_each_launch_by_its_rows():
-    shape = {"N": 10, "agg_rows": [99, 4, 2]}
+    shape = {"agg": [(99, 10), (4, 10), (2, 10)]}
     b, f = roofline.kernel("aio_aggregate").cost(shape, 2)
     assert b == (8 * 4 * 10 + 16 + 40) + (8 * 2 * 10 + 8 + 40)
     assert f == (4 * 4 * 10 + 10) + (4 * 2 * 10 + 10)
+
+
+def test_aio_aggregate_counts_each_launch_by_its_length():
+    # a pod step: one launch a gradient leaf, two pods' rows each
+    shape = {"agg": [(2, 7), (2, 1000)]}
+    b, f = roofline.kernel("aio_aggregate").cost(shape, 2)
+    assert b == (8 * 2 * 7 + 8 + 28) + (8 * 2 * 1000 + 8 + 4000)
+    assert f == (4 * 2 * 7 + 7) + (4 * 2 * 1000 + 1000)
 
 
 def test_bound_is_the_longer_of_bytes_and_operations():
@@ -87,7 +96,7 @@ def test_bound_is_the_longer_of_bytes_and_operations():
 
 def test_roofline_share_from_a_trace():
     n = 1_000_000
-    ctx = {"shape": {"N": n, "K": 10, "agg_rows": [60]},
+    ctx = {"shape": {"N": n, "K": 10, "agg": [(60, n)]},
            "launches": {"aio_aggregate": 1, "aio_absorb": 0},
            "trace": {"kernels": {"void aio_kernel(float const*)": 2e-4,
                                  "void other_kernel()": 1.0}}}
@@ -118,3 +127,46 @@ def test_kernel_name_patterns(name, kernel):
     for other in others:
         assert not any(re.search(p, kernel)
                        for p in roofline.kernel(other).PATTERNS)
+
+
+#: the pod cells' tiny dense decoder (2 layers, d 64, 4 heads of 16,
+#: ff 128, vocab 256)
+TINY = {"n_layers": 2, "d_model": 64, "n_heads": 4, "n_kv_heads": 4,
+        "head_dim": 16, "d_ff": 128, "vocab_size": 256}
+
+
+def test_lm_dense_forward_by_hand():
+    lm = roofline.kernel("lm_dense")
+    # a layer: q, k, v, o 4 x 64 x 64, gate, up, down 3 x 64 x 128; the
+    # unembedding 64 x 256; attention 4 x S x 64 a token a layer
+    macs = 2 * (4 * 64 * 64 + 3 * 64 * 128) + 64 * 256
+    tokens, S = 2 * 32, 32
+    assert lm.forward_flops(TINY, 2, 32) == tokens * (
+        2 * macs + 2 * 4 * S * 64)
+    # grouped heads: k and v shrink with the key-value heads
+    gqa = {**TINY, "n_kv_heads": 1}
+    assert lm.forward_flops(TINY, 1, 1) - lm.forward_flops(gqa, 1, 1) \
+        == 2 * 2 * 2 * 64 * (64 - 16)
+
+
+def test_phi3_step_is_six_n_per_token_and_the_attention():
+    cfg = json.loads((HERE / "configs" / "phi3-mini-3.8b.json").read_text())
+    mdl = cfg["model"]
+    B, S = 4, 1024
+    step = 3 * roofline.kernel("lm_dense").forward_flops(mdl, B, S)
+    d, V, L = mdl["d_model"], mdl["vocab_size"], mdl["n_layers"]
+    # 6 N a token over the weights a product reads (all but the
+    # embedding table, a gather, and the norms' scales), and 12 L S d
+    n_prod = mdl["n_params"] - V * d - (2 * L + 1) * d
+    assert step == 6 * n_prod * B * S + 12 * L * S * d * B * S
+    assert step == pytest.approx(9.64e13, rel=2e-3)
+    # within 3 % of the usual 6 N tokens plus the attention term
+    assert step == pytest.approx(6 * mdl["n_params"] * B * S
+                                 + 12 * L * S * d * B * S, rel=0.03)
+
+
+def test_the_pod_layout_holds_the_configured_parameters():
+    from reference import lm_dense
+    cfg = json.loads((HERE / "configs" / "phi3-mini-3.8b.json").read_text())
+    n = sum(math.prod(s) for _, s, _ in lm_dense.leaves(cfg["model"]))
+    assert n == cfg["model"]["n_params"] == 3_821_079_552

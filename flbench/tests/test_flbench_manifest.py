@@ -76,13 +76,23 @@ def test_each_cell_finds_its_files(cell):
     assert run.metric_names(manifest, entry, True)
 
 
+#: the parameters' dtype each program runs its configurations in
+DTYPES = {"fl_round": ("float32",), "pod_step": ("bfloat16", "float32")}
+
+
 @pytest.mark.parametrize("cfg", MANIFEST["configs"])
 def test_config_files(cfg):
     assert cfg["file"].startswith("flbench/configs/")
     data = json.loads((run.ROOT / cfg["file"]).read_text())
     assert data["name"] == cfg["name"]
-    assert data["model"]["dtype"] == "float32"
+    assert (run.HERE / "programs" / f"{data['program']}.py").is_file()
+    assert data["model"]["dtype"] in DTYPES[data["program"]]
     assert set(cfg["reduced"]) <= set(data)
+    if data["program"] == "pod_step":
+        fam = run.HERE / "reference" / f"lm_{data['model']['family']}.py"
+        assert fam.is_file()
+        assert (run.HERE / "roofline"
+                / f"lm_{data['model']['family']}.py").is_file()
 
 
 def test_pair_of_config_and_traffic_appears_once():
