@@ -1,7 +1,8 @@
 """Config registry: ``--arch <id>`` resolution.
 
 The assigned architectures (public-literature pool) and the paper's own
-models, as in the reference's registry.
+models, as in the reference's registry, and the port's own
+(:data:`PORT_ONLY_ARCHS`), which ``ASSIGNED_ARCHS`` leaves out.
 """
 from __future__ import annotations
 
@@ -26,10 +27,16 @@ _ARCH_MODULES = {
     # paper's own experiment models
     "fmnist-cnn": "fmnist_cnn",
     "vgg9-cifar": "vgg9_cifar",
+    # the port's own: no counterpart in the reference's registry
+    "deepseek-v2-lite": "deepseek_v2_lite",
 }
 
+#: the port's architectures that the reference's registry does not have
+PORT_ONLY_ARCHS = ("deepseek-v2-lite",)
+
 ASSIGNED_ARCHS = tuple(k for k in _ARCH_MODULES
-                       if k not in ("fmnist-cnn", "vgg9-cifar"))
+                       if k not in ("fmnist-cnn", "vgg9-cifar")
+                       + PORT_ONLY_ARCHS)
 
 
 def get_config(arch: str) -> ArchConfig:

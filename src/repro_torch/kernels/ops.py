@@ -10,11 +10,11 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import (aio_agg, fused_compress, quantize, ref,
-                                 sparsify)
+from repro_torch.kernels import (aio_agg, fused_compress, grouped_mm, ref,
+                                 quantize, sparsify)
 
 _COUNTERS = (sparsify.launches, quantize.launches, fused_compress.launches,
-             aio_agg.launches)
+             aio_agg.launches, grouped_mm.launches)
 
 
 def _on_cuda(*tensors: torch.Tensor) -> bool:
@@ -119,6 +119,44 @@ def aio_merge_op(num_a: torch.Tensor, den_a: torch.Tensor,
         return
     num_a.add_(num_b)
     den_a.add_(den_b)
+
+
+def _grouped_route(*tensors: torch.Tensor):
+    """(product, weight-gradient product) of the grouped GEMM on the
+    operands' device: the card's launches or the plain loops."""
+    if _on_cuda(*tensors):
+        return grouped_mm.grouped_mm, grouped_mm.grouped_mm_t
+    return grouped_mm.grouped_mm_ref, grouped_mm.grouped_mm_t_ref
+
+
+class _GroupedMM(torch.autograd.Function):
+    """``grouped_mm``'s product with its backward: the input gradient is
+    the same grouped product by the transposed matrices, the weight
+    gradient the group-wise ``x.T @ dy``; on the card each is one
+    launch."""
+
+    @staticmethod
+    def forward(ctx, x, w, offs):
+        ctx.save_for_backward(x, w, offs)
+        return _grouped_route(x, w, offs)[0](x, w, offs)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w, offs = ctx.saved_tensors
+        dy = dy.contiguous()
+        mm, mm_t = _grouped_route(dy, w, offs)
+        dx = mm(dy, w.transpose(1, 2), offs) if ctx.needs_input_grad[0] \
+            else None
+        dw = mm_t(x, dy, offs) if ctx.needs_input_grad[1] else None
+        return dx, dw, None
+
+
+def grouped_mm_op(x: torch.Tensor, w: torch.Tensor,
+                  offs: torch.Tensor) -> torch.Tensor:
+    """Rows ``offs[g-1]:offs[g]`` of ``x`` (M, k) times ``w[g]`` (k, n),
+    differentiable in ``x`` and ``w``: one launch a product on the card
+    (bf16), a loop over the groups on the CPU."""
+    return _GroupedMM.apply(x, w, offs)
 
 
 def launch_counts() -> dict[str, int]:

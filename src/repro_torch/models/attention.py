@@ -84,16 +84,19 @@ def _scores(qg: torch.Tensor, k: torch.Tensor, scale: float) -> torch.Tensor:
 
 
 def attention_dense(q, k, v, q_pos, k_pos, *, causal=True,
-                    window: Optional[int] = None) -> torch.Tensor:
-    """q:(B,Sq,H,hd) k/v:(B,Sk,Hkv,hd) -> (B,Sq,H,hd)."""
+                    window: Optional[int] = None,
+                    scale: Optional[float] = None) -> torch.Tensor:
+    """q:(B,Sq,H,hd) k:(B,Sk,Hkv,hd) v:(B,Sk,Hkv,vd) -> (B,Sq,H,vd);
+    ``scale`` defaults to ``1/sqrt(hd)``."""
     B, Sq, H, hd = q.shape
-    n_kv = k.shape[2]
-    logits = _scores(_group(q, n_kv), k, _scale(hd))
+    n_kv, vd = k.shape[2], v.shape[-1]
+    logits = _scores(_group(q, n_kv), k, _scale(hd) if scale is None
+                     else scale)
     m = _mask(q_pos, k_pos, causal=causal, window=window)
     logits = torch.where(m[None, None, None], logits, NEG_INF)
     w = torch.softmax(logits, dim=-1)
     out = shd.einsum("bkgqs,bskh->bqkgh", w, v.float())
-    return out.reshape(B, Sq, H, hd).to(q.dtype)
+    return out.reshape(B, Sq, H, vd).to(q.dtype)
 
 
 def _block_update(acc, qi, kj, vj, qp, kp, scale, *, causal, window):
@@ -115,15 +118,17 @@ def _block_update(acc, qi, kj, vj, qp, kp, scale, *, causal, window):
 def attention_blockwise(q, k, v, q_pos, k_pos, *, causal=True,
                         window: Optional[int] = None, block_q: int = 512,
                         block_kv: int = 512,
-                        causal_skip: bool = False) -> torch.Tensor:
-    """Flash-style attention. Shapes as :func:`attention_dense`.
+                        causal_skip: bool = False,
+                        scale: Optional[float] = None) -> torch.Tensor:
+    """Flash-style attention. Shapes and ``scale`` as
+    :func:`attention_dense`.
 
     ``causal_skip=True`` visits only the (i, j<=i) block pairs instead of
     the full grid; it requires ``causal``, ``Sq == Sk`` and equal blocks.
     """
     B, Sq, H, hd = q.shape
     Sk = k.shape[1]
-    n_kv = k.shape[2]
+    n_kv, vd = k.shape[2], v.shape[-1]
     G = H // n_kv
     block_q = min(block_q, Sq)
     block_kv = min(block_kv, Sk)
@@ -134,12 +139,13 @@ def attention_blockwise(q, k, v, q_pos, k_pos, *, causal=True,
     if causal_skip and not (causal and Sq == Sk and block_q == block_kv):
         raise ValueError("causal_skip needs causal attention, Sq == Sk and "
                          "square blocks")
-    scale = _scale(hd)
+    if scale is None:
+        scale = _scale(hd)
     qg = _group(q, n_kv)                                   # (B,Sq,Hkv,G,hd)
     outs = []
     for i in range(nq):
         qs = slice(i * block_q, (i + 1) * block_q)
-        acc = (torch.zeros((B, n_kv, G, block_q, hd), dtype=torch.float32,
+        acc = (torch.zeros((B, n_kv, G, block_q, vd), dtype=torch.float32,
                            device=q.device),
                torch.full((B, n_kv, G, block_q), NEG_INF,
                           dtype=torch.float32, device=q.device),
@@ -152,9 +158,9 @@ def attention_blockwise(q, k, v, q_pos, k_pos, *, causal=True,
                                 window=window)
         out, _, denom = acc
         outs.append(out / torch.clamp(denom, min=1e-30)[..., None])
-    out = torch.stack(outs, 0)                          # (nq,B,Hkv,G,bq,hd)
-    out = out.permute(1, 0, 4, 2, 3, 5).reshape(B, Sq, n_kv, G, hd)
-    return out.reshape(B, Sq, H, hd).to(q.dtype)
+    out = torch.stack(outs, 0)                          # (nq,B,Hkv,G,bq,vd)
+    out = out.permute(1, 0, 4, 2, 3, 5).reshape(B, Sq, n_kv, G, vd)
+    return out.reshape(B, Sq, H, vd).to(q.dtype)
 
 
 def attention_decode(q, k_cache, v_cache, q_pos, k_pos, *,
@@ -175,13 +181,20 @@ def attention_decode(q, k_cache, v_cache, q_pos, k_pos, *,
 
 def attend(q, k, v, q_pos, k_pos, *, causal=True, window=None,
            blockwise_threshold: int = 2048,
-           causal_skip: bool = False) -> torch.Tensor:
-    """Dense up to ``blockwise_threshold`` tokens, blockwise above."""
+           causal_skip: bool = False,
+           scale: Optional[float] = None) -> torch.Tensor:
+    """Dense up to ``blockwise_threshold`` tokens, blockwise above; ``v``
+    may be narrower or wider than ``q`` and ``k`` (latent attention), and
+    ``scale`` defaults to ``1/sqrt(head_dim)``."""
+    # the scale is handed on only where the caller gave one, so a call
+    # without one reaches the dense or blockwise path as it always did
+    given = {} if scale is None else {"scale": scale}
     if q.shape[1] <= blockwise_threshold and k.shape[1] <= blockwise_threshold:
         return attention_dense(q, k, v, q_pos, k_pos, causal=causal,
-                               window=window)
+                               window=window, **given)
     return attention_blockwise(q, k, v, q_pos, k_pos, causal=causal,
-                               window=window, causal_skip=causal_skip)
+                               window=window, causal_skip=causal_skip,
+                               **given)
 
 
 # ------------------------------------------------ the blocks' attention half

@@ -1,5 +1,5 @@
 """Model API over every architecture family: cnn, and the LMs (dense,
-moe, vlm, ssm, hybrid, encdec).
+moe, vlm, ssm, hybrid, encdec, and the port's mla_moe).
 
 ``batch`` dicts carry the model inputs:
   - the LM families: ``tokens (B,S)`` (int32 or int64)
@@ -15,10 +15,12 @@ from typing import Callable, NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch import sharding as shd
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import cnn as cnn_mod
 from repro_torch.models import encdec as encdec_mod
 from repro_torch.models import layers as L
+from repro_torch.models import mla_moe as mla_moe_mod
 from repro_torch.models import transformer as T
 from repro_torch.models import vlm as vlm_mod
 from repro_torch.utils.pytree import tree_map
@@ -58,7 +60,8 @@ def build_model(cfg: ArchConfig) -> Model:
         return Model(cfg, init, forward)
 
     init_fn = {"vlm": vlm_mod.init_vlm,
-               "encdec": encdec_mod.init_encdec}.get(cfg.family, T.init_lm)
+               "encdec": encdec_mod.init_encdec,
+               "mla_moe": mla_moe_mod.init_lm}.get(cfg.family, T.init_lm)
 
     def init(gen: torch.Generator, device=None):
         """Parameters drawn on ``gen``'s device and left there, or moved
@@ -83,6 +86,13 @@ def build_model(cfg: ArchConfig) -> Model:
                                             cfg)
 
         return Model(cfg, init, forward, init_cache, decode)
+
+    if cfg.family == "mla_moe":
+        def forward(params, batch, **kw):
+            return mla_moe_mod.forward(params, batch["tokens"], cfg, **kw)
+
+        return Model(cfg, init, forward, mla_moe_mod.init_cache,
+                     mla_moe_mod.decode)
 
     if cfg.family == "vlm":
         def forward(params, batch, **kw):
@@ -115,6 +125,15 @@ def cls_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 
 
 def loss_fn(model: Model, params, batch, **kw) -> torch.Tensor:
+    """The loss a step differentiates: cross entropy, and where the family
+    has one (mla_moe's balance loss) its auxiliary term added."""
+    if model.cfg.family == "mla_moe":
+        logits, aux = model.forward(params, batch, aux=True, **kw)
+        tokens = batch["tokens"]
+        if shd.is_dtensor(tokens):
+            # the family's logits are whole (``mla_moe.forward``)
+            tokens = tokens.full_tensor()
+        return lm_loss(logits, tokens) + aux
     logits = model.forward(params, batch, **kw)
     if model.cfg.family == "cnn":
         return cls_loss(logits, batch["labels"])

@@ -196,6 +196,12 @@ def count(name: str, n: float) -> None:
         rec._counters[name] = rec._counters.get(name, 0) + n
 
 
+def counting() -> bool:
+    """Whether a recorder is active: a call site that must compute what it
+    counts (a tensor's reduction) asks first."""
+    return _active is not None
+
+
 @contextlib.contextmanager
 def recording() -> Iterator[Recorder]:
     """Activate a fresh :class:`Recorder` for the block (the one active

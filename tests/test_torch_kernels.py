@@ -20,8 +20,9 @@ from repro.kernels import quantize as jax_quant  # noqa: E402
 from repro.kernels import ref as jax_ref  # noqa: E402
 from repro.kernels import sparsify as jax_sparsify  # noqa: E402
 from repro_torch.core import compression  # noqa: E402
-from repro_torch.kernels import (aio_agg, build, fused_compress, ops,  # noqa: E402
-                                 quantize, ref, sparsify)
+from repro_torch.kernels import (aio_agg, build, fused_compress,  # noqa: E402
+                                 grouped_mm, ops, quantize, ref,
+                                 sparsify)
 
 torch.set_num_threads(1)
 
@@ -541,8 +542,13 @@ def test_cpu_route_launches_no_kernel():
     ops.aio_aggregate_op(x, x, torch.ones(4))
     ops.aio_absorb_op(v.clone(), v.clone(), v, v, 0.5)
     ops.aio_merge_op(v.clone(), v.clone(), v, v)
+    ops.grouped_mm_op(x, torch.ones(2, 8, 3),
+                      torch.tensor([1, 4], dtype=torch.int32))
     counts = ops.launch_counts()
-    assert set(counts) == set(ref.ORACLES) and set(counts.values()) == {0}
+    # the eight kernels of the reference's table, and the grouped GEMM's
+    # launches and sizes
+    assert set(counts) == set(ref.ORACLES) | set(grouped_mm.launches)
+    assert set(counts.values()) == {0}
 
 
 def test_operands_off_cpu_and_cuda_raise():
